@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``dismember_tpu_torch``) on one GPU.
+
+Phases, one JSON line each; any failed check raises and fails the run:
+  1. environment: CUDA required; the card's name and power limit as
+     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
+  2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
+  3. kernels: K1 and K3 against their plain PyTorch versions on the card at
+     the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
+     ``predict``'s one row of every catalog item), O(1)-scale inputs and
+     biases, with an all-padding row, a ragged last block, dead parents and
+     missing children; a control (K1's f32 scorer in K3's place) that must
+     fail K3's check; kernel and plain times from CUDA events;
+  4. example-data serving (the main path): CSV -> windows -> category tree
+     -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
+     card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
+     the classic route (K1), and ``predict`` (K1); each route's top-10
+     against the same route with the plain versions on the card, ``predict``
+     on its logits;
+  5. deep catalog: a 1M-item synthetic tree (20 levels) built in memory, an
+     f32 pair table, ``recommend_batch(4096)``: QPS, K3 launches, ids;
+  6. the ``{"kernels": [...]}`` summary;
+  7. last line ``{"ok": true, "device": {...}}``.
+
+Usage: python3 chip_smoke.py   (from the repo root or anywhere; one GPU)
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from dismember_tpu_torch.core.checkpoint import save_pytree  # noqa: E402
+from dismember_tpu_torch.data.ingest import (  # noqa: E402
+    read_csv,
+    unique_items_with_category,
+    user_interactions,
+)
+from dismember_tpu_torch.data.tdm_dataset import generate_split_samples  # noqa: E402
+from dismember_tpu_torch.index.arraytree import ArrayTree  # noqa: E402
+from dismember_tpu_torch.index.tree_io import (  # noqa: E402
+    build_tree,
+    category_sorted_codes,
+    write_tree,
+)
+from dismember_tpu_torch.models.din import DIN, params_from_numpy  # noqa: E402
+from dismember_tpu_torch.models.embedding import embed_lookup  # noqa: E402
+from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel  # noqa: E402
+from dismember_tpu_torch.ops.din_kernel import din_score, din_score_plain  # noqa: E402
+from dismember_tpu_torch.ops.packed_level_kernel import (  # noqa: E402
+    NEG_INF,
+    packed_level,
+    packed_level_plain,
+)
+from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
+    PackedTree,
+    make_packed_beam_fn,
+    make_packed_tree,
+)
+from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
+    filter_topk,
+    make_beam_fn,
+    make_config,
+)
+from dismember_tpu_torch.serving import TDMServing  # noqa: E402
+from dismember_tpu_torch.train.tdm import packed_fns, serving_fns  # noqa: E402
+
+SEED = 0
+BATCH, BEAM, TOPK, SEQ_LEN, E = 4096, 20, 10, 10, 16  # configs/tdm.conf, bench.py
+DEEP_ITEMS = 1_000_000
+# weights and embeddings at O(1) scale (embeddings N(0, 1), weights and
+# biases N(0, 0.5)): logits of a few units and a softmax far from uniform,
+# so a kernel that dropped a scale, a bias or a rounding would show
+EMB_STD, W_STD = 1.0, 0.5
+# Every candidate: |kernel - plain| <= ATOL + RTOL*|plain|.  K1 is f32
+# throughout and differs from its plain version only in summation order.  K3
+# rounds the same operands to bf16 as its plain version; a last-bit
+# difference before one of its rounding points moves that operand by one
+# bf16 ulp on a few candidates, and at most FLIP_SHARE of K3's candidates
+# may lie beyond K1's tolerance.  On an H100 (NVIDIA H100 80GB HBM3, 700 W)
+# K3's largest error over ~3.5M audited candidates was 0.044 and its share
+# beyond K1's tolerance at most 6.7e-5; K3's bound is about twice that error.
+# K1's f32 scorer in K3's place puts 97.6% of candidates beyond K1's
+# tolerance (phase 3's control), so it fails.
+TOL = {"din_score": (1e-5, 2e-4), "packed_level": (1e-1, 1e-2)}
+FLIP_SHARE = 1e-3
+# the H100 SXM's published peaks (NVIDIA H100 datasheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+OUT = ROOT / "build" / "chip_smoke"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def seed_params(num_index: int, rng: np.random.Generator) -> dict:
+    """DIN params pytree from numpy at O(1) scale (EMB_STD, W_STD)."""
+    f = lambda std, *s: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    return {
+        "embedding": f(EMB_STD, num_index, E),
+        "att_linear": {"weight": f(W_STD, E, E)},
+        "mlp1": {"weight": f(W_STD, E, 2 * E), "bias": f(W_STD, E)},
+        "mlp2": {"weight": f(W_STD, 1, E), "bias": f(W_STD, 1)},
+    }
+
+
+def agreement(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """``name``'s check of kernel outputs ``got`` against plain ``ref``."""
+    atol, rtol = TOL[name]
+    err = (got - ref).abs()
+    ok = bool((err <= atol + rtol * ref.abs()).all())
+    out = {"max_abs_err": err.max().item()}
+    if name == "packed_level":
+        f32_atol, f32_rtol = TOL["din_score"]
+        share = (err > f32_atol + f32_rtol * ref.abs()).float().mean().item()
+        ok = ok and share <= FLIP_SHARE
+        out["share_beyond_f32_tol"] = share
+    return {"ok": ok, **out}
+
+
+def within(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    a = agreement(name, got, ref)
+    check(a["ok"], f"{name}: kernel against plain version out of tolerance: {a}")
+    return a
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean ms per call from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def din_flops(n_candidates: int, l: int, e: int) -> int:
+    """f32 operations of one DIN score: scores 2LE + scale L + softmax 4L +
+    probs.seq 2LE + att Linear 2E^2 + mlp1 4E^2 + bias/ReLU 2E + mlp2 2E+1."""
+    return n_candidates * (4 * l * e + 5 * l + 6 * e * e + 4 * e + 1)
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------- phase 3
+def kernels_vs_plain(dev, weights, n_items: int) -> dict:
+    g = torch.Generator().manual_seed(SEED + 1)
+    b, u, l = BATCH, 2 * BEAM, SEQ_LEN
+    seq_e = torch.randn(b, l, E, generator=g) * EMB_STD
+    pad = (torch.rand(b, l, generator=g) < 0.3).float()
+    pad[0] = 1.0  # an all-padding row
+    seq_e[pad > 0] = 0.0
+    seq_e, pad = seq_e.to(dev), pad.to(dev)
+    lib = _cuda.library()
+    stream = _cuda.stream_handle(dev)
+    wptrs = [t.data_ptr() for t in weights]
+    results = {}
+
+    # K1: 4096 rows of 40 candidates; 128 // 40 = 3 rows a block, so the
+    # last block is ragged (4096 = 3 * 1365 + 1); 10% invalid (zero) rows
+    item_e = torch.randn(b, u, E, generator=g) * EMB_STD
+    item_e[torch.rand(b, u, generator=g) < 0.1] = 0.0
+    item_e = item_e.to(dev)
+    k1 = din_score(item_e, seq_e, pad, *weights)
+    p1 = din_score_plain(item_e, seq_e, pad, *weights)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k1).all()), "din_score: non-finite output")
+    agree1 = within("din_score", k1, p1)
+    # predict's shape: one row of every catalog item, wider than a block
+    # (one row a block, in blockIdx.y chunks of 128 candidates); checked,
+    # not timed
+    wide = torch.randn(1, n_items, E, generator=g).to(dev) * EMB_STD
+    ctx = (seq_e[2:3].contiguous(), pad[2:3].contiguous())
+    agree_wide = within("din_score", din_score(wide, *ctx, *weights),
+                        din_score_plain(wide, *ctx, *weights))
+    # the raw launch, timed without the wrapper's checks; the inputs lie in
+    # L2 as on the serving path, whose gather has just written them
+    out = torch.empty_like(k1)
+    launch1 = lambda *p: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
+        *p, *wptrs, out.data_ptr(), b, u, l, E, stream))
+    ptrs = [t.data_ptr() for t in (item_e, seq_e, pad)]
+    by, op = bound(nbytes(item_e, seq_e, pad, *weights, k1), din_flops(b * u, l, E))
+    results["din_score"] = dict(
+        **agree1, ms=time_ms(lambda: launch1(*ptrs)),
+        plain_ms=time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights)),
+        bound_ms=by, bound_by=op, shape=[b, u, l, E],
+        wide={**agree_wide, "shape": list(wide.shape)},
+    )
+
+    # K3: 4096 rows x 20 parents of 128-lane pair rows; 15% missing
+    # children, 10% dead parents and one row with every parent dead
+    rw, used = 128, 2 * E + 6
+    rows = torch.zeros(b, BEAM, rw)
+    rows[..., : 2 * E] = torch.randn(b, BEAM, 2 * E, generator=g) * EMB_STD
+    rows[..., 2 * E : 2 * E + 2] = (torch.rand(b, BEAM, 2, generator=g) < 0.85).float()
+    rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, BEAM, 2), generator=g).float()
+    rows[..., 2 * E + 3 : used : 2] = torch.randint(0, 4096, (b, BEAM, 2), generator=g).float()
+    alive = torch.rand(b, BEAM, generator=g) < 0.9
+    alive[1] = False
+    rows, alive = rows.to(dev), alive.to(dev)
+    ks, kh = packed_level(rows, alive, seq_e, pad, *weights, E)
+    ps, ph = packed_level_plain(rows, alive, seq_e, pad, *weights, E)
+    torch.cuda.synchronize()
+    check(torch.equal(kh.view(torch.int32), ph.contiguous().view(torch.int32)),
+          "packed_level: id lanes not bit-exact")
+    live = ps > NEG_INF / 2
+    check(torch.equal(ks > NEG_INF / 2, live), "packed_level: dead mask differs")
+    check(bool((ks[~live] == ps[~live]).all()), "packed_level: dead scores differ")
+    agree3 = within("packed_level", ks[live], ps[live])
+    # control: K1's f32 scorer on the same candidates (block order) must
+    # fail K3's check, or the check cannot tell a K3 that skips its roundings
+    blk = torch.cat([rows[..., :E], rows[..., E : 2 * E]], dim=1).contiguous()
+    control = agreement("packed_level", din_score(blk, seq_e, pad, *weights)[live], ps[live])
+    check(not control["ok"], f"control: an f32 scorer passes K3's check: {control}")
+    alive_f = alive.float()
+    sc, hl = torch.empty_like(ks), torch.empty_like(kh)
+    launch3 = lambda *p: _cuda.check_launch("packed_level", lib.packed_level_bf16(  # noqa: E731
+        *p, *wptrs, sc.data_ptr(), hl.data_ptr(), b, BEAM, rw, l, E, stream))
+    ptrs = [t.data_ptr() for t in (rows, alive_f, seq_e, pad)]
+    # K3 needs the `used` lanes of each row it is handed, not all 128
+    rows_needed = b * BEAM * used * rows.element_size()
+    by, op = bound(rows_needed + nbytes(alive_f, seq_e, pad, *weights, ks, kh),
+                   din_flops(b * u, l, E))
+    results["packed_level"] = dict(
+        **agree3, ms=time_ms(lambda: launch3(*ptrs)),
+        plain_ms=time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E)),
+        bound_ms=by, bound_by=op, shape=[b, BEAM, rw, l, E],
+        control_f32_scorer=control,
+    )
+    torch.cuda.synchronize()
+    return results
+
+
+# ---------------------------------------------------------------- phase 4
+class NearTieAudit:
+    """Replays a route with the kernel and its plain version scoring the same
+    candidates at every level.  Each kernel score must lie within the
+    kernel's tolerance of the plain one; then wherever the two would choose
+    differently (the next level's top-beam, the final top-k), the plain
+    scores of the two choices differ by at most twice that: a near tie."""
+
+    def __init__(self, name: str, n_levels: int):
+        self.name, self.n_levels = name, n_levels
+        self.level, self.max_err, self.max_share = 0, 0.0, 0.0
+        self.max_gap, self.near_ties = 0.0, 0
+
+    def record(self, ks: torch.Tensor, ps: torch.Tensor, live: torch.Tensor) -> None:
+        a = within(self.name, ks[live], ps[live])
+        self.max_err = max(self.max_err, a["max_abs_err"])
+        self.max_share = max(self.max_share, a.get("share_beyond_f32_tol", 0.0))
+        self.level += 1
+        k = TOPK if self.level == self.n_levels else BEAM
+        ks, ps = torch.where(live, ks, NEG_INF), torch.where(live, ps, NEG_INF)
+        chosen = torch.gather(ps, 1, torch.topk(ks, k, dim=1).indices)
+        gap = (torch.topk(ps, k, dim=1).values - chosen).abs()
+        # both choices lie within this level's error of the plain scores
+        limit = 2 * a["max_abs_err"] + 1e-6 * (1 + ps[live].abs().max().item())
+        check(bool((gap <= limit).all()),
+              f"{self.name}: a choice differs beyond a near tie ({gap.max().item():.3e})")
+        self.max_gap = max(self.max_gap, gap.max().item())
+        self.near_ties += int((gap > 0).any(dim=1).sum())
+
+    def summary(self) -> dict:
+        check(self.level == self.n_levels, f"{self.name}: audited {self.level} levels")
+        return {"levels": self.level, "max_abs_err": self.max_err,
+                "max_share_beyond_f32_tol": self.max_share, "max_choice_gap": self.max_gap,
+                "row_levels_with_near_ties": self.near_ties}
+
+
+def topk_lists(fn, model, codes) -> list:
+    ids, scores = fn(model, codes)
+    return filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), TOPK)
+
+
+def compare_lists(got: list, ref: list) -> int:
+    """Number of rows whose top-k lists differ."""
+    check(len(got) == len(ref), "row count differs")
+    return sum(not np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+def audit_packed(model: DIN, packed: PackedTree, codes, kernel_lists: list) -> dict:
+    """The packed route (K3) against the same route with K3's plain version."""
+    plain = topk_lists(make_packed_beam_fn(packed, DIN.precompute_seq, packed_level_plain),
+                       model, codes)
+    audit = NearTieAudit("packed_level", packed.cfg.max_level - packed.cfg.start_level)
+
+    def audited_level(rows, alive, seq_e, pad, *w):
+        ks, kh = packed_level(rows, alive, seq_e, pad, *w)
+        ps, _ = packed_level_plain(rows, alive, seq_e, pad, *w)
+        audit.record(ks, ps, ps > NEG_INF / 2)
+        return ks, kh
+
+    audited = topk_lists(make_packed_beam_fn(packed, DIN.precompute_seq, audited_level),
+                         model, codes)
+    check(compare_lists(audited, kernel_lists) == 0, "packed route is not deterministic")
+    return {"rows_differing_from_plain": compare_lists(kernel_lists, plain), **audit.summary()}
+
+
+def plain_apply(model: DIN, items, ctx):
+    return din_score_plain(embed_lookup(model.embedding, items), *ctx, *model.scorer_weights())
+
+
+def audit_classic(model: DIN, tree: ArrayTree, codes, kernel_lists: list) -> dict:
+    """The classic route (K1) against the same route with K1's plain version."""
+    plain = topk_lists(make_beam_fn(DIN.forward, tree, BEAM, DIN.precompute_seq,
+                                    plain_apply, device=codes.device), model, codes)
+    cfg = make_config(tree, BEAM)
+    audit = NearTieAudit("din_score", cfg.max_level - cfg.start_level)
+
+    def audited_apply(m, items, ctx):
+        item_e = embed_lookup(m.embedding, items)
+        ks = din_score(item_e, *ctx, *m.scorer_weights())
+        audit.record(ks, din_score_plain(item_e, *ctx, *m.scorer_weights()), items >= 0)
+        return ks
+
+    audited = topk_lists(make_beam_fn(DIN.forward, tree, BEAM, DIN.precompute_seq,
+                                      audited_apply, device=codes.device), model, codes)
+    check(compare_lists(audited, kernel_lists) == 0, "classic route is not deterministic")
+    return {"rows_differing_from_plain": compare_lists(kernel_lists, plain), **audit.summary()}
+
+
+def check_lists(lists: list, tree: ArrayTree) -> None:
+    """topk distinct real items in every row."""
+    real = set(tree.item_ids.tolist())
+    for row in lists:
+        check(len(row) == TOPK, f"a row returned {len(row)} items")
+        check(len(set(row.tolist())) == len(row), "repeated item in a row")
+        check(set(row.tolist()) <= real, "returned id is not an item")
+
+
+def example_data() -> tuple[str, str, np.ndarray, dict]:
+    """The example catalog's tree file, a DIN checkpoint from seeded numpy
+    params, and 4096 query windows."""
+    raw = read_csv(str(ROOT / "data" / "example_data.csv"))
+    samples = generate_split_samples(user_interactions(raw), SEQ_LEN, 2, 0.8)
+    ids, cats = unique_items_with_category(raw)
+    sid, codes = category_sorted_codes(ids, cats)
+    tree_path = str(OUT / "example_tree.bin")
+    write_tree(tree_path, sid, codes, stat=samples.stat)
+    n_codes = (1 << (int(np.log2(codes.max() + 1)) + 1)) - 1
+    ckpt = str(OUT / "example_din")
+    save_pytree(ckpt, seed_params(n_codes, np.random.default_rng(SEED)),
+                meta={"model": "din", "embed_size": E, "seq_len": SEQ_LEN})
+    # every eval window, then train windows up to the batch
+    seqs = np.concatenate([samples.eval_seqs, samples.train_seqs])[:BATCH]
+    check(len(seqs) == BATCH, "not enough windows")
+    return tree_path, ckpt, seqs, {"eval_windows": int(len(samples.eval_seqs)),
+                                   "catalog_items": int(len(sid))}
+
+
+# ---------------------------------------------------------------- phase 5
+def deep_catalog(dev) -> tuple[TDMServing, np.ndarray, dict]:
+    """A 1M-item catalog (bench.py's: ids % 97 categories), built in memory."""
+    t0 = time.perf_counter()
+    ids = np.arange(1, DEEP_ITEMS + 1)
+    sid, codes = category_sorted_codes(ids, ids % 97)
+    tree = ArrayTree.from_loaded(build_tree(sid, codes))
+    pre, app = serving_fns("din")
+    _, app_emb = packed_fns("din")
+    num_index = (1 << (tree.max_level + 1)) - 1  # train.tdm.build_model's
+    model = params_from_numpy(seed_params(num_index, np.random.default_rng(SEED + 2)),
+                              device=dev)
+    serv = TDMServing(model, DIN.forward, tree, precompute=pre, apply=app,
+                      apply_emb=app_emb, model_type="din", topk=TOPK, candidate_num=BEAM)
+    rng = np.random.default_rng(SEED + 3)
+    seqs = rng.integers(1, DEEP_ITEMS + 1, size=(BATCH, SEQ_LEN))
+    seqs[:, :3] = np.where(rng.random((BATCH, 3)) < 0.3, 0, seqs[:, :3])  # padding
+    return serv, seqs, {"items": DEEP_ITEMS, "max_level": tree.max_level,
+                        "setup_s": time.perf_counter() - t0}
+
+
+def main() -> int:
+    # ---- 1. environment
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    OUT.mkdir(parents=True, exist_ok=True)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    lib_path = _cuda.library_path()
+    _cuda.library()
+    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
+             if "Compiling entry" in ln or "registers" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas})
+
+    # ---- 3. kernels against their plain versions
+    tree_path, ckpt, seqs, facts4 = example_data()  # set-up of the main path
+    weights = tuple(t.detach() for t in params_from_numpy(
+        seed_params(7, np.random.default_rng(SEED + 4)), device=dev).scorer_weights())
+    kern = kernels_vs_plain(dev, weights, facts4["catalog_items"])
+    emit({"phase": "kernels", "tolerance": TOL, "flip_share": FLIP_SHARE, **kern})
+
+    deep, deep_seqs, facts5 = deep_catalog(dev)  # set-up of the main path
+
+    # ---- 4 + 5. the main path: launch counts zeroed just before, read just after
+    din_kernel.launches = packed_level_kernel.launches = 0
+    t0 = time.perf_counter()
+    serv = TDMServing.load(ckpt, tree_path, topk=TOPK, candidate_num=BEAM)
+    packed_lists = serv.recommend_batch(seqs)  # auto route: packed (K3)
+    k3_example = packed_level_kernel.launches
+    classic = TDMServing.load(ckpt, tree_path, topk=TOPK, candidate_num=BEAM, packed=False)
+    classic_lists = classic.recommend_batch(seqs)  # classic route (K1)
+    k1_classic = din_kernel.launches
+    pred_items = serv.tree.item_ids.astype(np.int64)
+    pred = serv.predict(seqs[0], pred_items)  # K1 over the whole catalog
+    facts4["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deep.recommend_batch(deep_seqs)  # the first call builds the pair table
+    facts5["first_call_s"] = time.perf_counter() - t0
+    calls = 5
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        deep_lists = deep.recommend_batch(deep_seqs)
+    elapsed = time.perf_counter() - t0
+    launches = {"din_score": din_kernel.launches,
+                "packed_level": packed_level_kernel.launches}
+
+    # ---- 4. checks of the example catalog's routes
+    cfg = make_config(serv.tree, BEAM)
+    levels = cfg.max_level - cfg.start_level
+    check(k3_example == levels, f"packed route: {k3_example} K3 launches, not {levels}")
+    check(k1_classic == levels, f"classic route: {k1_classic} K1 launches, not {levels}")
+    check(launches["din_score"] == levels + 1, "predict did not launch K1 once")
+    check_lists(packed_lists, serv.tree)
+    check_lists(classic_lists, classic.tree)
+    check(pred.shape == pred_items.shape and bool(np.isfinite(pred).all()), "predict output")
+    codes = torch.as_tensor(serv.tree.ids_to_codes(seqs), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        # predict's logits: K1's (as predict computed them) against plain
+        item_codes = torch.as_tensor(serv.tree.ids_to_codes(pred_items[None]),
+                                     dtype=torch.long, device=dev)
+        logits = serv.params(item_codes, codes[:1])[0]
+        check(np.array_equal(torch.sigmoid(logits).cpu().numpy(), pred),
+              "predict is not the sigmoid of K1's logits")
+        logits_plain = plain_apply(serv.params, item_codes,
+                                   serv.params.precompute_seq(codes[:1]))[0]
+    facts4.update(
+        items=serv.tree.num_items, max_level=serv.tree.max_level, batch=BATCH,
+        launches={"packed_route_k3": k3_example, "classic_route_k1": k1_classic,
+                  "predict_k1": launches["din_score"] - k1_classic},
+        packed_vs_plain=audit_packed(
+            serv.params, make_packed_tree(serv.tree, serv.params.embedding, BEAM),
+            codes, packed_lists),
+        classic_vs_plain=audit_classic(classic.params, classic.tree, codes, classic_lists),
+        predict_logits_vs_plain=within("din_score", logits, logits_plain),
+    )
+    emit({"phase": "example_serving", **facts4})
+
+    # ---- 5. checks of the deep catalog
+    dcfg = make_config(deep.tree, BEAM)
+    dlevels = dcfg.max_level - dcfg.start_level
+    k3_deep = launches["packed_level"] - k3_example
+    check(k3_deep == dlevels * (calls + 1),
+          f"deep catalog: {k3_deep} K3 launches, not {dlevels} x {calls + 1}")
+    check_lists(deep_lists, deep.tree)
+    dpacked = make_packed_tree(deep.tree, deep.params.embedding, BEAM)
+    dcodes = torch.as_tensor(deep.tree.ids_to_codes(deep_seqs), dtype=torch.long, device=dev)
+    facts5.update(
+        levels=dlevels, batch=BATCH, calls=calls, k3_launches=k3_deep,
+        pair_table_gb=dpacked.pair_table.numel() * 4 / 1e9,
+        ms_per_batch=elapsed / calls * 1e3, qps=BATCH * calls / elapsed,
+        vs_plain=audit_packed(deep.params, dpacked, dcodes, deep_lists),
+    )
+    emit({"phase": "deep_catalog", **facts5})
+
+    # ---- 6. kernel summary
+    src = "dismember_tpu_torch/csrc/din_kernels.cu"
+    replaces = {"din_score": "dismember_tpu/ops/din_kernel.py:34",
+                "packed_level": "dismember_tpu/ops/packed_level_kernel.py:102"}
+    summary = []
+    errs = {"din_score": max(kern["din_score"]["max_abs_err"],
+                             kern["din_score"]["wide"]["max_abs_err"]),
+            "packed_level": kern["packed_level"]["max_abs_err"]}
+    for name in ("din_score", "packed_level"):
+        k = kern[name]
+        check(launches[name] > 0, f"{name} never launched on the main path")
+        summary.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "ok": True,
+        })
+    emit({"kernels": summary})
+
+    # ---- 7. last line
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

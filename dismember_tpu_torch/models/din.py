@@ -1,0 +1,127 @@
+"""DIN scorer: shared embedding + scaled-dot attention + MLP.
+
+Port of ``dismember_tpu/models/din.py`` (DIN.scala in the reference):
+- one embedding table over all tree-node codes, shared by the target item
+  and the behavior sequence;
+- attention: Q = target embedding, K = V = sequence embeddings, scores
+  scaled by 1/sqrt(E), padded positions masked to MASK_VALUE before the
+  softmax, output through a bias-free Linear(E, E);
+- concat([item, attention]) -> Linear(2E, E) -> ReLU -> Linear(E, 1) logit.
+
+Weights are stored as the JAX package stores them: ``att_linear`` [E, E],
+``mlp1`` [E, 2E] + bias [E], ``mlp2`` [1, E] + bias [1], all applied as
+``x @ W.T`` (``nn.Linear``'s layout).  Every score goes through K1
+(``ops/din_kernel.din_score``); the scorer is forward only, since the CUDA
+kernel has no backward yet.  Init: N(0, 0.05) weights, zero biases,
+drawn on the CPU from an explicit ``torch.Generator`` so a seed gives the
+same model on every device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.models.embedding import embed_lookup
+from dismember_tpu_torch.ops.din_kernel import din_score
+
+_INIT_STD = 0.05
+
+
+class DIN(nn.Module):
+    def __init__(self, num_index: int, embed_size: int, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        e = embed_size
+        self.embedding = nn.Parameter(torch.empty(num_index, e, device=dev))
+        self.att_linear = nn.Linear(e, e, bias=False, device=dev)
+        self.mlp1 = nn.Linear(2 * e, e, device=dev)
+        self.mlp2 = nn.Linear(e, 1, device=dev)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for w in (self.embedding, self.att_linear.weight, self.mlp1.weight,
+                  self.mlp2.weight):
+            w.copy_(torch.randn(w.shape, generator=generator) * _INIT_STD)
+        self.mlp1.bias.zero_()
+        self.mlp2.bias.zero_()
+
+    @property
+    def embed_size(self) -> int:
+        return self.embedding.shape[1]
+
+    def param_tree(self) -> dict:
+        """Parameters keyed as the JAX package's params pytree."""
+        return {
+            "embedding": self.embedding,
+            "att_linear": {"weight": self.att_linear.weight},
+            "mlp1": {"weight": self.mlp1.weight, "bias": self.mlp1.bias},
+            "mlp2": {"weight": self.mlp2.weight, "bias": self.mlp2.bias},
+        }
+
+    def params_numpy(self) -> dict:
+        """The params pytree as numpy arrays (loads into the JAX package)."""
+
+        def conv(node):
+            if isinstance(node, dict):
+                return {k: conv(v) for k, v in node.items()}
+            return node.detach().cpu().numpy()
+
+        return conv(self.param_tree())
+
+    @torch.no_grad()
+    def load_numpy(self, params: dict) -> None:
+        """Copy a params pytree of arrays in; shapes must match."""
+
+        def copy(dst, src, path):
+            if isinstance(dst, dict):
+                for k in dst:
+                    copy(dst[k], src[k], f"{path}/{k}" if path else k)
+                return
+            src = torch.tensor(np.asarray(src, dtype=np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"{path}: shape {tuple(src.shape)}, expected {tuple(dst.shape)}"
+                )
+            dst.copy_(src)
+
+        copy(self.param_tree(), params, "")
+
+    def scorer_weights(self) -> tuple[torch.Tensor, ...]:
+        """(att_w, w1, b1, w2, b2) as the kernels take them."""
+        return (self.att_linear.weight, self.mlp1.weight, self.mlp1.bias,
+                self.mlp2.weight, self.mlp2.bias)
+
+    def forward(self, items: torch.Tensor, seqs: torch.Tensor) -> torch.Tensor:
+        """Grouped forward: items [B, U] codes (-1 invalid), seqs [B, L] codes
+        (-1 padding) -> logits [B, U] (pre-sigmoid)."""
+        return self.apply_with_ctx(items, self.precompute_seq(seqs))
+
+    def precompute_seq(self, seqs: torch.Tensor):
+        """Per-query context, computed once for all beam levels:
+        (sequence embeddings [B, L, E], padding mask [B, L] float32)."""
+        seq_e = embed_lookup(self.embedding, seqs)
+        return seq_e, (seqs == PADDING_IDX).to(torch.float32)
+
+    def apply_with_ctx(self, items: torch.Tensor, ctx) -> torch.Tensor:
+        """forward() with the sequence side from :meth:`precompute_seq`."""
+        return self.apply_from_emb(embed_lookup(self.embedding, items), ctx)
+
+    def apply_from_emb(self, item_e: torch.Tensor, ctx) -> torch.Tensor:
+        """Score candidates whose embeddings [B, U, E] are already gathered."""
+        seq_e, pad = ctx
+        return din_score(item_e, seq_e, pad, *self.scorer_weights())
+
+
+def params_from_numpy(params: dict, device="cuda") -> DIN:
+    """A DIN holding the weights of a params pytree of arrays (names and
+    shapes as the JAX package's ``din.init_params``)."""
+    num_index, embed_size = np.shape(params["embedding"])
+    model = DIN(num_index, embed_size, device=device)
+    model.load_numpy(params)
+    return model

@@ -1,0 +1,106 @@
+"""K1: the DIN scorer forward on pre-gathered embeddings.
+
+Replaces the Pallas kernel ``dismember_tpu/ops/din_kernel.py::_din_kernel``
+(entry ``din_forward_pallas``).  :func:`din_score` launches the CUDA kernel
+``din_score_f32`` (``csrc/din_kernels.cu``) for CUDA tensors and runs
+:func:`din_score_plain`, the same arithmetic in plain PyTorch, for CPU
+tensors.  It scores every DIN call of the port: the classic beam loop's
+levels and ``TDMServing.predict``.
+
+On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
+bound by f32 operations (~2.3 kFLOP per candidate on CUDA cores against
+~0.3 KB of input); one thread scores one candidate with the query row's
+sequence tile and the weights in shared memory.  Forward only; the kernel
+is built for E=16 only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from dismember_tpu_torch.constants import MASK_VALUE
+from dismember_tpu_torch.ops import _cuda
+
+# MASK_VALUE rounded to float32 (-FLT_MAX): the double literal lies just past
+# the float32 range, which torch.where refuses
+_MASK_F32 = float(np.float32(MASK_VALUE))
+
+# K1 launches on CUDA tensors; chip_smoke.py zeroes and reads it
+launches = 0
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def score_chain(
+    item_e: torch.Tensor,  # [B, U, E]
+    seq_e: torch.Tensor,  # [B, L, E]
+    pad: torch.Tensor,  # [B, L] float32, 1.0 where padding
+    att_w: torch.Tensor,  # [E, E]
+    w1: torch.Tensor,  # [E, 2E]
+    b1: torch.Tensor,  # [E]
+    w2: torch.Tensor,  # [1, E]
+    b2: torch.Tensor,  # [1]
+    rnd: Callable[[torch.Tensor], torch.Tensor] = _identity,
+) -> torch.Tensor:
+    """DIN scorer in plain PyTorch -> [B, U] logits.  ``rnd`` is applied to
+    every matmul operand (K3 rounds them to bf16; K1 leaves them f32)."""
+    e = item_e.shape[-1]
+    scale = 1.0 / math.sqrt(e)
+    scores = torch.einsum("bue,ble->bul", rnd(item_e), rnd(seq_e)) * scale
+    scores = torch.where(pad[:, None, :] > 0.5, _MASK_F32, scores)
+    probs = torch.softmax(scores, dim=-1)
+    att = torch.einsum("bul,ble->bue", rnd(probs), rnd(seq_e))
+    att_lin = rnd(att) @ rnd(att_w).T
+    h = rnd(item_e) @ rnd(w1[:, :e]).T + rnd(att_lin) @ rnd(w1[:, e:]).T + b1
+    h = torch.relu(h)
+    logit = rnd(h) @ rnd(w2).T + b2
+    return logit[..., 0]
+
+
+def din_score_plain(item_e, seq_e, pad, att_w, w1, b1, w2, b2) -> torch.Tensor:
+    """K1's plain version: all f32."""
+    return score_chain(item_e, seq_e, pad, att_w, w1, b1, w2, b2)
+
+
+def din_score(
+    item_e: torch.Tensor,  # [B, U, E] candidate embeddings (zero rows = invalid)
+    seq_e: torch.Tensor,  # [B, L, E] sequence embeddings
+    pad: torch.Tensor,  # [B, L] float32, 1.0 where padding
+    att_w: torch.Tensor,  # [E, E]
+    w1: torch.Tensor,  # [E, 2E]
+    b1: torch.Tensor,  # [E]
+    w2: torch.Tensor,  # [1, E]
+    b2: torch.Tensor,  # [1]
+) -> torch.Tensor:
+    """DIN logits [B, U]: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    global launches
+    dev = item_e.device
+    if dev.type == "cpu":
+        return din_score_plain(item_e, seq_e, pad, att_w, w1, b1, w2, b2)
+    if dev.type != "cuda":
+        raise ValueError(f"din_score: unsupported device {dev}")
+    b, u, e = item_e.shape
+    l = seq_e.shape[1]
+    name = "din_score"
+    _cuda.check_inputs(name, dev, item_e=item_e, seq_e=seq_e, pad=pad,
+                       att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
+    for arg, t, shape in (("seq_e", seq_e, (b, l, e)), ("pad", pad, (b, l)),
+                          ("att_w", att_w, (e, e)), ("w1", w1, (e, 2 * e)),
+                          ("b1", b1, (e,)), ("w2", w2, (1, e)), ("b2", b2, (1,))):
+        _cuda.check_shape(name, arg, t, shape)
+    out = torch.empty((b, u), dtype=torch.float32, device=dev)
+    code = _cuda.library().din_score_f32(
+        item_e.data_ptr(), seq_e.data_ptr(), pad.data_ptr(), att_w.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), b, u, l, e, _cuda.stream_handle(dev),
+    )
+    _cuda.check_launch(name, code)
+    launches += 1
+    return out

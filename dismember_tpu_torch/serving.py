@@ -1,0 +1,135 @@
+"""TDM serving facade: load persisted artifacts, score and recommend.
+
+Port of ``TDMServing`` from ``dismember_tpu/serving.py`` (TDM.scala's
+``predict`` = sigmoid scores, ``recommend`` = beam search + consumed filter +
+top-k).  Trees with ``max_level >= 8`` serve through the packed pair-table
+loop (K3 per level), smaller ones through the classic loop (K1 per level);
+``predict`` scores through K1.  A pair table over 4 GB in f32 (where the
+JAX facade switches to bf16 lanes) raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree
+from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.index.arraytree import ArrayTree
+from dismember_tpu_torch.retrieval.packed_beam import (
+    PackedTree,
+    build_pair_table,
+    make_packed_beam_fn,
+)
+from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn, make_config
+from dismember_tpu_torch.train.tdm import build_model, packed_fns, serving_fns
+
+
+class TDMServing:
+    def __init__(self, params, forward, tree: ArrayTree, precompute=None,
+                 apply=None, apply_emb=None, packed: bool | None = None,
+                 model_type: str | None = None,
+                 topk: int = 10, candidate_num: int = 20):
+        self.params = params  # the scorer module (DIN), on its device
+        self.forward = forward
+        self.tree = tree
+        self.precompute = precompute
+        self.apply = apply
+        self.apply_emb = apply_emb
+        # packed pair-table beam: None = auto (on for deep trees)
+        self.packed = packed
+        self.model_type = model_type
+        self.topk = topk
+        self.candidate_num = candidate_num
+        self.device = params.embedding.device
+        self._beam_fns: dict[int, object] = {}
+        self._pair_table = None
+
+    @classmethod
+    def load(cls, model_path: str, tree_path: str, device="cuda",
+             **kwargs) -> "TDMServing":
+        """Load a checkpoint (either package's) and a tree file onto
+        ``device``; raises if ``device`` is CUDA and there is none."""
+        dev = resolve_device(device)
+        tree = ArrayTree.from_file(tree_path)
+        meta = load_meta(model_path)
+        model = build_model(meta["model"], tree.max_level, meta["embed_size"],
+                            meta["seq_len"], device=dev)
+        model.load_numpy(load_pytree(model_path, model.param_tree()))
+        pre, app = serving_fns(meta["model"])
+        _, app_emb = packed_fns(meta["model"])
+        kwargs.setdefault("model_type", meta["model"])
+        return cls(model, type(model).forward, tree, precompute=pre, apply=app,
+                   apply_emb=app_emb, **kwargs)
+
+    @torch.inference_mode()
+    def predict(self, sequence: np.ndarray, items: np.ndarray) -> np.ndarray:
+        """Sigmoid scores of candidate items given a sequence (TDM.predict)."""
+        seq_codes = self._codes(sequence[None, :])
+        item_codes = self._codes(items[None, :])
+        logits = self.forward(self.params, item_codes, seq_codes)
+        return torch.sigmoid(logits[0]).cpu().numpy()
+
+    def _codes(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(
+            self.tree.ids_to_codes(ids), dtype=torch.long, device=self.device
+        )
+
+    def _use_packed(self, cn: int) -> bool:
+        if self.apply_emb is None or self.precompute is None:
+            return False
+        if self.packed is not None:
+            return self.packed
+        # auto: small trees stay on the classic loop rather than build a
+        # pair table for a toy catalog
+        cfg = make_config(self.tree, cn)
+        return self.tree.max_level >= 8 and cfg.max_level - cfg.start_level >= 1
+
+    def _beam_fn(self, cn: int):
+        if cn not in self._beam_fns:
+            if self._use_packed(cn):
+                if self._pair_table is None:
+                    self._pair_table = build_pair_table(
+                        self.params.embedding, self.tree.node_exists,
+                        self.tree.node_id, self.tree.total_codes,
+                    )
+                packed = PackedTree(
+                    pair_table=self._pair_table,
+                    embed_size=self.params.embed_size,
+                    cfg=make_config(self.tree, cn),
+                )
+                self._beam_fns[cn] = make_packed_beam_fn(packed, self.precompute)
+            else:
+                self._beam_fns[cn] = make_beam_fn(
+                    self.forward, self.tree, cn, precompute=self.precompute,
+                    apply=self.apply, device=self.device,
+                )
+        return self._beam_fns[cn]
+
+    def recommend(
+        self,
+        sequence: np.ndarray,
+        topk: int | None = None,
+        candidate_num: int | None = None,
+        consumed: np.ndarray | None = None,
+    ) -> np.ndarray:
+        k = topk or self.topk
+        cn = candidate_num or self.candidate_num
+        if consumed is not None and len(consumed) > 0:
+            cn = max((len(consumed) + k) // 2, cn)
+        return self.recommend_batch(
+            sequence[None, :], topk=k, candidate_num=cn,
+            consumed=[consumed] if consumed is not None else None,
+        )[0]
+
+    def recommend_batch(
+        self,
+        seqs: np.ndarray,
+        topk: int | None = None,
+        candidate_num: int | None = None,
+        consumed: list[np.ndarray] | None = None,
+    ) -> list[np.ndarray]:
+        k = topk or self.topk
+        cn = candidate_num or self.candidate_num
+        ids, scores = self._beam_fn(cn)(self.params, self._codes(seqs))
+        return filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), k, consumed)
