@@ -19,6 +19,23 @@ Phases, one JSON line each; any failed check raises and fails the run:
      on its logits;
   5. deep catalog: a 1M-item synthetic tree (20 levels) built in memory, an
      f32 pair table, ``recommend_batch(4096)``: QPS, K3 launches, ids;
+  example_training (after 5): ``TDMTrainer`` at configs/tdm.conf's settings
+     on the example catalog (auto route: dense), 200 iterations; loss falls,
+     ``evaluate`` on 512 eval windows and ``recommend``, with every K1 call
+     held against its plain version at the shape it was given, same-seed
+     determinism, and dense/mv/pmv agreement on one sampled batch;
+  deep_training: the 1M catalog's trainer (bench.py's, auto route: pmv),
+     a warm-up step and 50 timed steps, one K2 launch each, the packed
+     state against a rerun with K2's plain version, serving the trained
+     table (K3), and 10 timed dense steps at the same catalog for the route
+     comparison;
+  row_kernels: K2 ``write_rows`` and ``add_rows`` against their plain
+     versions bit for bit on tensors taken from the training phases (the
+     last pmv commit of the 1M rerun, the last mv table update of the
+     example catalog's route comparison) and at the spikes' shapes (57,344
+     unique rows into 640 MB tables of widths 16/32/64/128); kernel, plain
+     and library (``index_copy_`` / ``index_add_``) times from CUDA events,
+     and a bytes bound;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
 
@@ -27,6 +44,7 @@ Usage: python3 chip_smoke.py   (from the repo root or anywhere; one GPU)
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -52,9 +70,10 @@ from dismember_tpu_torch.index.tree_io import (  # noqa: E402
     category_sorted_codes,
     write_tree,
 )
+from dismember_tpu_torch.models import din as din_model  # noqa: E402
 from dismember_tpu_torch.models.din import DIN, params_from_numpy  # noqa: E402
 from dismember_tpu_torch.models.embedding import embed_lookup  # noqa: E402
-from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel  # noqa: E402
+from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel, row_writer  # noqa: E402
 from dismember_tpu_torch.ops.din_kernel import din_score, din_score_plain  # noqa: E402
 from dismember_tpu_torch.ops.packed_level_kernel import (  # noqa: E402
     NEG_INF,
@@ -72,7 +91,8 @@ from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
     make_config,
 )
 from dismember_tpu_torch.serving import TDMServing  # noqa: E402
-from dismember_tpu_torch.train.tdm import packed_fns, serving_fns  # noqa: E402
+from dismember_tpu_torch.train import sparse_adam  # noqa: E402
+from dismember_tpu_torch.train.tdm import TDMTrainer, packed_fns, serving_fns  # noqa: E402
 
 SEED = 0
 BATCH, BEAM, TOPK, SEQ_LEN, E = 4096, 20, 10, 10, 16  # configs/tdm.conf, bench.py
@@ -97,6 +117,14 @@ FLIP_SHARE = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 OUT = ROOT / "build" / "chip_smoke"
+# configs/tdm.conf's trainer settings
+TDM_CONF = dict(embed_size=E, learning_rate=1e-4, total_batch_size=8192,
+                total_eval_batch_size=8192, seq_len=SEQ_LEN, topk=TOPK, beam_size=BEAM,
+                layer_neg_counts="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,17,19,22,25,30,76,200")
+# tests/test_tdm_train.py:178's dense-vs-sparse tolerances
+LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 2e-4, 2e-6
+TRAIN_ITERS, DEEP_STEPS, DENSE_STEPS = 200, 50, 10
+SPIKE_ROWS, SPIKE_TABLE_FLOATS = 57_344, 10_000_000 * 16  # scripts/spike_pallas_scatter*.py
 
 
 def emit(obj) -> None:
@@ -139,18 +167,32 @@ def within(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     return a
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean ms per call from CUDA events around ``iters`` calls."""
+def time_ms(fn, iters: int = 50, warmup: int = 5, flush: torch.Tensor | None = None) -> float:
+    """Mean ms per call from CUDA events around ``iters`` calls; with
+    ``flush`` (a buffer larger than the 50 MB L2), the buffer is rewritten
+    before each call and only the calls are timed, so each finds L2 cold."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    if flush is None:
+        a, b = ev(), ev()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+    pairs = []
     for _ in range(iters):
+        flush.zero_()
+        a, b = ev(), ev()
+        a.record()
         fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
@@ -354,9 +396,9 @@ def check_lists(lists: list, tree: ArrayTree) -> None:
         check(set(row.tolist()) <= real, "returned id is not an item")
 
 
-def example_data() -> tuple[str, str, np.ndarray, dict]:
+def example_data():
     """The example catalog's tree file, a DIN checkpoint from seeded numpy
-    params, and 4096 query windows."""
+    params, 4096 query windows, facts, and the train/eval windows."""
     raw = read_csv(str(ROOT / "data" / "example_data.csv"))
     samples = generate_split_samples(user_interactions(raw), SEQ_LEN, 2, 0.8)
     ids, cats = unique_items_with_category(raw)
@@ -371,7 +413,7 @@ def example_data() -> tuple[str, str, np.ndarray, dict]:
     seqs = np.concatenate([samples.eval_seqs, samples.train_seqs])[:BATCH]
     check(len(seqs) == BATCH, "not enough windows")
     return tree_path, ckpt, seqs, {"eval_windows": int(len(samples.eval_seqs)),
-                                   "catalog_items": int(len(sid))}
+                                   "catalog_items": int(len(sid))}, samples
 
 
 # ---------------------------------------------------------------- phase 5
@@ -393,6 +435,291 @@ def deep_catalog(dev) -> tuple[TDMServing, np.ndarray, dict]:
     seqs[:, :3] = np.where(rng.random((BATCH, 3)) < 0.3, 0, seqs[:, :3])  # padding
     return serv, seqs, {"items": DEEP_ITEMS, "max_level": tree.max_level,
                         "setup_s": time.perf_counter() - t0}
+
+
+def zero_launches() -> None:
+    din_kernel.launches = packed_level_kernel.launches = 0
+    row_writer.launches.update(write_rows=0, add_rows=0)
+
+
+def read_launches() -> dict:
+    return {"din_score": din_kernel.launches, "packed_level": packed_level_kernel.launches,
+            **row_writer.launches}
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+# ---------------------------------------------------------------- row kernels
+def row_case(name: str, table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+             flush: torch.Tensor) -> dict:
+    """``name`` ("write_rows" or "add_rows") against its plain version bit
+    for bit on copies of ``table``, then the raw launch's, the plain
+    version's and the one-call library version's times on ``table``, each
+    from a cold L2 (a step's rows land anywhere in a table far larger than
+    L2)."""
+    add = name == "add_rows"
+    wrapper, plain = ((row_writer.add_rows, row_writer.add_rows_plain) if add else
+                      (row_writer.write_rows, row_writer.write_rows_plain))
+    got = wrapper(table.clone(), idx, rows)
+    ref = plain(table.clone(), idx, rows)
+    torch.cuda.synchronize()
+    exact = torch.equal(bits(got), bits(ref))
+    check(exact, f"{name}: kernel differs from its plain version at {tuple(table.shape)}")
+    err = (got - ref).abs().max().item()
+    del got, ref
+    fn = getattr(_cuda.library(), f"{name}_f32")
+    args = (table.data_ptr(), idx.data_ptr(), rows.data_ptr(), table.shape[0], idx.shape[0],
+            table.shape[1], _cuda.stream_handle(table.device))
+    keep = (idx >= 0) & (idx < table.shape[0])
+    kept, kept_rows = idx[keep], rows[keep]  # the library calls refuse the rest
+    written = int(torch.unique(kept).numel())
+    # what the function needs: the indices, one payload row per destination
+    # row (repeats carry equal payloads, dropped rows are never read), each
+    # destination row written once (and read once more by the add); the add
+    # does one f32 add per lane of each (unique) destination row
+    row_b = rows.shape[1] * rows.element_size()
+    by, op = bound(nbytes(idx) + written * row_b * (3 if add else 2),
+                   written * rows.shape[1] if add else 0)
+    library = ((lambda: table.index_add_(0, kept, kept_rows)) if add else
+               (lambda: table.index_copy_(0, kept, kept_rows)))
+    ms = time_ms(lambda: _cuda.check_launch(name, fn(*args)), flush=flush)
+    return {"table": list(table.shape), "rows": idx.shape[0], "rows_written": written,
+            "bit_exact": exact, "max_abs_err": err, "ms": ms,
+            "ns_per_row": ms * 1e6 / idx.shape[0],
+            "plain_ms": time_ms(lambda: plain(table, idx, rows), flush=flush),
+            "library_ms": time_ms(library, flush=flush), "bound_ms": by, "bound_by": op}
+
+
+@contextlib.contextmanager
+def capturing(name: str, inner=None):
+    """Within the block, ``row_writer.<name>`` runs ``inner`` (by default
+    itself) and keeps the table of its last call and copies of that call's
+    indices and rows: the tensors a trainer really hands the kernel."""
+    saved = getattr(row_writer, name)
+    inner = inner or saved
+    last = {}
+
+    def wrapped(table, idx, rows):
+        last.update(table=table, idx=idx.clone(), rows=rows.clone())
+        return inner(table, idx, rows)
+
+    setattr(row_writer, name, wrapped)
+    try:
+        yield last
+    finally:
+        setattr(row_writer, name, saved)
+
+
+def row_kernels(dev, pmv_commit: dict, mv_table_add: dict) -> dict:
+    """The row kernels on the training phases' captured calls, then at the
+    spikes' shapes."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    flush = torch.empty(64 << 20, device=dev)  # 256 MB, five times the L2
+    out = {"pmv_commit": row_case("write_rows", flush=flush, **pmv_commit),
+           "mv_table_add": row_case("add_rows", flush=flush, **mv_table_add)}
+    # the spikes: 57,344 unique rows into a 640 MB table at each width
+    for w in (16, 32, 64, 128):
+        v = SPIKE_TABLE_FLOATS // w
+        table = torch.randn(v, w, generator=g, device=dev)
+        idx = torch.randperm(v, generator=g, device=dev)[:SPIKE_ROWS]
+        rows = torch.randn(SPIKE_ROWS, w, generator=g, device=dev)
+        out[f"spike_w{w}"] = {"write": row_case("write_rows", table, idx, rows, flush),
+                              "add": row_case("add_rows", table, idx, rows, flush)}
+        del table, idx, rows
+    torch.cuda.synchronize()
+    return out
+
+
+def row_errors(rk: dict, key: str) -> float:
+    cases = [rk["pmv_commit"]] if key == "write" else [rk["mv_table_add"]]
+    cases += [v[key] for k, v in rk.items() if k.startswith("spike_")]
+    return max(c["max_abs_err"] for c in cases)
+
+
+# ---------------------------------------------------------------- training
+def param_gap(got: TDMTrainer, ref: TDMTrainer) -> float:
+    """Largest |got - ref| / (PARAM_ATOL + PARAM_RTOL * |ref|) over every
+    parameter: at most 1 within the tolerance."""
+    gap = 0.0
+    for a, b in zip(got.model.parameters(), ref.model.parameters()):
+        a, b = a.detach(), b.detach()
+        gap = max(gap, ((a - b).abs() / (PARAM_ATOL + PARAM_RTOL * b.abs())).max().item())
+    return gap
+
+
+def same_params(a: TDMTrainer, b: TDMTrainer) -> bool:
+    return all(torch.equal(bits(x.detach()), bits(y.detach()))
+               for x, y in zip(a.model.parameters(), b.model.parameters()))
+
+
+def route_agreement(make, tree: ArrayTree, samples, dev) -> tuple[dict, dict]:
+    """Dense, mv and pmv trainers from one seed take three steps on one
+    sampled batch (tests/test_tdm_train.py:178 on the card); returns the
+    facts and the last mv table update (the only ``add_rows`` caller)."""
+    trs = {"dense": make(sparse_embed_update=False),
+           "mv": make(sparse_embed_update=True, sparse_format="mv"),
+           "pmv": make(sparse_embed_update=True, sparse_format="pmv")}
+    check(trs["pmv"]._pmv and not trs["mv"]._pmv, "sparse formats did not resolve")
+    n = trs["dense"].num_targets_per_batch
+    codes = lambda ids: torch.as_tensor(tree.ids_to_codes(ids), dtype=torch.long, device=dev)  # noqa: E731
+    sc, tc = codes(samples.train_seqs[:n]), codes(samples.train_targets[:n])
+    batch = trs["dense"].sample(tc)
+    loss_gap = 0.0
+    with capturing("add_rows") as mv_table_add:
+        for _ in range(3):
+            losses = {m: float(t.step_from_samples(sc, *batch)) for m, t in trs.items()}
+            for m in ("mv", "pmv"):
+                loss_gap = max(loss_gap, abs(losses[m] - losses["dense"]) / abs(losses["dense"]))
+    trs["pmv"]._sync_mirrors()
+    out = {"steps": 3, "max_loss_rel_diff": loss_gap,
+           "param_gap": {m: param_gap(trs[m], trs["dense"]) for m in ("mv", "pmv")}}
+    check(loss_gap <= LOSS_RTOL, f"dense/mv/pmv losses disagree: {out}")
+    check(max(out["param_gap"].values()) <= 1.0, f"dense/mv/pmv params disagree: {out}")
+    check("table" in mv_table_add and
+          mv_table_add["table"].data_ptr() == trs["mv"].model.embedding.data_ptr(),
+          "the mv table update was not captured")
+    return out, mv_table_add
+
+
+@contextlib.contextmanager
+def k1_audited():
+    """Within the block, every K1 call DIN makes (``models.din.din_score``)
+    is held against ``din_score_plain`` on the same inputs at K1's
+    tolerance; yields the [B, U] shapes seen and the largest error."""
+    seen = {"shapes": [], "calls": 0, "max_abs_err": 0.0}
+
+    def audited(item_e, seq_e, pad, *w):
+        got = din_score(item_e, seq_e, pad, *w)
+        a = within("din_score", got, din_score_plain(item_e, seq_e, pad, *w))
+        seen["calls"] += 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], a["max_abs_err"])
+        if list(item_e.shape[:2]) not in seen["shapes"]:
+            seen["shapes"].append(list(item_e.shape[:2]))
+        return got
+
+    din_model.din_score = audited
+    try:
+        yield seen
+    finally:
+        din_model.din_score = din_score
+
+
+def example_training(dev, tree_path: str, samples) -> tuple[dict, dict]:
+    """The dense trainer at configs/tdm.conf's settings on the example
+    catalog; the caller zeroes and reads the launch counts around it.
+    Returns the facts and the route comparison's last mv table update."""
+    tree = ArrayTree.from_file(tree_path)
+    make = lambda **kw: TDMTrainer(tree=tree, seed=SEED, device=dev, **TDM_CONF, **kw)  # noqa: E731
+    trainer = make()
+    check(not trainer._sparse, "example catalog: the auto route is not dense")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(samples.train_seqs, samples.train_targets, TRAIN_ITERS,
+                         progress_interval=100)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [lg["train_loss"] for lg in logs]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+    windows = (samples.eval_seqs[:512], samples.eval_labels[:512], samples.eval_users[:512])
+    consumed = samples.user_consumed[int(samples.eval_users[0])]
+    # K1 at the shapes these two give it: the eval loss's [91, 90] batches
+    # and the beam levels at the widened candidate widths
+    with k1_audited() as k1_audit:
+        ev = trainer.evaluate(windows, samples.user_consumed)
+        k1 = din_kernel.launches
+        rec = trainer.recommend(samples.eval_seqs[0], consumed=consumed)
+        k1_recommend = din_kernel.launches - k1
+    check(k1_audit["calls"] > 0, "evaluate and recommend made no K1 call")
+    metrics = {k: getattr(ev, k) / ev.count for k in ("loss", "precision", "recall", "ndcg")}
+    check(ev.count == 512 and np.isfinite(metrics["loss"]), f"evaluate: {metrics}")
+    check(all(0.0 <= metrics[k] <= 1.0 for k in ("precision", "recall", "ndcg")),
+          f"metrics out of [0, 1]: {metrics}")
+    check_lists([rec], tree)
+    check(not np.isin(rec, consumed).any(), "recommend returned a consumed item")
+    check(k1_recommend > 0, "recommend did not launch K1")
+    # same seed, same run: bitwise (tests/test_tdm_train.py:151)
+    twin = make()
+    twin.train(samples.train_seqs, samples.train_targets, TRAIN_ITERS, progress_interval=100)
+    check(same_params(trainer, twin), "same-seed training is not bitwise deterministic")
+    lists = trainer.recommend_batch(windows[0])
+    check(compare_lists(twin.recommend_batch(windows[0]), lists) == 0,
+          "same-seed trainers recommend differently")
+    del twin
+    routes, mv_table_add = route_agreement(make, tree, samples, dev)
+    return {"items": tree.num_items, "max_level": tree.max_level,
+            "auto_route": "dense", "unit": trainer.sampler.unit,
+            "targets_per_step": trainer.num_targets_per_batch, "iterations": TRAIN_ITERS,
+            "train_s": train_s, "ms_per_step": train_s / TRAIN_ITERS * 1e3,
+            "losses": losses, "eval_windows": 512, "eval": metrics,
+            "recommend_k1_launches": k1_recommend, "k1_vs_plain": k1_audit,
+            "deterministic": True, "routes_one_batch": routes}, mv_table_add
+
+
+def deep_training(dev, tree: ArrayTree, serve_seqs: np.ndarray) -> tuple[dict, dict]:
+    """bench.py's 1M-catalog trainer (auto route: pmv, one K2 launch a
+    step); the caller zeroes and reads the launch counts around it.
+    Returns the facts and the last commit of the plain-writer rerun (the
+    same tensors as the trainer's last K2 launch, the states being equal)."""
+    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
+    make = lambda **kw: TDMTrainer(tree=tree, embed_size=E, layer_neg_counts=neg,  # noqa: E731
+                                   topk=TOPK, beam_size=BEAM, seed=SEED, device=dev, **kw)
+    trainer = make()
+    check(trainer._sparse and trainer._pmv, "1M catalog: the auto route is not pmv")
+    b, unit = trainer.num_targets_per_batch, trainer.sampler.unit
+    rng = np.random.default_rng(SEED + 6)
+    targets = rng.integers(1, DEEP_ITEMS + 1, size=b * DEEP_STEPS)
+    seqs = rng.integers(1, DEEP_ITEMS + 1, size=(b * DEEP_STEPS, SEQ_LEN))
+    seqs[:, :3] = np.where(rng.random((len(seqs), 3)) < 0.3, 0, seqs[:, :3])
+
+    def timed(tr: TDMTrainer, steps: int) -> tuple[float, list]:
+        """``steps`` timed steps after one untimed warm-up step."""
+        tr.train(seqs, targets, 1, progress_interval=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = tr.train(seqs, targets, steps, progress_interval=steps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logs
+
+    k2 = row_writer.launches["write_rows"]
+    elapsed, logs = timed(trainer, DEEP_STEPS)
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == DEEP_STEPS + 1, f"{k2} K2 launches in {DEEP_STEPS + 1} pmv steps")
+    check(np.isfinite(logs[-1]["train_loss"]), "deep training loss is not finite")
+    # the trained table serves through the packed route (K3)
+    pre, app = serving_fns("din")
+    serv = TDMServing(trainer.model, DIN.forward, tree, precompute=pre, apply=app,
+                      apply_emb=packed_fns("din")[1], model_type="din", topk=TOPK,
+                      candidate_num=BEAM)
+    k3 = packed_level_kernel.launches
+    check_lists(serv.recommend_batch(serve_seqs), tree)
+    k3 = packed_level_kernel.launches - k3
+    cfg = make_config(tree, BEAM)
+    check(k3 == cfg.max_level - cfg.start_level, f"serving the trained table: {k3} K3 launches")
+    del serv
+    # the same run with K2's plain version on the card: bit for bit
+    with capturing("write_rows", row_writer.write_rows_plain) as commit:
+        twin = make()
+        timed(twin, DEEP_STEPS)
+    check(torch.equal(bits(trainer.emb_state["pmv"]), bits(twin.emb_state["pmv"]))
+          and same_params(trainer, twin), "pmv state differs from the plain-writer rerun")
+    check(commit["table"] is twin.emb_state["pmv"], "the pmv commit was not captured")
+    pmv_gb = trainer.emb_state["pmv"].numel() * 4 / 1e9
+    del trainer, twin
+    dense = make(sparse_embed_update=False)
+    dense_s, _ = timed(dense, DENSE_STEPS)
+    del dense
+    return {"items": DEEP_ITEMS, "max_level": tree.max_level, "auto_route": "pmv",
+            "pmv_slots": sparse_adam.pmv_slots(E), "pmv_table_gb": pmv_gb, "unit": unit,
+            "targets_per_step": b, "steps_run": DEEP_STEPS + 1, "timed_steps": DEEP_STEPS,
+            "k2_launches": k2,
+            "ms_per_step": elapsed / DEEP_STEPS * 1e3,
+            "expanded_rows_per_s": DEEP_STEPS * b * unit / elapsed,
+            "final_loss": logs[-1]["train_loss"], "pmv_equals_plain_writer_rerun": True,
+            "serving_k3_launches": k3,
+            "dense_timed_steps": DENSE_STEPS,
+            "dense_ms_per_step": dense_s / DENSE_STEPS * 1e3}, commit
 
 
 def main() -> int:
@@ -423,7 +750,7 @@ def main() -> int:
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions
-    tree_path, ckpt, seqs, facts4 = example_data()  # set-up of the main path
+    tree_path, ckpt, seqs, facts4, samples = example_data()  # set-up of the main path
     weights = tuple(t.detach() for t in params_from_numpy(
         seed_params(7, np.random.default_rng(SEED + 4)), device=dev).scorer_weights())
     kern = kernels_vs_plain(dev, weights, facts4["catalog_items"])
@@ -432,7 +759,7 @@ def main() -> int:
     deep, deep_seqs, facts5 = deep_catalog(dev)  # set-up of the main path
 
     # ---- 4 + 5. the main path: launch counts zeroed just before, read just after
-    din_kernel.launches = packed_level_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     serv = TDMServing.load(ckpt, tree_path, topk=TOPK, candidate_num=BEAM)
     packed_lists = serv.recommend_batch(seqs)  # auto route: packed (K3)
@@ -451,8 +778,7 @@ def main() -> int:
     for _ in range(calls):
         deep_lists = deep.recommend_batch(deep_seqs)
     elapsed = time.perf_counter() - t0
-    launches = {"din_score": din_kernel.launches,
-                "packed_level": packed_level_kernel.launches}
+    launches = read_launches()
 
     # ---- 4. checks of the example catalog's routes
     cfg = make_config(serv.tree, BEAM)
@@ -502,22 +828,56 @@ def main() -> int:
     )
     emit({"phase": "deep_catalog", **facts5})
 
+    # ---- training paths: launch counts zeroed just before, read just after
+    zero_launches()
+    facts_ex, mv_table_add = example_training(dev, tree_path, samples)
+    facts_ex["launches"] = read_launches()
+    check(facts_ex["launches"]["write_rows"] == 6 and facts_ex["launches"]["add_rows"] == 3,
+          f"mv/pmv steps: {facts_ex['launches']}")
+    emit({"phase": "example_training", **facts_ex})
+    zero_launches()
+    facts_deep, pmv_commit = deep_training(dev, deep.tree, deep_seqs)
+    facts_deep["launches"] = read_launches()
+    emit({"phase": "deep_training", **facts_deep})
+    for name in launches:
+        launches[name] += facts_ex["launches"][name] + facts_deep["launches"][name]
+
+    # ---- K2 and the row scatter-add against their plain versions, on the
+    # training paths' own calls and at the spikes' shapes
+    rk = row_kernels(dev, pmv_commit, mv_table_add)
+    del pmv_commit, mv_table_add
+    emit({"phase": "row_kernels", **rk})
+
     # ---- 6. kernel summary
-    src = "dismember_tpu_torch/csrc/din_kernels.cu"
+    src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
+           "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
+           "write_rows": "dismember_tpu_torch/csrc/row_writer.cu",
+           "add_rows": "dismember_tpu_torch/csrc/row_writer.cu"}
     replaces = {"din_score": "dismember_tpu/ops/din_kernel.py:34",
-                "packed_level": "dismember_tpu/ops/packed_level_kernel.py:102"}
-    summary = []
+                "packed_level": "dismember_tpu/ops/packed_level_kernel.py:102",
+                "write_rows": "dismember_tpu/ops/row_writer.py:41",
+                "add_rows": "scripts/spike_pallas_scatter128.py:70"}
+    also = {"write_rows": ["scripts/spike_pallas_scatter.py:44",
+                           "scripts/spike_pallas_scatter.py:58",
+                           "scripts/spike_pallas_scatter128.py:44"]}
+    # each kernel's timed case: K1 and K3 at the serving shapes, K2 at the
+    # pmv step's commit, the add at the mv step's table update
+    timed = {**{n: {**kern[n], "library_ms": None} for n in ("din_score", "packed_level")},
+             "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"]}
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
-                             kern["din_score"]["wide"]["max_abs_err"]),
-            "packed_level": kern["packed_level"]["max_abs_err"]}
-    for name in ("din_score", "packed_level"):
-        k = kern[name]
+                             kern["din_score"]["wide"]["max_abs_err"],
+                             facts_ex["k1_vs_plain"]["max_abs_err"]),
+            "packed_level": kern["packed_level"]["max_abs_err"],
+            "write_rows": row_errors(rk, "write"), "add_rows": row_errors(rk, "add")}
+    summary = []
+    for name, k in timed.items():
         check(launches[name] > 0, f"{name} never launched on the main path")
         summary.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+            "name": name, "route": "cuda", "source": src[name], "replaces": replaces[name],
+            **({"also_replaces": also[name]} if name in also else {}),
             "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "ok": True,
+            "library_ms": k["library_ms"], "ok": True,
         })
     emit({"kernels": summary})
 

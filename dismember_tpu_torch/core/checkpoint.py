@@ -18,13 +18,14 @@ import torch
 from dismember_tpu_torch.core.io import open_file, stage_in, stage_out
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
+def flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
+    """Nested dict -> {"a/b": leaf}, keys sorted: the checkpoints' key paths."""
     out: dict[str, Any] = {}
     for k in sorted(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
         v = tree[k]
         if isinstance(v, dict):
-            out.update(_flatten(v, path))
+            out.update(flatten(v, path))
         else:
             out[path] = v
     return out
@@ -38,7 +39,7 @@ def _to_numpy(v) -> np.ndarray:
 
 def save_pytree(path: str, tree: dict, meta: dict | None = None) -> None:
     """Save a nested dict of arrays to ``path`` (.npz) with optional meta."""
-    arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
     npz_path = path if path.endswith(".npz") else path + ".npz"
     with stage_out(npz_path) as local:
         np.savez(local, **arrays)

@@ -10,9 +10,12 @@ Port of ``dismember_tpu/models/din.py`` (DIN.scala in the reference):
 
 Weights are stored as the JAX package stores them: ``att_linear`` [E, E],
 ``mlp1`` [E, 2E] + bias [E], ``mlp2`` [1, E] + bias [1], all applied as
-``x @ W.T`` (``nn.Linear``'s layout).  Every score goes through K1
-(``ops/din_kernel.din_score``); the scorer is forward only, since the CUDA
-kernel has no backward yet.  Init: N(0, 0.05) weights, zero biases,
+``x @ W.T`` (``nn.Linear``'s layout).  Serving scores go through K1
+(``ops/din_kernel.din_score``), which is forward only and refuses inputs
+that require grad on CUDA.  Training scores through
+:meth:`DIN.train_apply_from_emb`: the same arithmetic in plain PyTorch ops
+under autograd, as the JAX package differentiates ``din.apply_from_emb`` in
+XLA outside any Pallas kernel.  Init: N(0, 0.05) weights, zero biases,
 drawn on the CPU from an explicit ``torch.Generator`` so a seed gives the
 same model on every device.
 """
@@ -26,7 +29,7 @@ from torch import nn
 from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.models.embedding import embed_lookup
-from dismember_tpu_torch.ops.din_kernel import din_score
+from dismember_tpu_torch.ops.din_kernel import din_score, score_chain
 
 _INIT_STD = 0.05
 
@@ -116,6 +119,19 @@ class DIN(nn.Module):
         """Score candidates whose embeddings [B, U, E] are already gathered."""
         seq_e, pad = ctx
         return din_score(item_e, seq_e, pad, *self.scorer_weights())
+
+    @staticmethod
+    def ctx_from_seq_emb(seq_e: torch.Tensor, pad: torch.Tensor):
+        """precompute_seq from already-gathered sequence embeddings [B, L, E]
+        and the padding mask [B, L] (float32, 1.0 where padding); used by the
+        trainers, which differentiate w.r.t. the gathered rows."""
+        return seq_e, pad
+
+    def train_apply_from_emb(self, item_e: torch.Tensor, ctx) -> torch.Tensor:
+        """:meth:`apply_from_emb` with gradients: plain PyTorch ops on any
+        device, for the train steps."""
+        seq_e, pad = ctx
+        return score_chain(item_e, seq_e, pad, *self.scorer_weights())
 
 
 def params_from_numpy(params: dict, device="cuda") -> DIN:

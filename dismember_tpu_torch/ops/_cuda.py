@@ -61,7 +61,7 @@ def library_path() -> Path:
     return out
 
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
@@ -72,6 +72,9 @@ def library() -> ctypes.CDLL:
     lib.din_score_f32.restype = _INT
     lib.packed_level_bf16.argtypes = [_PTR] * 11 + [_INT] * 5 + [_PTR]
     lib.packed_level_bf16.restype = _INT
+    for fn in (lib.write_rows_f32, lib.add_rows_f32):
+        fn.argtypes = [_PTR] * 3 + [_I64, _INT, _INT, _PTR]
+        fn.restype = _INT
     lib.dismember_error_string.argtypes = [_INT]
     lib.dismember_error_string.restype = ctypes.c_char_p
     return lib
@@ -84,13 +87,15 @@ def check_launch(name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
-def check_inputs(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Every kernel input is contiguous float32 on ``device``, 16-byte aligned."""
+def check_inputs(name: str, device: torch.device, dtype: torch.dtype = torch.float32,
+                 **tensors: torch.Tensor) -> None:
+    """Every kernel input is contiguous ``dtype`` on ``device``, 16-byte
+    aligned."""
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, expected torch.float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:

@@ -4,14 +4,16 @@ Replaces the Pallas kernel ``dismember_tpu/ops/din_kernel.py::_din_kernel``
 (entry ``din_forward_pallas``).  :func:`din_score` launches the CUDA kernel
 ``din_score_f32`` (``csrc/din_kernels.cu``) for CUDA tensors and runs
 :func:`din_score_plain`, the same arithmetic in plain PyTorch, for CPU
-tensors.  It scores every DIN call of the port: the classic beam loop's
-levels and ``TDMServing.predict``.
+tensors.  It scores every forward-only DIN call of the port: the classic
+beam loop's levels, ``TDMServing.predict`` and the trainer's eval loss.
 
 On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
 bound by f32 operations (~2.3 kFLOP per candidate on CUDA cores against
 ~0.3 KB of input); one thread scores one candidate with the query row's
-sequence tile and the weights in shared memory.  Forward only; the kernel
-is built for E=16 only.
+sequence tile and the weights in shared memory.  The kernel is built for
+E=16 only.  Forward only: on CUDA it raises when grad mode is on and an
+input requires grad (the trainers score through the plain version under
+autograd, ``DIN.train_apply_from_emb``).
 """
 
 from __future__ import annotations
@@ -86,9 +88,16 @@ def din_score(
         return din_score_plain(item_e, seq_e, pad, att_w, w1, b1, w2, b2)
     if dev.type != "cuda":
         raise ValueError(f"din_score: unsupported device {dev}")
+    name = "din_score"
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (item_e, seq_e, pad, att_w, w1, b1, w2, b2)
+    ):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; score under "
+            "torch.no_grad() or train through DIN.train_apply_from_emb"
+        )
     b, u, e = item_e.shape
     l = seq_e.shape[1]
-    name = "din_score"
     _cuda.check_inputs(name, dev, item_e=item_e, seq_e=seq_e, pad=pad,
                        att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
     for arg, t, shape in (("seq_e", seq_e, (b, l, e)), ("pad", pad, (b, l)),

@@ -1,22 +1,59 @@
-"""TDM model construction and the scorer functions serving needs.
+"""TDM training: level-sampled BCE over the tree, and the scorer functions
+serving needs.
 
-Port of ``build_model``, ``serving_fns``, ``packed_fns`` and
-``MATMUL_FIRST_SCORERS`` from ``dismember_tpu/train/tdm.py``, DIN only.  The
-scorer functions are unbound ``DIN`` methods, so they take the model first,
-as the JAX package's take the params first.  The trainer comes with the
-training slice.
+Port of ``dismember_tpu/train/tdm.py``, DIN only: ``build_model``,
+``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS`` and
+``TDMTrainer``.  A train step:
+
+    sample negatives on the device (``train/sampler.py``)
+    -> gather the touched embedding rows once (table, or packed p|m|v state)
+    -> grouped DIN forward [B, U] through ``DIN.train_apply_from_emb`` and
+       BCE-with-logits, differentiated w.r.t. the gathered rows and the
+       scorer weights
+    -> Adam: dense over the whole table (duplicate-row gradients summed by
+       ``sparse_adam.dedup_rows``, so the step has no float atomics), or
+       lazy row-sparse Adam on the touched rows (``train/sparse_adam.py``),
+       whose packed formats commit through K2.
+
+Batch accounting parity: ``total_batch_size`` counts *expanded* rows, so
+the number of targets per step is ``max(1, total_batch // unit)`` with
+``unit`` the per-target sampled-node count (tdm MiniBatch.scala:19).  Each
+step is split into :meth:`TDMTrainer.sample` and
+:meth:`TDMTrainer.step_from_samples`, so one sampled batch can be fed to
+several trainers, or to this package and the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import time
+
+import numpy as np
 import torch
 
+from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core.checkpoint import flatten
+from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.core.io import open_file
+from dismember_tpu_torch.core.metrics import EvalResult, compute_metrics_batch
+from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.models.din import DIN
+from dismember_tpu_torch.models.losses import bce_with_logits
+from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
+from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train.sampler import TreeSampler
+
+logger = logging.getLogger("dismember_tpu_torch.tdm")
 
 _DEEPFM_TODO = (
     "the DeepFM scorer is not ported yet (ROADMAP queue 1 item 9: "
     "models/deepfm.py)"
 )
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 {item})")
 
 
 def build_model(model_type: str, tree_max_level: int, embed_size: int,
@@ -55,3 +92,423 @@ def packed_fns(model_type: str):
 # Scorers whose every use of the candidate embedding flows through a matmul,
 # so bf16 pair-table lanes cannot change their scores.
 MATMUL_FIRST_SCORERS = frozenset({"din"})
+
+
+def _find_adam(state):
+    """(count, mu, nu) of optax's ``ScaleByAdamState``, given as it is or
+    inside a tuple (optax's chain state); None if there is none."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state.count, state.mu, state.nu
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+@dataclasses.dataclass
+class TDMTrainer:
+    tree: ArrayTree
+    model_type: str = "din"
+    embed_size: int = 16
+    learning_rate: float = 1e-4
+    total_batch_size: int = 8192
+    total_eval_batch_size: int = 8192
+    seq_len: int = 10
+    layer_neg_counts: str = "0,1,2,3,4"
+    sample_with_prob: bool = False
+    sample_tolerance: int = 20
+    start_sample_level: int = 1
+    topk: int = 10
+    beam_size: int = 20
+    seed: int = 0
+    mesh: object = None  # not ported (ROADMAP queue 1 item 13)
+    embed_dtype: object = None  # not ported (ROADMAP queue 1 item 7)
+    sparse_embed_update: bool | None = None  # lazy row-sparse Adam on the
+    # embedding table (train/sparse_adam.py).  None = auto
+    # (sparse_adam.sparse_worthwhile): sparse at deep catalogs, dense
+    # otherwise.
+    sparse_format: str = "auto"  # packed-state format of the sparse step:
+    # "pmv" packs params+moments into one 128-lane row (one K2 write a step;
+    # the model's embedding becomes a MIRROR synced at eval/train
+    # boundaries); "mv" keeps the table addressable (m|v packed when the
+    # width divides 128, split otherwise); "auto" = pmv when the width packs.
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise _not_ported("mesh training", "item 13: multi-device")
+        if self.embed_dtype is not None:
+            raise _not_ported("embed_dtype", "item 7: bf16 embedding tables")
+        self.device = resolve_device(self.device)
+        self.sampler = TreeSampler.build(
+            self.tree, self.layer_neg_counts, start_level=self.start_sample_level,
+            with_prob=self.sample_with_prob, tolerance=self.sample_tolerance,
+            device=self.device,
+        )
+        self.num_targets_per_batch = max(1, self.total_batch_size // self.sampler.unit)
+        base_num_index = (1 << (self.tree.max_level + 1)) - 1
+        if self.sparse_embed_update is not None:
+            self._sparse = self.sparse_embed_update
+        else:
+            touched = self.num_targets_per_batch * (self.sampler.unit + self.seq_len)
+            self._sparse = sparse_adam.sparse_worthwhile(
+                base_num_index, touched, embed_dim=self.embed_size)
+        self.model = build_model(
+            self.model_type, self.tree.max_level, self.embed_size, self.seq_len,
+            generator=torch.Generator().manual_seed(self.seed), device=self.device,
+        )
+        # pmv mode: the embedding is a MIRROR of the packed p|m|v state,
+        # re-materialized by _sync_mirrors at eval/train boundaries
+        self._pmv = False
+        self._mirrors_stale = False
+        self.emb_state = None
+        if self._sparse:
+            if self.sparse_format not in ("auto", "mv", "pmv"):
+                raise ValueError(f"unknown sparse_format {self.sparse_format!r}")
+            packable = sparse_adam.pmv_slots(self.embed_size) > 0
+            self._pmv = packable if self.sparse_format == "auto" else self.sparse_format == "pmv"
+            if self._pmv and not packable:
+                raise ValueError(
+                    f"pmv needs a packable width (3*E <= 128; E={self.embed_size})")
+            table = self.model.embedding.detach()
+            if self._pmv:
+                self.emb_state = sparse_adam.pmv_init(table)
+                self._record_mirror_id()
+            else:
+                self.emb_state = sparse_adam.init_state(table)
+        self.adam = self._adam_init()
+        self._gen = torch.Generator(device=self.device)
+        self._beam_fn = None
+        self._beam_fn_width = None
+
+    # ------------------------------------------------------------------
+    def _named_params(self) -> dict[str, torch.nn.Parameter]:
+        return flatten(self.model.param_tree())
+
+    def _adam_names(self) -> list[str]:
+        """Parameters the trainer's Adam state covers (all but the
+        embedding in the sparse modes, whose rows have their own state)."""
+        return [n for n in self._named_params() if not (self._sparse and n == "embedding")]
+
+    def _adam_init(self) -> dict:
+        p = self._named_params()
+        zeros = lambda: {n: torch.zeros_like(p[n]) for n in self._adam_names()}  # noqa: E731
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @property
+    def params(self) -> dict:
+        """The params pytree (the embedding is the mirror in pmv mode)."""
+        return self.model.param_tree()
+
+    def load_numpy(self, params: dict, opt_state=None) -> None:
+        """Take a params pytree and, optionally, an optimizer state, as
+        arrays: the JAX package's ``TDMTrainer.params`` and ``.opt_state``
+        load as they are (``jax.tree.map(np.asarray, ...)``).  The state is
+        optax's Adam chain state (a tuple holding a ``ScaleByAdamState``) in
+        the dense mode, and ``(that, {"pmv" | "mv" | "m", "v", "count"})`` in
+        the sparse modes.  In pmv mode the packed state owns the table, and
+        the embedding is re-read from it."""
+        self.model.load_numpy(params)
+        if opt_state is None:
+            return  # pmv mode adopts the new mirror at the next train()
+        rest = opt_state
+        if self._sparse:
+            rest, emb = opt_state
+            want = {"pmv"} if self._pmv else set(self.emb_state) - {"count"}
+            if set(emb) - {"count"} != want:
+                raise ValueError(f"embedding state has {sorted(emb)}, expected {sorted(want)}")
+            self.emb_state = {
+                k: int(np.asarray(v)) if k == "count" else
+                torch.tensor(np.asarray(v, np.float32), device=self.device)
+                for k, v in emb.items()
+            }
+        found = _find_adam(rest)
+        if found is None:
+            raise ValueError("no Adam state (count, mu, nu) in opt_state")
+        count, mu, nu = found
+        names = self._adam_names()
+        mu, nu = flatten(mu), flatten(nu)
+        conv = lambda a, n: torch.tensor(  # noqa: E731
+            np.asarray(a, np.float32), device=self.device).reshape(self._named_params()[n].shape)
+        self.adam = {"count": int(np.asarray(count)),
+                     "mu": {n: conv(mu[n], n) for n in names},
+                     "nu": {n: conv(nu[n], n) for n in names}}
+        if self._pmv:
+            self._mirrors_stale = True
+            self._sync_mirrors()
+
+    def _codes(self, codes: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(codes, dtype=torch.long, device=self.device)
+
+    # ------------------------------------------------------------------
+    def sample(self, target_codes: torch.Tensor):
+        """(codes [B, U], labels, weights) for a batch of target leaf codes,
+        from the trainer's generator."""
+        return self.sampler.sample(self._gen, target_codes)
+
+    def step_from_samples(self, seq_codes: torch.Tensor, codes: torch.Tensor,
+                          labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """One train step on a sampled batch; returns the loss (a 0-d
+        tensor on the device, before the update)."""
+        b, u = codes.shape
+        l, e = seq_codes.shape[1], self.embed_size
+        flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
+        valid = flat != PADDING_IDX
+        safe = torch.where(valid, flat, 0)
+        if self._pmv:
+            rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
+        else:
+            rows = self.model.embedding.detach()[safe]
+        rows = (rows * valid[:, None].to(rows.dtype)).requires_grad_()
+        params = self._named_params()
+        rest_names = [n for n in params if n != "embedding"]
+        with torch.enable_grad():
+            ctx = DIN.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
+                                       (seq_codes == PADDING_IDX).float())
+            logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
+            loss = bce_with_logits(logits, labels, weights)
+            g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])
+        g_rows = g_rows * valid[:, None].to(g_rows.dtype)
+        grads = dict(zip(rest_names, g_rest))
+        with torch.no_grad():
+            if not self._sparse:
+                grads["embedding"] = self._dense_table_grad(flat, g_rows)
+            self._adam_step(params, grads)
+            lr = self.learning_rate
+            if self._pmv:
+                sparse_adam.pmv_apply_rows(self.emb_state, flat, g_rows, lr)
+                self._mirrors_stale = True
+            elif self._sparse:
+                sparse_adam.apply_rows(self.model.embedding.detach(), self.emb_state,
+                                       flat, g_rows, lr)
+        return loss.detach()
+
+    def _train_step(self, target_codes: torch.Tensor, seq_codes: torch.Tensor) -> torch.Tensor:
+        return self.step_from_samples(seq_codes, *self.sample(target_codes))
+
+    def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
+        """The [V, E] table gradient: per-occurrence row gradients summed
+        per code in a fixed order (no float atomics), zeros elsewhere."""
+        codes_u, g_sum, live = sparse_adam.dedup_rows(flat, g_rows)
+        grad = torch.zeros_like(self.model.embedding)
+        grad[codes_u[live]] = g_sum[live]
+        return grad
+
+    def _adam_step(self, params: dict, grads: dict) -> None:
+        """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) on ``grads``, in place."""
+        st = self.adam
+        st["count"] += 1
+        for n, g in grads.items():
+            st["mu"][n], st["nu"][n], upd = sparse_adam.adam_update(
+                st["mu"][n], st["nu"][n], g, st["count"], self.learning_rate)
+            params[n].add_(upd)
+
+    # -- pmv mirror management (the JAX package's contract) ---------------
+    def _mirror_key(self) -> tuple[int, int]:
+        # identity and in-place version: a replaced Parameter or a copy into
+        # it (load_numpy) both count as an external assignment
+        emb = self.model.embedding
+        return id(emb), emb._version
+
+    def _record_mirror_id(self) -> None:
+        self._mirror_id = self._mirror_key()
+
+    def _sync_mirrors(self) -> None:
+        """Re-materialize the [V, E] embedding mirror from the packed p|m|v
+        state (no-op outside pmv mode or when already in sync)."""
+        if not self._pmv or not self._mirrors_stale:
+            return
+        v_rows, e = self.model.embedding.shape
+        with torch.no_grad():
+            self.model.embedding.copy_(sparse_adam.pmv_unpack(self.emb_state, v_rows, e))
+        self._mirrors_stale = False
+        self._record_mirror_id()
+
+    def _adopt_mirrors(self) -> None:
+        """Push an externally assigned embedding into the packed state's p
+        lanes, keeping moments.  Called at train() entry.  If the packed
+        state was newer (steps driven without _sync_mirrors), the external
+        values win with a warning."""
+        if not self._pmv or self._mirror_key() == self._mirror_id:
+            return
+        if self._mirrors_stale:
+            logger.warning(
+                "embedding mirror was externally replaced while the packed "
+                "p|m|v state was newer; adopting the external values into the "
+                "packed state (moments kept)."
+            )
+        sparse_adam.pmv_refresh(self.emb_state, self.model.embedding.detach().float())
+        self._mirrors_stale = False
+        self._record_mirror_id()
+
+    @torch.inference_mode()
+    def _eval_loss_step(self, gen: torch.Generator, target_codes: torch.Tensor,
+                        seq_codes: torch.Tensor) -> torch.Tensor:
+        codes, labels, weights = self.sampler.sample(gen, target_codes)
+        return bce_with_logits(self.model(codes, seq_codes), labels, weights)
+
+    # ------------------------------------------------------------------
+    def train(
+        self,
+        train_seqs: np.ndarray,  # [N, L] raw item ids
+        train_targets: np.ndarray,  # [N] raw item ids
+        iterations: int,
+        eval_data: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
+        user_consumed: dict[int, np.ndarray] | None = None,
+        progress_interval: int = 100,
+        shuffle: bool = True,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 0,
+    ) -> list[dict]:
+        """Run the training loop; returns per-progress-point logs.  The batch
+        order is ``np.random.default_rng(seed).permutation``, as in the JAX
+        package; the sampler's generator restarts from ``seed + 1``."""
+        if checkpoint_path:
+            raise _not_ported("checkpoint_path", "item 7: step_resume")
+        self._adopt_mirrors()
+        seq_codes_all = self.tree.ids_to_codes(train_seqs)
+        target_codes_all = self.tree.ids_to_codes(train_targets)
+        n = len(target_codes_all)
+        bsz = self.num_targets_per_batch
+        rng = np.random.default_rng(self.seed)
+        perm = rng.permutation(n) if shuffle else np.arange(n)
+        self._gen.manual_seed(self.seed + 1)
+        pos = 0
+        logs: list[dict] = []
+        t_epoch = time.perf_counter()
+        for it in range(1, iterations + 1):
+            if pos + bsz > n:
+                perm = rng.permutation(n) if shuffle else np.arange(n)
+                pos = 0
+            idx = perm[pos : pos + bsz]
+            pos += bsz
+            t0 = time.perf_counter()
+            loss = self._train_step(self._codes(target_codes_all[idx]),
+                                    self._codes(seq_codes_all[idx]))
+            if it % progress_interval == 0 or it == iterations:
+                loss_val = float(loss)
+                iter_time = time.perf_counter() - t0
+                elapsed = time.perf_counter() - t_epoch
+                rows_s = it * bsz * self.sampler.unit / max(elapsed, 1e-9)
+                entry = {"iteration": it, "train_loss": loss_val, "iter_time": iter_time,
+                         "elapsed": elapsed, "expanded_rows_per_s": rows_s}
+                msg = (f"Iteration {it} time: {iter_time:.4f}s, "
+                       f"Train loss: {loss_val:.4f}, {rows_s:,.0f} expanded rows/s")
+                if eval_data is not None:
+                    ev = self.evaluate(eval_data, user_consumed)
+                    c = max(ev.count, 1)
+                    entry.update({"eval_loss": ev.loss / c, "precision": ev.precision / c,
+                                  "recall": ev.recall / c, "ndcg": ev.ndcg / c})
+                    msg += f"\n\tMetrics: {ev}"
+                logger.info(msg)
+                logs.append(entry)
+        self._sync_mirrors()
+        return logs
+
+    def train_resident(self, *args, **kwargs):
+        raise _not_ported("train_resident (ResidentWindows)",
+                          "item 7: the device-resident loop")
+
+    # ------------------------------------------------------------------
+    def evaluate(
+        self,
+        eval_data: tuple[np.ndarray, np.ndarray, np.ndarray],
+        user_consumed: dict[int, np.ndarray] | None = None,
+        candidate_num: int | None = None,
+    ) -> EvalResult:
+        """Eval loss (the training sampler, target = first label, scored by
+        K1) + beam-search metrics per user (Evaluator.scala:14-74)."""
+        self._sync_mirrors()
+        eval_seqs, eval_labels, eval_users = eval_data
+        seq_codes = self.tree.ids_to_codes(eval_seqs)
+        target_codes = self.tree.ids_to_codes(eval_labels[:, 0])
+        result = EvalResult()
+        m = len(target_codes)
+        ebsz = max(1, self.total_eval_batch_size // self.sampler.unit)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 2)
+        for s in range(0, m, ebsz):
+            e = min(s + ebsz, m)
+            loss = self._eval_loss_step(gen, self._codes(target_codes[s:e]),
+                                        self._codes(seq_codes[s:e]))
+            result.loss += float(loss) * (e - s)
+            result.count += e - s
+        # the reference widens the beam for heavy users
+        # ((consumed + topk)/2, Recommender.scala:29-33): use the batch max
+        cn = candidate_num if candidate_num is not None else self.beam_size
+        if user_consumed:
+            max_consumed = max(
+                (len(user_consumed.get(int(u), ())) for u in eval_users), default=0)
+            cn = max((max_consumed + self.topk) // 2, cn)
+        rec_lists = self.recommend_batch(
+            eval_seqs, candidate_num=cn, consumed=[
+                user_consumed.get(int(u), np.empty(0, np.int64)) for u in eval_users
+            ] if user_consumed else None,
+        )
+        rec_padded = np.full((len(rec_lists), self.topk), -1, dtype=np.int64)
+        for i, rec in enumerate(rec_lists):
+            rec_padded[i, : len(rec)] = rec
+        p, r, nd = compute_metrics_batch(rec_padded, eval_labels)
+        result.precision += float(p.sum())
+        result.recall += float(r.sum())
+        result.ndcg += float(nd.sum())
+        return result
+
+    def recommend_batch(
+        self,
+        seqs: np.ndarray,  # [B, L] raw item ids
+        candidate_num: int | None = None,
+        topk: int | None = None,
+        consumed: list[np.ndarray] | None = None,
+        batch_size: int = 4096,
+    ) -> list[np.ndarray]:
+        """Classic beam search (K1 per level) over ``batch_size`` chunks."""
+        self._sync_mirrors()
+        cn = candidate_num or self.beam_size
+        k = topk or self.topk
+        if self._beam_fn is None or self._beam_fn_width != cn:
+            pre, app = serving_fns(self.model_type)
+            self._beam_fn = make_beam_fn(DIN.forward, self.tree, cn, precompute=pre,
+                                         apply=app, device=self.device)
+            self._beam_fn_width = cn
+        seq_codes = self.tree.ids_to_codes(seqs)
+        out: list[np.ndarray] = []
+        for s in range(0, len(seq_codes), batch_size):
+            e = min(s + batch_size, len(seq_codes))
+            ids, scores = self._beam_fn(self.model, self._codes(seq_codes[s:e]))
+            out.extend(filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), k,
+                                   consumed[s:e] if consumed is not None else None))
+        return out
+
+    def recommend(
+        self,
+        sequence: np.ndarray,
+        topk: int | None = None,
+        candidate_num: int | None = None,
+        consumed: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """Single-query recommend (TDM.recommend parity incl. the per-user
+        candidate-num widening, Recommender.scala:29-33)."""
+        k = topk or self.topk
+        cn = candidate_num or self.beam_size
+        if consumed is not None and len(consumed) > 0:
+            cn = max((len(consumed) + k) // 2, cn)
+        return self.recommend_batch(
+            sequence[None, :], candidate_num=cn, topk=k,
+            consumed=[consumed] if consumed is not None else None,
+        )[0]
+
+    # ------------------------------------------------------------------
+    def export_embeddings(self, path: str) -> None:
+        """Leaf-item embeddings CSV: ``id, e1, ..., ed`` keyed by item id,
+        rows read from the shared embedding table at each item's leaf code
+        (tdm/.../utils/Serialization.scala:15-58)."""
+        self._sync_mirrors()
+        table = self.model.embedding.detach().cpu().numpy()
+        with open_file(path, "w", encoding="utf-8") as f:
+            for iid, code in zip(self.tree.item_ids, self.tree.item_codes):
+                f.write(str(int(iid)))
+                for v in table[code]:
+                    f.write(f", {float(v):.12g}")
+                f.write("\n")

@@ -108,7 +108,7 @@ def main() -> int:
     deep, deep_seqs, _ = cs.deep_catalog(torch.device("cuda", 0))
     print(json.dumps({"profile": "deep_1m_packed", "card": smi,
                       **profile("deep_1m_packed", deep, deep_seqs)}), flush=True)
-    tree_path, ckpt, seqs, _ = cs.example_data()
+    tree_path, ckpt, seqs, _, _ = cs.example_data()
     classic = TDMServing.load(ckpt, tree_path, topk=cs.TOPK, candidate_num=cs.BEAM,
                               packed=False)
     packed = TDMServing.load(ckpt, tree_path, topk=cs.TOPK, candidate_num=cs.BEAM)

@@ -149,7 +149,7 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     """The kernels are built from csrc/ for sm_90a; with no nvcc the build
     raises instead of falling back."""
-    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu"]
+    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu", "row_writer.cu"]
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     src = _cuda.SOURCES[0].read_text()
     for sym in ("din_score_f32", "packed_level_bf16", "cudaGetLastError"):
@@ -159,3 +159,68 @@ def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda.os, "access", lambda *_: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.library_path()
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the wrappers' CUDA
+    checks on a machine without one."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_k1_refuses_inputs_that_require_grad_on_cuda():
+    """K1 has no backward: on CUDA it raises instead of returning a detached
+    result; without grad it goes on to its launch checks."""
+    model = DIN(15, 8, device="cpu", generator=torch.Generator().manual_seed(0))
+    w = model.scorer_weights()
+    item = torch.zeros(2, 3, 8).as_subclass(_FakeCuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        din_score(item, torch.zeros(2, 4, 8), torch.ones(2, 4), *w)
+    with torch.no_grad(), pytest.raises(ValueError, match="expected cuda"):
+        din_score(item, torch.zeros(2, 4, 8), torch.ones(2, 4), *w)
+
+
+def test_train_scorer_gradients_match_jax():
+    """DIN.train_apply_from_emb under autograd against jax.grad of the JAX
+    package's apply_from_emb: BCE gradients w.r.t. the gathered rows and
+    every scorer weight."""
+    import jax
+
+    from dismember_tpu.models.losses import bce_with_logits as j_bce
+    from dismember_tpu_torch.models.losses import bce_with_logits
+
+    rng = np.random.default_rng(7)
+    b, u, l, e = 4, 6, 5, 8
+    p = _params(rng, 31, e)
+    item_e = rng.normal(0, 0.5, (b, u, e)).astype(np.float32)
+    seq_e = rng.normal(0, 0.5, (b, l, e)).astype(np.float32)
+    pad = rng.random((b, l)) < 0.3
+    pad[0] = True
+    labels = (rng.random((b, u)) < 0.3).astype(np.float32)
+    weights = (rng.random((b, u)) < 0.9).astype(np.float32)
+
+    def jloss(pp, ie, se):
+        ctx = jdin.ctx_from_seq_emb(pp, se, jnp.asarray(pad)[:, None, :])
+        return j_bce(jdin.apply_from_emb(pp, ie, ctx), labels, weights)
+
+    jl, (jg_p, jg_i, jg_s) = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        _jax(p), jnp.asarray(item_e), jnp.asarray(seq_e))
+    model = params_from_numpy(p, device="cpu")
+    ie = torch.tensor(item_e, requires_grad=True)
+    se = torch.tensor(seq_e, requires_grad=True)
+    ctx = DIN.ctx_from_seq_emb(se, torch.as_tensor(pad).float())
+    loss = bce_with_logits(model.train_apply_from_emb(ie, ctx), torch.as_tensor(labels),
+                           torch.as_tensor(weights))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(ie.grad.numpy(), np.asarray(jg_i), rtol=RTOL, atol=1e-7)
+    np.testing.assert_allclose(se.grad.numpy(), np.asarray(jg_s), rtol=RTOL, atol=1e-7)
+    for name, (t, g) in {"att_linear": (model.att_linear.weight, jg_p["att_linear"]["weight"]),
+                         "mlp1": (model.mlp1.weight, jg_p["mlp1"]["weight"]),
+                         "mlp1_bias": (model.mlp1.bias, jg_p["mlp1"]["bias"]),
+                         "mlp2": (model.mlp2.weight, jg_p["mlp2"]["weight"]),
+                         "mlp2_bias": (model.mlp2.bias, jg_p["mlp2"]["bias"])}.items():
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=RTOL, atol=1e-7,
+                                   err_msg=name)

@@ -28,10 +28,12 @@ from dismember_tpu_torch.retrieval.packed_beam import (
 )
 from dismember_tpu_torch.retrieval.tree_beam import make_beam_fn
 from dismember_tpu_torch.serving import TDMServing
-from dismember_tpu_torch.train.tdm import build_model, packed_fns, serving_fns
+from dismember_tpu_torch.train.sampler import TreeSampler
+from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RTOL, ATOL = 2e-4, 1e-5
+NEG_COUNTS = ",".join(str(min(i, 2**i - 1)) for i in range(12))
 
 
 @pytest.fixture(scope="module", params=[16, 47, 300])
@@ -153,8 +155,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tree_path, tmp_path, monkeyp
         params_from_numpy(p)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_beam_fn(DIN.forward, tree, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TDMTrainer(tree=tree, layer_neg_counts=NEG_COUNTS)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TreeSampler.build(tree, NEG_COUNTS)
     serv = TDMServing.load(ckpt, tree_path, device="cpu")
     assert serv.device == torch.device("cpu")
+    trainer = TDMTrainer(tree=tree, layer_neg_counts=NEG_COUNTS, device="cpu")
+    assert trainer.device == trainer.sampler.exists_rows.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="DeepFM"):
         build_model("deepfm", tree.max_level, 16, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="bf16 pair table"):
