@@ -5,12 +5,15 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
+     ptxas's registers and spills, and K3's tensor-core instructions (HMMA)
+     counted in ``cuobjdump -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
      ``predict``'s one row of every catalog item), O(1)-scale inputs and
      biases, with an all-padding row, a ragged last block, dead parents and
      missing children; a control (K1's f32 scorer in K3's place) that must
-     fail K3's check; kernel and plain times from CUDA events;
+     fail K3's check; kernel and plain times from CUDA events (K3 both warm
+     in L2, as the serving loop leaves its rows, and cold);
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -31,13 +34,18 @@ Phases, one JSON line each; any failed check raises and fails the run:
      comparison;
   row_kernels: K2 ``write_rows`` and ``add_rows`` against their plain
      versions bit for bit on tensors taken from the training phases (the
-     last pmv commit of the 1M rerun, the last mv table update of the
-     example catalog's route comparison) and at the spikes' shapes (57,344
-     unique rows into 640 MB tables of widths 16/32/64/128); kernel, plain
-     and library (``index_copy_`` / ``index_add_``) times from CUDA events,
-     and a bytes bound;
+     last pmv commit of the 1M rerun, the same commit cut to its distinct
+     rows and with three rows aimed out of range, the last mv table update
+     of the example catalog's route comparison) and at the spikes' shapes
+     (57,344 unique rows into 640 MB tables of widths 16/32/64/128); kernel,
+     plain and library (``index_copy_`` / ``index_add_``) times from CUDA
+     events, each after a 256 MB flush, and a bytes bound;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
+
+Times are medians (with p10/p90, min/max) of one pair of CUDA events
+around each of 100 calls; a pair around an empty launch reads ~5 us on an
+H100, which every such time includes.
 
 Usage: python3 chip_smoke.py   (from the repo root or anywhere; one GPU)
 """
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -116,6 +125,8 @@ FLIP_SHARE = 1e-3
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_MMA_FLOP_PER_S = 989e12  # dense
+SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: time_ms's head start
 OUT = ROOT / "build" / "chip_smoke"
 # configs/tdm.conf's trainer settings
 TDM_CONF = dict(embed_size=E, learning_rate=1e-4, total_batch_size=8192,
@@ -167,43 +178,92 @@ def within(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     return a
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5, flush: torch.Tensor | None = None) -> float:
-    """Mean ms per call from CUDA events around ``iters`` calls; with
-    ``flush`` (a buffer larger than the 50 MB L2), the buffer is rewritten
-    before each call and only the calls are timed, so each finds L2 cold."""
+def time_ms(fn, prefix: str = "", iters: int = 100, warmup: int = 5,
+            flush: torch.Tensor | None = None) -> dict:
+    """Per-call times from a pair of CUDA events around each of ``iters``
+    calls: ``{prefix}ms`` is the median, ``{prefix}ms_p10``/``_p90``/``_min``
+    /``_max`` the spread.  Without ``flush`` a sleep kernel queued first lets
+    the host enqueue ahead of the card, so each pair brackets one call on a
+    busy stream, its inputs warm in L2 as the previous call left them; with
+    ``flush`` (a buffer larger than the 50 MB L2) the buffer is rewritten
+    before each call, so each finds L2 cold."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
     if flush is None:
-        a, b = ev(), ev()
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        a, b = ev(), ev()
+        torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in pairs:
+        if flush is not None:
+            flush.zero_()
         a.record()
         fn()
         b.record()
-        pairs.append((a, b))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+    t = np.array([a.elapsed_time(b) for a, b in pairs])
+    stats = {"": np.median(t), "_p10": np.percentile(t, 10), "_p90": np.percentile(t, 90),
+             "_min": t.min(), "_max": t.max()}
+    return {f"{prefix}ms{k}": float(v) for k, v in stats.items()}
 
 
-def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(bytes_moved: int, f32_flops: int = 0, mma_flops: int = 0) -> tuple[float, str]:
+    """The least time in ms for moving ``bytes_moved`` through HBM and doing
+    ``f32_flops`` on the CUDA cores and ``mma_flops`` on the bf16 tensor
+    cores, and which of bytes and operations sets it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = f32_flops / F32_FLOP_PER_S + mma_flops / BF16_MMA_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def din_flops(n_candidates: int, l: int, e: int) -> int:
-    """f32 operations of one DIN score: scores 2LE + scale L + softmax 4L +
-    probs.seq 2LE + att Linear 2E^2 + mlp1 4E^2 + bias/ReLU 2E + mlp2 2E+1."""
-    return n_candidates * (4 * l * e + 5 * l + 6 * e * e + 4 * e + 1)
+def din_flops(n_candidates: int, l: int, e: int) -> tuple[int, int]:
+    """Operations of DIN scores as (matmul, rest): the matmuls are scores
+    2LE + probs.seq 2LE + att Linear 2E^2 + mlp1 4E^2 + mlp2 2E; the rest is
+    the scale L + softmax 4L + bias/ReLU 2E + the last bias 1."""
+    return (n_candidates * (4 * l * e + 6 * e * e + 2 * e),
+            n_candidates * (5 * l + 2 * e + 1))
+
+
+def k3_bound(b: int, beam: int, l: int, e: int) -> tuple[float, str]:
+    """K3's bound on [b, beam] pair rows: of each row the 2E+6 lanes it needs,
+    the alive mask, the sequence tiles and padding, the weights and its f32
+    outputs; its matmuls at the bf16 tensor-core rate (their operands are
+    bf16), the rest at the f32 rate."""
+    u = 2 * beam
+    n_floats = (b * beam * (2 * e + 6) + b * beam + b * l * e + b * l
+                + 3 * e * e + 2 * e + 1 + b * u * 3)
+    mm, rest = din_flops(b * u, l, e)
+    return bound(4 * n_floats, f32_flops=rest, mma_flops=mm)
+
+
+def row_bound(idx: torch.Tensor, n_table_rows: int, width: int,
+              add: bool) -> tuple[int, float, str]:
+    """(rows written, bound ms, bound_by) of a row write or add: the indices,
+    one f32 payload row per distinct destination in [0, n_table_rows)
+    (repeats carry equal payloads, dropped rows are never read), each
+    destination written once and, by the add, read once more; the add does
+    one f32 add per lane of each destination."""
+    kept = idx[(idx >= 0) & (idx < n_table_rows)]
+    written = int(torch.unique(kept).numel())
+    row_b = 4 * width
+    by, op = bound(nbytes(idx) + written * row_b * (3 if add else 2),
+                   f32_flops=written * width if add else 0)
+    return written, by, op
+
+
+def hmma_counts(lib_path: Path) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel's SASS in the built
+    library, from ``cuobjdump -sass``, keyed by the kernel's plain name."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        mangled, body = part.split("\n", 1)
+        name = next((k for k in ("din_score_kernel", "packed_level_kernel", "write_kernel",
+                                 "add_kernel") if k in mangled), mangled.strip())
+        out[name] = out.get(name, 0) + body.count("HMMA")
+    return out
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -247,10 +307,10 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     launch1 = lambda *p: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
         *p, *wptrs, out.data_ptr(), b, u, l, E, stream))
     ptrs = [t.data_ptr() for t in (item_e, seq_e, pad)]
-    by, op = bound(nbytes(item_e, seq_e, pad, *weights, k1), din_flops(b * u, l, E))
+    by, op = bound(nbytes(item_e, seq_e, pad, *weights, k1), sum(din_flops(b * u, l, E)))
     results["din_score"] = dict(
-        **agree1, ms=time_ms(lambda: launch1(*ptrs)),
-        plain_ms=time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights)),
+        **agree1, **time_ms(lambda: launch1(*ptrs)),
+        **time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights), "plain_"),
         bound_ms=by, bound_by=op, shape=[b, u, l, E],
         wide={**agree_wide, "shape": list(wide.shape)},
     )
@@ -285,16 +345,18 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     launch3 = lambda *p: _cuda.check_launch("packed_level", lib.packed_level_bf16(  # noqa: E731
         *p, *wptrs, sc.data_ptr(), hl.data_ptr(), b, BEAM, rw, l, E, stream))
     ptrs = [t.data_ptr() for t in (rows, alive_f, seq_e, pad)]
-    # K3 needs the `used` lanes of each row it is handed, not all 128
-    rows_needed = b * BEAM * used * rows.element_size()
-    by, op = bound(rows_needed + nbytes(alive_f, seq_e, pad, *weights, ks, kh),
-                   din_flops(b * u, l, E))
+    by, op = k3_bound(b, BEAM, l, E)
+    # warm: the serving loop's gather has just written the rows; cold: after
+    # a 256 MB flush
+    flush = torch.empty(64 << 20, device=dev)
     results["packed_level"] = dict(
-        **agree3, ms=time_ms(lambda: launch3(*ptrs)),
-        plain_ms=time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E)),
+        **agree3, **time_ms(lambda: launch3(*ptrs)),
+        **time_ms(lambda: launch3(*ptrs), "cold_", flush=flush),
+        **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E), "plain_"),
         bound_ms=by, bound_by=op, shape=[b, BEAM, rw, l, E],
         control_f32_scorer=control,
     )
+    del flush
     torch.cuda.synchronize()
     return results
 
@@ -474,22 +536,36 @@ def row_case(name: str, table: torch.Tensor, idx: torch.Tensor, rows: torch.Tens
             table.shape[1], _cuda.stream_handle(table.device))
     keep = (idx >= 0) & (idx < table.shape[0])
     kept, kept_rows = idx[keep], rows[keep]  # the library calls refuse the rest
-    written = int(torch.unique(kept).numel())
-    # what the function needs: the indices, one payload row per destination
-    # row (repeats carry equal payloads, dropped rows are never read), each
-    # destination row written once (and read once more by the add); the add
-    # does one f32 add per lane of each (unique) destination row
-    row_b = rows.shape[1] * rows.element_size()
-    by, op = bound(nbytes(idx) + written * row_b * (3 if add else 2),
-                   written * rows.shape[1] if add else 0)
+    written, by, op = row_bound(idx, table.shape[0], table.shape[1], add)
     library = ((lambda: table.index_add_(0, kept, kept_rows)) if add else
                (lambda: table.index_copy_(0, kept, kept_rows)))
-    ms = time_ms(lambda: _cuda.check_launch(name, fn(*args)), flush=flush)
+    t = time_ms(lambda: _cuda.check_launch(name, fn(*args)), flush=flush)
     return {"table": list(table.shape), "rows": idx.shape[0], "rows_written": written,
-            "bit_exact": exact, "max_abs_err": err, "ms": ms,
-            "ns_per_row": ms * 1e6 / idx.shape[0],
-            "plain_ms": time_ms(lambda: plain(table, idx, rows), flush=flush),
-            "library_ms": time_ms(library, flush=flush), "bound_ms": by, "bound_by": op}
+            "bit_exact": exact, "max_abs_err": err, **t,
+            "ns_per_row": t["ms"] * 1e6 / idx.shape[0],
+            **time_ms(lambda: plain(table, idx, rows), "plain_", flush=flush),
+            **time_ms(library, "library_", flush=flush), "bound_ms": by, "bound_by": op}
+
+
+def dropped(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``idx`` with its first, a middle and its last entry aimed out of
+    range (below 0 and past the table): K2 must drop them."""
+    out = idx.clone()
+    out[0], out[len(out) // 2], out[-1] = -1, table.shape[0], table.shape[0] + 7
+    return out
+
+
+def distinct_prefix(idx: torch.Tensor) -> int:
+    """Length of a pmv commit's distinct-row prefix: ``_merge_slots`` hands
+    K2 the distinct physical rows (the scratch row first when the step had
+    padding), then a tail that repeats the scratch row."""
+    a = idx.cpu().numpy()
+    _, first = np.unique(a, return_index=True)
+    repeats = np.setdiff1d(np.arange(len(a)), first)
+    n = int(repeats[0]) if len(repeats) else len(a)
+    check(bool((a[n:] == a[-1]).all()),
+          "the pmv commit is not distinct rows followed by one repeated row")
+    return n
 
 
 @contextlib.contextmanager
@@ -517,7 +593,16 @@ def row_kernels(dev, pmv_commit: dict, mv_table_add: dict) -> dict:
     spikes' shapes."""
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     flush = torch.empty(64 << 20, device=dev)  # 256 MB, five times the L2
+    # the commit cut to its distinct rows: what the repeated scratch-row
+    # writes of the tail cost
+    n = distinct_prefix(pmv_commit["idx"])
     out = {"pmv_commit": row_case("write_rows", flush=flush, **pmv_commit),
+           "pmv_commit_distinct": row_case("write_rows", pmv_commit["table"],
+                                           pmv_commit["idx"][:n], pmv_commit["rows"][:n],
+                                           flush),
+           "pmv_commit_dropped": row_case("write_rows", pmv_commit["table"],
+                                          dropped(pmv_commit["idx"], pmv_commit["table"]),
+                                          pmv_commit["rows"], flush),
            "mv_table_add": row_case("add_rows", flush=flush, **mv_table_add)}
     # the spikes: 57,344 unique rows into a 640 MB table at each width
     for w in (16, 32, 64, 128):
@@ -533,7 +618,9 @@ def row_kernels(dev, pmv_commit: dict, mv_table_add: dict) -> dict:
 
 
 def row_errors(rk: dict, key: str) -> float:
-    cases = [rk["pmv_commit"]] if key == "write" else [rk["mv_table_add"]]
+    cases = ([rk["pmv_commit"], rk["pmv_commit_distinct"], rk["pmv_commit_dropped"]]
+             if key == "write" else
+             [rk["mv_table_add"]])
     cases += [v[key] for k, v in rk.items() if k.startswith("spike_")]
     return max(c["max_abs_err"] for c in cases)
 
@@ -745,9 +832,11 @@ def main() -> int:
     lib_path = _cuda.library_path()
     _cuda.library()
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "Compiling entry" in ln or "registers" in ln]
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    hmma = hmma_counts(lib_path)
+    check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas})
+          "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas, "sass_hmma": hmma})
 
     # ---- 3. kernels against their plain versions
     tree_path, ckpt, seqs, facts4, samples = example_data()  # set-up of the main path
@@ -876,6 +965,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src[name], "replaces": replaces[name],
             **({"also_replaces": also[name]} if name in also else {}),
             "launches": launches[name], "max_abs_err": errs[name], "ms": k["ms"],
+            "ms_p10": k["ms_p10"], "ms_p90": k["ms_p90"],
+            **({"cold_ms": k["cold_ms"]} if "cold_ms" in k else {}),
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "ok": True,
         })

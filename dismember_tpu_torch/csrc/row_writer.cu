@@ -10,30 +10,51 @@
 //                     in place table[idx[i]] += rows[i] for unique idx.
 //
 // A row copy is a pure memory operation: it is bound by bytes (each row read
-// once, each table row written once, the add also reads the old row).  The
-// TPU kernel pipelines one DMA per row because its rows must be 512-byte
-// aligned HBM slices; here every thread moves one float4 (16 bytes) of one
-// row, so a warp covers a 128-lane row (or several narrower rows) with
-// coalesced 16-byte accesses, and the card keeps many rows in flight by
-// itself.  The row index is read once per thread from a broadcast load.
+// once, each table row written once, the add also reads the old row).
 // Indices outside [0, P) are dropped, as the reference's scatter-set
 // fallback (mode="drop") does.  Duplicate indices are allowed for
 // write_rows_f32 only where they carry equal payloads (the scratch row of
 // the packed Adam states): every writer then stores the same bytes.
+//
+// write_rows_f32 is built around what the packed Adam commit hands it: the
+// sorted distinct physical rows a step touches, then a tail of entries that
+// all repeat the scratch row with zero payloads (about a quarter of the
+// rows at the 1M catalog).  A warp writes a group of rows: a row takes
+// lpr lanes (the power of two >= W/4, at most 32), a pass covers 32/lpr
+// rows, and a group is up to kPasses passes (a 128-lane row: one row a
+// pass, four rows a group), so a lane has up to kPasses 16-byte payload
+// loads in flight before its stores.  One lane per row loads the row's
+// index and its predecessor's, and __shfl_sync hands both to the row's
+// lanes.  A row whose index equals its predecessor's is skipped: the
+// contract makes its write a no-op, so a run of repeated scratch entries
+// costs one row write, not one per entry; non-adjacent repeats are still
+// written.  Payload rows are read once and the written rows are not read
+// again by the kernel, so both go with streaming hints (__ldcs, __stcs).
+// Offsets are 32-bit (tables and row blocks of 2^32 float4s, 64 GiB, or
+// more are refused) and nothing divides.  The grid covers the groups in at
+// most one wave of resident blocks; larger calls stride.
+//
+// add_rows_f32 keeps the first port's design: one float4 of one row a
+// thread, the row index read by each thread.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPasses = 4;  // 16-byte loads a lane keeps in flight
+constexpr int kBlocksPerSm = 2048 / kThreads;
 
-template <bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-    rows_kernel(float* __restrict__ table, const long long* __restrict__ idx,
-                const float* __restrict__ rows, long long P, long long n_vec, int vec_per_row) {
+    add_kernel(float* __restrict__ table, const long long* __restrict__ idx,
+               const float* __restrict__ rows, long long P, long long n_vec, int vec_per_row) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / vec_per_row;
@@ -42,27 +63,81 @@ __global__ void __launch_bounds__(kThreads)
     if (dst < 0 || dst >= P) continue;
     const float4 v = __ldg(reinterpret_cast<const float4*>(rows) + i);
     float4* out = reinterpret_cast<float4*>(table) + dst * vec_per_row + c;
-    if constexpr (kAdd) {
-      const float4 o = *out;
-      *out = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
-    } else {
-      *out = v;
+    const float4 o = *out;
+    *out = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    write_kernel(float4* __restrict__ table, const long long* __restrict__ idx,
+                 const float4* __restrict__ rows, long long P, int R, int vpr,
+                 int lpr_log2, int passes) {
+  const int lane = threadIdx.x & 31;
+  const int lpr = 1 << lpr_log2;       // lanes a row
+  const int rpp = 32 >> lpr_log2;      // rows a pass
+  const int group = rpp * passes;      // rows a group, at most 32
+  const int sub = lane >> lpr_log2, col = lane & (lpr - 1);
+  const int stride = gridDim.x * kWarps * group;
+  for (int base = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * group; base < R;
+       base += stride) {
+    // lane l: row base + l's index and whether that row is written
+    long long dst = 0;
+    int write = 0;
+    if (lane < group && base + lane < R) {
+      dst = __ldg(idx + base + lane);
+      const long long prev = base + lane > 0 ? __ldg(idx + base + lane - 1) : -1;
+      write = dst >= 0 && dst < P && dst != prev;
+    }
+    for (int c0 = 0; c0 < vpr; c0 += lpr) {  // one step for W <= 128
+      const int c = c0 + col;
+      float4 v[kPasses];
+      unsigned to[kPasses];
+      bool w[kPasses];
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u) {
+        const int r = (u * rpp + sub) & 31;
+        const long long d = __shfl_sync(0xffffffffu, dst, r);
+        w[u] = __shfl_sync(0xffffffffu, write, r) && u < passes && c < vpr;
+        to[u] = (unsigned)d * vpr + c;
+        if (w[u]) v[u] = __ldcs(rows + (unsigned)(base + r) * vpr + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u)
+        if (w[u]) __stcs(table + to[u], v[u]);
     }
   }
 }
 
-template <bool kAdd>
-int launch(float* table, const long long* idx, const float* rows, long long P, int R, int W,
-           void* stream) {
-  if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
-  if (R == 0) return cudaSuccess;
+int launch_write(float* table, const long long* idx, const float* rows, long long P, int R,
+                 int W, cudaStream_t stream) {
+  const int vpr = W / 4;
+  if ((unsigned long long)P * vpr >= (1ull << 32) || (unsigned long long)R * vpr >= (1ull << 32))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int lpr_log2 = 0;
+  while ((1 << lpr_log2) < vpr && lpr_log2 < 5) ++lpr_log2;
+  const int passes = (1 << lpr_log2) < kPasses ? (1 << lpr_log2) : kPasses;
+  const int group = (32 >> lpr_log2) * passes;
+  const long long want = ((long long)R + (long long)group * kWarps - 1) / (group * kWarps);
+  const int blocks = (int)std::min(want, (long long)sms * kBlocksPerSm);
+  if ((long long)R + (long long)blocks * kWarps * group > INT_MAX) return cudaErrorInvalidValue;
+  write_kernel<<<blocks, kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), idx,
+                                                reinterpret_cast<const float4*>(rows), P, R,
+                                                vpr, lpr_log2, passes);
+  return cudaGetLastError();
+}
+
+int launch_add(float* table, const long long* idx, const float* rows, long long P, int R,
+               int W, cudaStream_t stream) {
   const long long n_vec = (long long)R * (W / 4);
   // at most 8 resident blocks of 256 threads on each of 132 SMs; larger
   // calls stride
   const long long want = (n_vec + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
-  rows_kernel<kAdd><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, idx, rows, P, n_vec, W / 4);
+  add_kernel<<<blocks, kThreads, 0, stream>>>(table, idx, rows, P, n_vec, W / 4);
   return cudaGetLastError();
 }
 
@@ -74,13 +149,17 @@ extern "C" {
 // idx [R] int64, rows [R, W] f32.  table[idx[i]] = rows[i].
 int write_rows_f32(float* table, const long long* idx, const float* rows, long long P,
                    int R, int W, void* stream) {
-  return launch<false>(table, idx, rows, P, R, W, stream);
+  if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  return launch_write(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
 }
 
 // As write_rows_f32, but table[idx[i]] += rows[i]; idx must be unique.
 int add_rows_f32(float* table, const long long* idx, const float* rows, long long P, int R,
                  int W, void* stream) {
-  return launch<true>(table, idx, rows, P, R, W, stream);
+  if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  return launch_add(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

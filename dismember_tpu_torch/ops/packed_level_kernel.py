@@ -17,9 +17,11 @@ and hilo [B, 2*beam, 2].
 
 :func:`packed_level` launches ``packed_level_bf16`` (``csrc/din_kernels.cu``)
 for CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel
-is built for E=16 only.  On the H100 at the serving shapes (B=4096, beam=20)
-it is bound by f32 operations, as K1 is: of each 128-lane row it needs the
-2E+6 = 38 used lanes (~13 MB a level).  The row gather stays outside it.
+is built for E=16 and L <= 16 only.  It runs its products on the tensor
+cores (bf16 operands are the contract), so on the H100 at the serving
+shapes (B=4096, beam=20) it is bound by bytes: of each 128-lane row it needs
+the 2E+6 = 38 used lanes (~12.5 MB a level, ~17.5 MB with the sequence
+tiles and outputs).  The row gather stays outside it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from dismember_tpu_torch.ops import _cuda
 from dismember_tpu_torch.ops.din_kernel import score_chain
 
 NEG_INF = -3.4e38  # score of a missing child or dead parent
+_MAX_L = 16  # the kernel pads the sequence to one 16-wide mma tile
 
 # K3 launches on CUDA tensors; chip_smoke.py zeroes and reads it
 launches = 0
@@ -78,6 +81,8 @@ def packed_level(
     l, e = seq_e.shape[1], embed_size
     alive = alive.to(torch.float32)
     name = "packed_level"
+    if l > _MAX_L:
+        raise ValueError(f"{name}: the kernel takes sequences of at most {_MAX_L}, got {l}")
     _cuda.check_inputs(name, dev, rows=rows, alive=alive, seq_e=seq_e, pad=pad,
                        att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
     for arg, t, shape in (("alive", alive, (b, beam)), ("seq_e", seq_e, (b, l, e)),

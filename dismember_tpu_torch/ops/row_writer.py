@@ -13,7 +13,11 @@ plain versions (``index_copy_``/``index_add_``) for CPU tensors.  Both take
 an f32 [P, W] table with W a multiple of 4, int64 indices and [R, W] rows,
 update the table in place and return it; indices outside [0, P) are
 dropped.  On the H100 both are bound by bytes: a row is read once and
-written once (the add reads the old row too).
+written once (the add reads the old row too).  K2 writes each row with a
+warp (or a group of narrower rows with one), keeps several rows' loads in
+flight before their stores, and skips a row whose index equals its
+predecessor's: the packed Adam commit ends in a run of entries that all
+repeat its scratch row, which then costs one write.
 """
 
 from __future__ import annotations
@@ -21,8 +25,6 @@ from __future__ import annotations
 import torch
 
 from dismember_tpu_torch.ops import _cuda
-
-_BLOCK = 512  # write_rows_128 pads its row count to a multiple of this
 
 # launches on CUDA tensors; chip_smoke.py zeroes and reads them
 launches = {"write_rows": 0, "add_rows": 0}
@@ -83,16 +85,11 @@ def add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torc
 
 
 def write_rows_128(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """The JAX package's entry: :func:`write_rows` with the row count padded
-    to a multiple of 512 by repeating the last (idx, row) pair.
+    """The JAX package's entry: :func:`write_rows`.  The Pallas kernel pads
+    the row count to its 512-row grid step; K2 needs no padding.
 
     ``idx`` entries must be unique EXCEPT for repeats that carry identical
     payloads (e.g. a sacrificial scratch row)."""
-    r = idx.shape[0]
-    if r == 0:
+    if idx.shape[0] == 0:
         return table
-    pad = (-r) % min(_BLOCK, r)
-    if pad:
-        idx = torch.cat([idx, idx[-1:].expand(pad)])
-        rows = torch.cat([rows, rows[-1:].expand(pad, rows.shape[1])])
     return write_rows(table, idx.long().contiguous(), rows.contiguous())

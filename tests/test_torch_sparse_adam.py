@@ -141,13 +141,25 @@ def test_sparse_worthwhile_same_decision_grid():
                     jsa.sparse_worthwhile(rows, touched, e), (rows, touched, e)
 
 
-def test_write_rows_128_plain_with_dups_byte_equal():
-    """tests/test_sparse_packed.py's case plus padding to the block: dups
-    carry identical payloads; out-of-range rows are dropped."""
-    table = np.arange(12 * 128, dtype=np.float32).reshape(12, 128)
-    rows = -np.ones((5, 128), np.float32)
-    rows[0] = 7.0
-    idx = np.asarray([3, 7, 7, 7, 12])
+@pytest.mark.parametrize("r", [1, 511, 513, 8704])
+def test_write_rows_128_plain_with_dups_byte_equal(r):
+    """A pmv commit's shape at row counts around the Pallas kernel's 512-row
+    grid step (which the port no longer pads to): distinct rows, a tail that
+    repeats the scratch row with zero payloads, one non-adjacent repeat with
+    an equal payload and one out-of-range row (dropped)."""
+    rng = np.random.default_rng(r)
+    p = 2 * r + 2
+    scratch = p - 1
+    table = rng.normal(size=(p, 128)).astype(np.float32)
+    n_distinct = max(1, (3 * r) // 4)
+    idx = np.full(r, scratch)
+    idx[:n_distinct] = np.sort(rng.choice(scratch, n_distinct, replace=False))
+    rows = rng.normal(size=(r, 128)).astype(np.float32)
+    rows[idx == scratch] = 0.0
+    if r > 2:
+        idx[n_distinct // 2] = idx[0]  # a non-adjacent repeat: equal payloads
+        rows[n_distinct // 2] = rows[0]
+        idx[-1] = p  # out of range: dropped
     ref = np.asarray(j_write_rows_128(jnp.asarray(table), jnp.asarray(idx, jnp.int32),
                                       jnp.asarray(rows), use_pallas=False))
     before = dict(row_writer.launches)
