@@ -5,15 +5,17 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
-     ptxas's registers and spills, and K3's tensor-core instructions (HMMA)
-     counted in ``cuobjdump -sass`` of the library (none fails the run);
+     ptxas's registers and spills (K1 above 64 registers or spilling fails
+     the run), and K3's tensor-core instructions (HMMA) counted in
+     ``cuobjdump -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
-     ``predict``'s one row of every catalog item), O(1)-scale inputs and
-     biases, with an all-padding row, a ragged last block, dead parents and
-     missing children; a control (K1's f32 scorer in K3's place) that must
-     fail K3's check; kernel and plain times from CUDA events (K3 both warm
-     in L2, as the serving loop leaves its rows, and cold);
+     ``predict``'s one row of every catalog item, and at L=24 on the kernel
+     for sequences past 10 positions), O(1)-scale inputs and biases, with
+     an all-padding row, a ragged last block, dead parents and missing
+     children; a control (K1's f32 scorer in K3's place) that must fail K3's
+     check; kernel and plain times from CUDA events (K1 and K3 both warm in
+     L2, as the serving loop leaves their inputs, and cold);
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -224,6 +226,16 @@ def din_flops(n_candidates: int, l: int, e: int) -> tuple[int, int]:
             n_candidates * (5 * l + 2 * e + 1))
 
 
+def din_folded_flops(b: int, u: int, l: int, e: int) -> int:
+    """Operations of K1's folded DIN scores over [b, u] candidates: M =
+    w1[:, E:] @ att_w once (2E^3) and ctx_l = M . seq_l per query row
+    (2LE^2); per candidate the scores 2LE and their padding terms 2L, the
+    softmax 4L, sum_l x_l ctx_l 2LE, w1[:, :E] . item 2E^2, h's reciprocal
+    term, bias and ReLU 4E, w2 2E and the last bias 1."""
+    return (2 * e**3 + b * 2 * l * e * e
+            + b * u * (4 * l * e + 6 * l + 2 * e * e + 6 * e + 1))
+
+
 def k3_bound(b: int, beam: int, l: int, e: int) -> tuple[float, str]:
     """K3's bound on [b, beam] pair rows: of each row the 2E+6 lanes it needs,
     the alive mask, the sequence tiles and padding, the weights and its f32
@@ -251,6 +263,22 @@ def row_bound(idx: torch.Tensor, n_table_rows: int, width: int,
     return written, by, op
 
 
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spill bytes (stores + loads) that ``nvcc -Xptxas=-v``
+    reported for the entry functions whose name holds ``kernel``."""
+    out, name = {"registers": 0, "spill_bytes": 0}, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif kernel in name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out["spill_bytes"] += nums[1] + nums[2]  # stack, stores, loads
+        elif kernel in name and "registers" in ln:
+            regs = int(ln.split("Used ")[1].split()[0])
+            out["registers"] = max(out["registers"], regs)
+    return out
+
+
 def hmma_counts(lib_path: Path) -> dict:
     """Tensor-core instructions (HMMA) in each kernel's SASS in the built
     library, from ``cuobjdump -sass``, keyed by the kernel's plain name."""
@@ -260,8 +288,8 @@ def hmma_counts(lib_path: Path) -> dict:
     out = {}
     for part in sass.split("Function : ")[1:]:
         mangled, body = part.split("\n", 1)
-        name = next((k for k in ("din_score_kernel", "packed_level_kernel", "write_kernel",
-                                 "add_kernel") if k in mangled), mangled.strip())
+        name = next((k for k in ("din_score_kernel", "packed_level_kernel", "write_kernel")
+                     if k in mangled), mangled.strip())
         out[name] = out.get(name, 0) + body.count("HMMA")
     return out
 
@@ -301,18 +329,36 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     ctx = (seq_e[2:3].contiguous(), pad[2:3].contiguous())
     agree_wide = within("din_score", din_score(wide, *ctx, *weights),
                         din_score_plain(wide, *ctx, *weights))
-    # the raw launch, timed without the wrapper's checks; the inputs lie in
-    # L2 as on the serving path, whose gather has just written them
+    # sequences of 24 positions: the chunked kernel, six chunks of 4 each
+    # rescaling the running sums; checked, not timed
+    seq24 = torch.randn(b, 24, E, generator=g) * EMB_STD
+    pad24 = (torch.rand(b, 24, generator=g) < 0.3).float()
+    pad24[0] = 1.0
+    seq24[pad24 > 0] = 0.0
+    seq24, pad24 = seq24.to(dev), pad24.to(dev)
+    agree24 = within("din_score", din_score(item_e, seq24, pad24, *weights),
+                     din_score_plain(item_e, seq24, pad24, *weights))
+    del seq24, pad24
+    # the raw launch, timed without the wrapper's checks; warm: the inputs
+    # lie in L2 as on the serving path, whose gather has just written them;
+    # cold: after a 256 MB flush
     out = torch.empty_like(k1)
     launch1 = lambda *p: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
         *p, *wptrs, out.data_ptr(), b, u, l, E, stream))
     ptrs = [t.data_ptr() for t in (item_e, seq_e, pad)]
-    by, op = bound(nbytes(item_e, seq_e, pad, *weights, k1), sum(din_flops(b * u, l, E)))
+    k1_bytes = nbytes(item_e, seq_e, pad, *weights, k1)
+    by, op = bound(k1_bytes, din_folded_flops(b, u, l, E))
+    flush = torch.empty(64 << 20, device=dev)
     results["din_score"] = dict(
         **agree1, **time_ms(lambda: launch1(*ptrs)),
+        **time_ms(lambda: launch1(*ptrs), "cold_", flush=flush),
         **time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights), "plain_"),
-        bound_ms=by, bound_by=op, shape=[b, u, l, E],
+        bound_ms=by, bound_by=op,
+        # the direct formula's operations, K1's bound before the fold
+        bound_direct_ms=bound(k1_bytes, sum(din_flops(b * u, l, E)))[0],
+        shape=[b, u, l, E],
         wide={**agree_wide, "shape": list(wide.shape)},
+        l24={**agree24, "shape": [b, u, 24, E]},
     )
 
     # K3: 4096 rows x 20 parents of 128-lane pair rows; 15% missing
@@ -347,8 +393,7 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     ptrs = [t.data_ptr() for t in (rows, alive_f, seq_e, pad)]
     by, op = k3_bound(b, BEAM, l, E)
     # warm: the serving loop's gather has just written the rows; cold: after
-    # a 256 MB flush
-    flush = torch.empty(64 << 20, device=dev)
+    # the flush
     results["packed_level"] = dict(
         **agree3, **time_ms(lambda: launch3(*ptrs)),
         **time_ms(lambda: launch3(*ptrs), "cold_", flush=flush),
@@ -831,12 +876,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _cuda.library_path()
     _cuda.library()
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
+    log = lib_path.with_suffix(".log").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    k1_usage = ptxas_usage(log, "din_score_kernel")
     hmma = hmma_counts(lib_path)
-    check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas, "sass_hmma": hmma})
+          "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
+          "k1_ptxas": k1_usage, "sass_hmma": hmma})
+    check(0 < k1_usage["registers"] <= 64 and k1_usage["spill_bytes"] == 0,
+          f"K1 uses more than 64 registers or spills: {k1_usage}")
+    check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
 
     # ---- 3. kernels against their plain versions
     tree_path, ckpt, seqs, facts4, samples = example_data()  # set-up of the main path
@@ -955,6 +1005,7 @@ def main() -> int:
              "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"]}
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
                              kern["din_score"]["wide"]["max_abs_err"],
+                             kern["din_score"]["l24"]["max_abs_err"],
                              facts_ex["k1_vs_plain"]["max_abs_err"]),
             "packed_level": kern["packed_level"]["max_abs_err"],
             "write_rows": row_errors(rk, "write"), "add_rows": row_errors(rk, "add")}

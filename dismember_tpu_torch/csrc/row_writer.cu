@@ -16,26 +16,27 @@
 // write_rows_f32 only where they carry equal payloads (the scratch row of
 // the packed Adam states): every writer then stores the same bytes.
 //
-// write_rows_f32 is built around what the packed Adam commit hands it: the
-// sorted distinct physical rows a step touches, then a tail of entries that
-// all repeat the scratch row with zero payloads (about a quarter of the
-// rows at the 1M catalog).  A warp writes a group of rows: a row takes
-// lpr lanes (the power of two >= W/4, at most 32), a pass covers 32/lpr
-// rows, and a group is up to kPasses passes (a 128-lane row: one row a
-// pass, four rows a group), so a lane has up to kPasses 16-byte payload
-// loads in flight before its stores.  One lane per row loads the row's
-// index and its predecessor's, and __shfl_sync hands both to the row's
-// lanes.  A row whose index equals its predecessor's is skipped: the
-// contract makes its write a no-op, so a run of repeated scratch entries
-// costs one row write, not one per entry; non-adjacent repeats are still
-// written.  Payload rows are read once and the written rows are not read
-// again by the kernel, so both go with streaming hints (__ldcs, __stcs).
-// Offsets are 32-bit (tables and row blocks of 2^32 float4s, 64 GiB, or
-// more are refused) and nothing divides.  The grid covers the groups in at
-// most one wave of resident blocks; larger calls stride.
-//
-// add_rows_f32 keeps the first port's design: one float4 of one row a
-// thread, the row index read by each thread.
+// Both run one kernel, write_kernel<kAdd>.  It is built around what the
+// packed Adam commit hands write_rows_f32: the sorted distinct physical rows
+// a step touches, then a tail of entries that all repeat the scratch row
+// with zero payloads (about a quarter of the rows at the 1M catalog).  A
+// warp handles a group of rows: a row takes lpr lanes (the power of two >=
+// W/4, at most 32), a pass covers 32/lpr rows, and a group is up to kPasses
+// passes (a 128-lane row: one row a pass, four rows a group), so a lane has
+// up to kPasses 16-byte payload loads in flight before its stores (the add:
+// kPasses payload and old-row loads).  One lane per row loads the row's
+// index, and __shfl_sync hands it to the row's lanes; a row aimed outside
+// [0, P) loads nothing.  The write also loads its predecessor's index and
+// skips a row whose index equals it: the contract makes that write a no-op,
+// so a run of repeated scratch entries costs one row write, not one per
+// entry; non-adjacent repeats are still written.  The add skips nothing:
+// its indices must be unique, and a skip would turn a wrong call into a
+// silently wrong sum.  Payload rows are read once and the written rows are
+// not read again by the kernel, so both go with streaming hints (__ldcs,
+// __stcs).  Offsets are 32-bit (tables and row blocks of 2^32 float4s, 64
+// GiB, or more are refused) and nothing divides.  The grid covers the
+// groups with at most kBlocksPerSm blocks on each of the device's SMs;
+// larger calls stride.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
@@ -52,22 +53,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPasses = 4;  // 16-byte loads a lane keeps in flight
 constexpr int kBlocksPerSm = 2048 / kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-    add_kernel(float* __restrict__ table, const long long* __restrict__ idx,
-               const float* __restrict__ rows, long long P, long long n_vec, int vec_per_row) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / vec_per_row;
-    const int c = (int)(i - r * vec_per_row);
-    const long long dst = __ldg(idx + r);
-    if (dst < 0 || dst >= P) continue;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(rows) + i);
-    float4* out = reinterpret_cast<float4*>(table) + dst * vec_per_row + c;
-    const float4 o = *out;
-    *out = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
-  }
-}
-
+// kAdd = false: table[idx[i]] = rows[i], adjacent repeats skipped;
+// kAdd = true: table[idx[i]] += rows[i], nothing skipped.
+template <bool kAdd>
 __global__ void __launch_bounds__(kThreads)
     write_kernel(float4* __restrict__ table, const long long* __restrict__ idx,
                  const float4* __restrict__ rows, long long P, int R, int vpr,
@@ -85,12 +73,16 @@ __global__ void __launch_bounds__(kThreads)
     int write = 0;
     if (lane < group && base + lane < R) {
       dst = __ldg(idx + base + lane);
-      const long long prev = base + lane > 0 ? __ldg(idx + base + lane - 1) : -1;
-      write = dst >= 0 && dst < P && dst != prev;
+      if constexpr (kAdd) {
+        write = dst >= 0 && dst < P;
+      } else {
+        const long long prev = base + lane > 0 ? __ldg(idx + base + lane - 1) : -1;
+        write = dst >= 0 && dst < P && dst != prev;
+      }
     }
     for (int c0 = 0; c0 < vpr; c0 += lpr) {  // one step for W <= 128
       const int c = c0 + col;
-      float4 v[kPasses];
+      float4 v[kPasses], old[kPasses];
       unsigned to[kPasses];
       bool w[kPasses];
 #pragma unroll
@@ -99,17 +91,26 @@ __global__ void __launch_bounds__(kThreads)
         const long long d = __shfl_sync(0xffffffffu, dst, r);
         w[u] = __shfl_sync(0xffffffffu, write, r) && u < passes && c < vpr;
         to[u] = (unsigned)d * vpr + c;
-        if (w[u]) v[u] = __ldcs(rows + (unsigned)(base + r) * vpr + c);
+        if (w[u]) {
+          v[u] = __ldcs(rows + (unsigned)(base + r) * vpr + c);
+          if constexpr (kAdd) old[u] = __ldcg(table + to[u]);
+        }
       }
 #pragma unroll
       for (int u = 0; u < kPasses; ++u)
-        if (w[u]) __stcs(table + to[u], v[u]);
+        if (w[u]) {
+          if constexpr (kAdd)
+            v[u] = make_float4(old[u].x + v[u].x, old[u].y + v[u].y, old[u].z + v[u].z,
+                               old[u].w + v[u].w);
+          __stcs(table + to[u], v[u]);
+        }
     }
   }
 }
 
-int launch_write(float* table, const long long* idx, const float* rows, long long P, int R,
-                 int W, cudaStream_t stream) {
+template <bool kAdd>
+int launch_rows(float* table, const long long* idx, const float* rows, long long P, int R,
+                int W, cudaStream_t stream) {
   const int vpr = W / 4;
   if ((unsigned long long)P * vpr >= (1ull << 32) || (unsigned long long)R * vpr >= (1ull << 32))
     return cudaErrorInvalidValue;
@@ -124,20 +125,9 @@ int launch_write(float* table, const long long* idx, const float* rows, long lon
   const long long want = ((long long)R + (long long)group * kWarps - 1) / (group * kWarps);
   const int blocks = (int)std::min(want, (long long)sms * kBlocksPerSm);
   if ((long long)R + (long long)blocks * kWarps * group > INT_MAX) return cudaErrorInvalidValue;
-  write_kernel<<<blocks, kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), idx,
-                                                reinterpret_cast<const float4*>(rows), P, R,
-                                                vpr, lpr_log2, passes);
-  return cudaGetLastError();
-}
-
-int launch_add(float* table, const long long* idx, const float* rows, long long P, int R,
-               int W, cudaStream_t stream) {
-  const long long n_vec = (long long)R * (W / 4);
-  // at most 8 resident blocks of 256 threads on each of 132 SMs; larger
-  // calls stride
-  const long long want = (n_vec + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
-  add_kernel<<<blocks, kThreads, 0, stream>>>(table, idx, rows, P, n_vec, W / 4);
+  write_kernel<kAdd><<<blocks, kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), idx,
+                                                      reinterpret_cast<const float4*>(rows),
+                                                      P, R, vpr, lpr_log2, passes);
   return cudaGetLastError();
 }
 
@@ -151,7 +141,7 @@ int write_rows_f32(float* table, const long long* idx, const float* rows, long l
                    int R, int W, void* stream) {
   if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
-  return launch_write(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
+  return launch_rows<false>(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
 }
 
 // As write_rows_f32, but table[idx[i]] += rows[i]; idx must be unique.
@@ -159,7 +149,7 @@ int add_rows_f32(float* table, const long long* idx, const float* rows, long lon
                  int W, void* stream) {
   if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
-  return launch_add(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
+  return launch_rows<true>(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

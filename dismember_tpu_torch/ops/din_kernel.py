@@ -8,9 +8,13 @@ tensors.  It scores every forward-only DIN call of the port: the classic
 beam loop's levels, ``TDMServing.predict`` and the trainer's eval loss.
 
 On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
-bound by f32 operations (~2.3 kFLOP per candidate on CUDA cores against
-~0.3 KB of input); one thread scores one candidate with the query row's
-sequence tile and the weights in shared memory.  The kernel is built for
+bound by bytes: ~13.9 MB of candidate and sequence embeddings, padding and
+logits against ~0.23 GFLOP of f32 work on the CUDA cores.  It folds the
+sequence side once per query row (ctx_l = (w1[:, E:] @ att_w) . seq_l, by
+linearity), so one thread scores one candidate with ~1.3 kFLOP in registers:
+L scores with padding as a multiply-add, the softmax with one reciprocal of
+its sum, and h from ctx.  The sum runs in another order than
+:func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
 E=16 only.  Forward only: on CUDA it raises when grad mode is on and an
 input requires grad (the trainers score through the plain version under
 autograd, ``DIN.train_apply_from_emb``).

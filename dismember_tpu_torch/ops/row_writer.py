@@ -13,11 +13,13 @@ plain versions (``index_copy_``/``index_add_``) for CPU tensors.  Both take
 an f32 [P, W] table with W a multiple of 4, int64 indices and [R, W] rows,
 update the table in place and return it; indices outside [0, P) are
 dropped.  On the H100 both are bound by bytes: a row is read once and
-written once (the add reads the old row too).  K2 writes each row with a
-warp (or a group of narrower rows with one), keeps several rows' loads in
-flight before their stores, and skips a row whose index equals its
-predecessor's: the packed Adam commit ends in a run of entries that all
-repeat its scratch row, which then costs one write.
+written once (the add reads the old row too).  Both run one kernel: a warp
+writes a row (or a group of narrower rows), one lane loads each row's index
+and shuffles it to the row's lanes, rows aimed out of range load nothing,
+and several rows' loads are in flight before their stores.  K2 skips a row
+whose index equals its predecessor's (the packed Adam commit ends in a run
+of entries that all repeat its scratch row, which then costs one write);
+the add, whose indices must be unique, skips none.
 """
 
 from __future__ import annotations
