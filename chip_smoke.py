@@ -10,8 +10,9 @@ Phases, one JSON line each; any failed check raises and fails the run:
      ``cuobjdump -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
-     ``predict``'s one row of every catalog item, and at L=24 on the kernel
-     for sequences past 10 positions), O(1)-scale inputs and biases, with
+     ``predict``'s one row of every catalog item, at L=24 on the kernel
+     for sequences past 10 positions, and at a JTM sweep batch's shapes
+     [8192, 4] and [8192, 2]), O(1)-scale inputs and biases, with
      an all-padding row, a ragged last block, dead parents and missing
      children; a control (K1's f32 scorer in K3's place) that must fail K3's
      check; kernel and plain times from CUDA events (K1 and K3 both warm in
@@ -42,6 +43,20 @@ Phases, one JSON line each; any failed check raises and fails the run:
      (57,344 unique rows into 640 MB tables of widths 16/32/64/128); kernel,
      plain and library (``index_copy_`` / ``index_add_``) times from CUDA
      events, each after a 256 MB flush, and a bytes bound;
+  workflow: the port's CLI in process on the example catalog, from a copy of
+     configs/tdm.conf and configs/jtm.conf (``model.iteration_number`` cut
+     to 300): tdm-initialize-tree -> tdm-train-deep-model -> tdm-cluster-tree
+     -> tdm-train-deep-model on the clustered tree -> jtm-tree-learning, with
+     every K1 call of the sweep held against its plain version and every add
+     bit for bit; the clustered tree against the same clustering on the CPU;
+     the sweep repeated (bitwise-equal projection) and run with both plain
+     versions (near ties only); the learned tree served on both routes;
+  jtm_deep: a JTM sweep over a 2^19-item catalog (the cut is explained at
+     JTM_DEEP_ITEMS) on 2^20 rows with deep_training's model, per level
+     score and rebalance seconds and launches, every K1 call and add of its
+     one-chain-level step ([8192, 2], the add's 2 columns padded to 4) held
+     against the plain versions; tree_cluster on the 1M catalog's leaf
+     embeddings, its seconds split into the device 2-means and the rest;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -68,17 +84,24 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from dismember_tpu_torch.core.checkpoint import save_pytree  # noqa: E402
+from dismember_tpu_torch.cli.main import main as cli_main  # noqa: E402
+from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree, save_pytree  # noqa: E402
 from dismember_tpu_torch.data.ingest import (  # noqa: E402
     read_csv,
     unique_items_with_category,
     user_interactions,
 )
-from dismember_tpu_torch.data.tdm_dataset import generate_split_samples  # noqa: E402
+from dismember_tpu_torch.data.tdm_dataset import (  # noqa: E402
+    generate_split_samples,
+    read_train_file,
+)
+from dismember_tpu_torch.index import cluster  # noqa: E402
 from dismember_tpu_torch.index.arraytree import ArrayTree  # noqa: E402
+from dismember_tpu_torch.index.cluster import read_embeddings_csv, tree_cluster  # noqa: E402
 from dismember_tpu_torch.index.tree_io import (  # noqa: E402
     build_tree,
     category_sorted_codes,
+    sink_leaf_codes,
     write_tree,
 )
 from dismember_tpu_torch.models import din as din_model  # noqa: E402
@@ -103,7 +126,8 @@ from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
 )
 from dismember_tpu_torch.serving import TDMServing  # noqa: E402
 from dismember_tpu_torch.train import sparse_adam  # noqa: E402
-from dismember_tpu_torch.train.tdm import TDMTrainer, packed_fns, serving_fns  # noqa: E402
+from dismember_tpu_torch.train.jtm import TreeLearner  # noqa: E402
+from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns  # noqa: E402
 
 SEED = 0
 BATCH, BEAM, TOPK, SEQ_LEN, E = 4096, 20, 10, 10, 16  # configs/tdm.conf, bench.py
@@ -138,6 +162,19 @@ TDM_CONF = dict(embed_size=E, learning_rate=1e-4, total_batch_size=8192,
 LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 2e-4, 2e-6
 TRAIN_ITERS, DEEP_STEPS, DENSE_STEPS = 200, 50, 10
 SPIKE_ROWS, SPIKE_TABLE_FLOATS = 57_344, 10_000_000 * 16  # scripts/spike_pallas_scatter*.py
+# the workflow phase runs configs/tdm.conf and configs/jtm.conf as they are
+# but for this one cut (2000 and 1000 in the files)
+WORKFLOW_ITERS = 300
+SWEEP_ROWS, SWEEP_U = 8192, 4  # a JTM sweep batch: score_batch_rows, 2^gap candidates
+JTM_DEEP_ROWS = 1 << 20  # synthetic (window, target) rows of the deep sweep
+# The deep sweep's catalog, cut from DEEP_ITEMS: the greedy rebalance is a
+# host loop over every item of an over-capacity segment, and a model's
+# argmax overfills segments at every level, so a level costs ~14 us of host
+# time an item (13.7 on an H100 machine's host at 2^19 items: jtm_deep's
+# rebalance_us_per_item_level); at 1M items the ten levels would take ~140 s
+# against the phase's ~90 s.  2^19 (~76 s) is the largest power of two that
+# fits.  The clustering runs on the whole 1M catalog.
+JTM_DEEP_ITEMS = 1 << 19
 
 
 def emit(obj) -> None:
@@ -360,6 +397,33 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
         wide={**agree_wide, "shape": list(wide.shape)},
         l24={**agree24, "shape": [b, u, 24, E]},
     )
+    # K1 at a JTM sweep batch's shape: 8192 training rows, each scoring its
+    # item's 4 chain candidates (gap 2), checked and timed as above
+    sb, su = SWEEP_ROWS, SWEEP_U
+    s_item = (torch.randn(sb, su, E, generator=g) * EMB_STD).to(dev)
+    s_seq = torch.randn(sb, l, E, generator=g) * EMB_STD
+    s_pad = (torch.rand(sb, l, generator=g) < 0.3).float()
+    s_seq[s_pad > 0] = 0.0
+    s_seq, s_pad = s_seq.to(dev), s_pad.to(dev)
+    agree_s = within("din_score", din_score(s_item, s_seq, s_pad, *weights),
+                     din_score_plain(s_item, s_seq, s_pad, *weights))
+    s_out = torch.empty(sb, su, device=dev)
+    launch_s = lambda: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
+        s_item.data_ptr(), s_seq.data_ptr(), s_pad.data_ptr(), *wptrs, s_out.data_ptr(),
+        sb, su, l, E, stream))
+    by, op = bound(nbytes(s_item, s_seq, s_pad, *weights, s_out), din_folded_flops(sb, su, l, E))
+    results["din_score"]["sweep"] = dict(
+        **agree_s, **time_ms(launch_s), **time_ms(launch_s, "cold_", flush=flush),
+        **time_ms(lambda: din_score_plain(s_item, s_seq, s_pad, *weights), "plain_"),
+        bound_ms=by, bound_by=op, shape=[sb, su, l, E])
+    # the sweep's step of one chain level (an odd max_level): 2 candidates a
+    # row, another block plan; checked, not timed
+    s2 = s_item[:, :2].contiguous()
+    results["din_score"]["sweep_u2"] = dict(
+        **within("din_score", din_score(s2, s_seq, s_pad, *weights),
+                 din_score_plain(s2, s_seq, s_pad, *weights)),
+        shape=[sb, 2, l, E])
+    del s_item, s_seq, s_pad, s_out, s2
 
     # K3: 4096 rows x 20 parents of 128-lane pair rows; 15% missing
     # children, 10% dead parents and one row with every parent dead
@@ -789,11 +853,12 @@ def example_training(dev, tree_path: str, samples) -> tuple[dict, dict]:
             "deterministic": True, "routes_one_batch": routes}, mv_table_add
 
 
-def deep_training(dev, tree: ArrayTree, serve_seqs: np.ndarray) -> tuple[dict, dict]:
+def deep_training(dev, tree: ArrayTree, serve_seqs: np.ndarray) -> tuple[dict, dict, DIN]:
     """bench.py's 1M-catalog trainer (auto route: pmv, one K2 launch a
     step); the caller zeroes and reads the launch counts around it.
-    Returns the facts and the last commit of the plain-writer rerun (the
-    same tensors as the trainer's last K2 launch, the states being equal)."""
+    Returns the facts, the last commit of the plain-writer rerun (the same
+    tensors as the trainer's last K2 launch, the states being equal) and
+    the trained model."""
     neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
     make = lambda **kw: TDMTrainer(tree=tree, embed_size=E, layer_neg_counts=neg,  # noqa: E731
                                    topk=TOPK, beam_size=BEAM, seed=SEED, device=dev, **kw)
@@ -838,6 +903,7 @@ def deep_training(dev, tree: ArrayTree, serve_seqs: np.ndarray) -> tuple[dict, d
           and same_params(trainer, twin), "pmv state differs from the plain-writer rerun")
     check(commit["table"] is twin.emb_state["pmv"], "the pmv commit was not captured")
     pmv_gb = trainer.emb_state["pmv"].numel() * 4 / 1e9
+    model = trainer.model  # the jtm_deep phase's scorer
     del trainer, twin
     dense = make(sparse_embed_update=False)
     dense_s, _ = timed(dense, DENSE_STEPS)
@@ -851,7 +917,275 @@ def deep_training(dev, tree: ArrayTree, serve_seqs: np.ndarray) -> tuple[dict, d
             "final_loss": logs[-1]["train_loss"], "pmv_equals_plain_writer_rerun": True,
             "serving_k3_launches": k3,
             "dense_timed_steps": DENSE_STEPS,
-            "dense_ms_per_step": dense_s / DENSE_STEPS * 1e3}, commit
+            "dense_ms_per_step": dense_s / DENSE_STEPS * 1e3}, commit, model
+
+
+# ---------------------------------------------------------------- workflow
+class LevelLog(logging.Handler):
+    """Within the block, collects the tree learner's per-level records
+    (``train/jtm.py`` logs each level's seconds as record fields) with the
+    K1 and add launches since the previous level."""
+
+    def __init__(self):
+        super().__init__()
+        self.levels: list[dict] = []
+        self.logger = logging.getLogger("dismember_tpu_torch.jtm")
+
+    def __enter__(self):
+        self._mark = read_launches()
+        self._level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self._level)
+
+    def emit(self, record):
+        if not hasattr(record, "score_s"):
+            return
+        now = read_launches()
+        self.levels.append({
+            "level": record.level, "score_s": record.score_s,
+            "rebalance_s": record.rebalance_s, "segments": record.segments,
+            "k1_launches": now["din_score"] - self._mark["din_score"],
+            "add_launches": now["add_rows"] - self._mark["add_rows"]})
+        self._mark = now
+
+
+@contextlib.contextmanager
+def adds_audited():
+    """Within the block, every ``row_writer.add_rows`` call runs the kernel
+    in place and is held bit for bit against ``add_rows_plain`` on a copy of
+    the same table; yields the number of calls."""
+    saved = row_writer.add_rows
+    seen = {"calls": 0}
+
+    def audited(table, idx, rows):
+        ref = row_writer.add_rows_plain(table.clone(), idx, rows)
+        saved(table, idx, rows)
+        check(torch.equal(bits(table), bits(ref)),
+              f"add_rows: the kernel differs from its plain version at {tuple(table.shape)}")
+        seen["calls"] += 1
+        return table
+
+    row_writer.add_rows = audited
+    try:
+        yield seen
+    finally:
+        row_writer.add_rows = saved
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block, DIN scores through ``din_score_plain`` and the row
+    add runs ``add_rows_plain``, on the card."""
+    saved = row_writer.add_rows
+    din_model.din_score, row_writer.add_rows = din_score_plain, row_writer.add_rows_plain
+    try:
+        yield
+    finally:
+        din_model.din_score, row_writer.add_rows = din_score, saved
+
+
+def workflow_dir() -> Path:
+    """A fresh working directory holding configs/tdm.conf and configs/jtm.conf
+    (``model.iteration_number`` cut to WORKFLOW_ITERS) and the example data
+    at the confs' ``data/`` paths."""
+    wd = OUT / "workflow"
+    shutil.rmtree(wd, ignore_errors=True)
+    (wd / "data").mkdir(parents=True)
+    shutil.copy(ROOT / "data" / "example_data.csv", wd / "data")
+    for name in ("tdm.conf", "jtm.conf"):
+        lines = (ROOT / "configs" / name).read_text().splitlines(keepends=True)
+        cut = [f"model.iteration_number          {WORKFLOW_ITERS}\n"
+               if ln.startswith("model.iteration_number") else ln for ln in lines]
+        check(cut != lines, f"{name}: no model.iteration_number to cut")
+        (wd / name).write_text("".join(cut))
+    return wd
+
+
+def check_projection(proj: dict, tree: ArrayTree) -> None:
+    """Total, leaf-bounded, bijective (tests/test_jtm.py:37-52)."""
+    check(set(proj) == set(tree.item_ids.tolist()), "the projection is not total")
+    codes = np.asarray(list(proj.values()))
+    lo = (1 << tree.max_level) - 1
+    check(bool(((codes >= lo) & (codes < 2 * lo + 1)).all()), "a code is not a leaf")
+    check(len(np.unique(codes)) == len(codes), "the projection is not bijective")
+
+
+def sweep(dev, tree_path: str, model_path: str, train_path: str) -> dict:
+    """jtm-tree-learning's sweep, in process: the same tree, model and rows."""
+    tree = ArrayTree.from_file(tree_path)
+    meta = load_meta(model_path)
+    model = build_model(meta["model"], tree.max_level, meta["embed_size"], meta["seq_len"],
+                        device=dev)
+    model.load_numpy(load_pytree(model_path, model.param_tree()))
+    seqs, targets = read_train_file(train_path)
+    return TreeLearner(tree=tree, model=model, train_seqs=seqs, train_targets=targets, gap=2,
+                       device=dev).optimize()
+
+
+def workflow(dev, serve_seqs: np.ndarray) -> dict:
+    """The port's CLI in process on the example catalog, as README.md's
+    workflow runs it: tdm-initialize-tree -> tdm-train-deep-model ->
+    tdm-cluster-tree -> tdm-train-deep-model on the clustered tree ->
+    jtm-tree-learning (every K1 call and add audited), then serving the
+    learned tree on both routes.  The caller zeroes and reads the launch
+    counts around it."""
+    wd = workflow_dir()
+    stages: dict[str, float] = {}
+
+    def run(stage: str, command: str, conf: str) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli_main([command, "--conf", conf]) == 0, f"{command} failed")
+        torch.cuda.synchronize()
+        stages[stage] = time.perf_counter() - t0
+
+    facts: dict = {"cut": f"model.iteration_number {WORKFLOW_ITERS} in tdm.conf and jtm.conf "
+                          "(2000 and 1000 in the files); nothing else changed"}
+    with contextlib.chdir(wd):
+        run("tdm-initialize-tree", "tdm-initialize-tree", "tdm.conf")
+        category = ArrayTree.from_file("data/tdm_tree.bin")
+        run("tdm-train-deep-model", "tdm-train-deep-model", "tdm.conf")
+        embed_ids, embeds = read_embeddings_csv("data/embed.csv")
+        run("tdm-cluster-tree", "tdm-cluster-tree", "tdm.conf")
+        clustered = ArrayTree.from_file("data/tdm_tree.bin")
+        check(set(clustered.item_ids.tolist()) == set(category.item_ids.tolist()),
+              "the clustered tree holds another item set")
+        check(len(np.unique(clustered.item_codes)) == clustered.num_items,
+              "the clustered tree repeats a leaf code")
+        lo = (1 << clustered.max_level) - 1
+        check(bool((clustered.item_codes >= lo).all()), "a clustered code is not a leaf")
+        # the same clustering, on the card again and on the CPU
+        _, gpu = tree_cluster(embed_ids, embeds, 10, "kmeans", device=dev)
+        _, cpu = tree_cluster(embed_ids, embeds, 10, "kmeans", device="cpu")
+        check(np.array_equal(sink_leaf_codes(gpu, clustered.max_level),
+                             clustered.ids_to_codes(embed_ids)),
+              "tree_cluster on the card is not deterministic")
+        facts["cluster"] = {"items": len(embed_ids), "max_level": clustered.max_level,
+                            "share_equal_to_cpu": float((gpu == cpu).mean())}
+        run("tdm-train-deep-model (clustered tree)", "tdm-train-deep-model", "tdm.conf")
+        # jtm.conf's tree stage learns from the round just trained: its model
+        # and the clustered tree, at jtm.conf's tree.model_path and
+        # tree.tree_protobuf_path
+        for src, dst in (("tdm_model.bin.npz", "jtm_model.bin.npz"),
+                         ("tdm_model.bin.meta.json", "jtm_model.bin.meta.json"),
+                         ("tdm_tree.bin", "jtm_tree.bin"), ("tdm_tree.bin", "sweep_input.bin")):
+            shutil.copy(Path("data") / src, Path("data") / dst)
+        with LevelLog() as lv, k1_audited() as k1_audit, adds_audited() as add_audit:
+            run("jtm-tree-learning", "jtm-tree-learning", "jtm.conf")
+        learned = ArrayTree.from_file("data/jtm_tree.bin")
+        proj = dict(zip(learned.item_ids.tolist(), learned.item_codes.tolist()))
+        check_projection(proj, learned)
+        check(k1_audit["calls"] > 0 and add_audit["calls"] > 0, "the sweep made no K1 or add call")
+        inputs = ("data/sweep_input.bin", "data/jtm_model.bin", "data/train_data.csv")
+        check(sweep(dev, *inputs) == proj, "a second sweep on the card gives another projection")
+        with plain_versions():
+            plain = sweep(dev, *inputs)
+        n_diff = sum(proj[k] != plain[k] for k in proj)
+        check(n_diff <= max(2, len(proj) // 50),
+              f"the sweep with the plain versions moves {n_diff} of {len(proj)} items")
+        routes = {}
+        for route, packed in (("packed", None), ("classic", False)):
+            serv = TDMServing.load("data/jtm_model.bin", "data/jtm_tree.bin", device=dev,
+                                   topk=TOPK, candidate_num=BEAM, packed=packed)
+            check_lists(serv.recommend_batch(serve_seqs), serv.tree)
+            routes[route] = len(serve_seqs)
+    facts.update(
+        stage_seconds=stages, total_seconds=sum(stages.values()), levels=lv.levels,
+        sweep={"items": len(proj), "max_level": learned.max_level, "gap": 2,
+               "k1_vs_plain": k1_audit, "adds_bit_exact": add_audit["calls"],
+               "repeat_bitwise_equal": True, "items_moved_by_plain_versions": n_diff},
+        served_windows=routes)
+    return facts
+
+
+def jtm_deep(dev, tree: ArrayTree, model: DIN) -> dict:
+    """One JTM sweep (gap 2) over a JTM_DEEP_ITEMS catalog (ids % 97
+    categories, as the 1M catalog) on JTM_DEEP_ROWS synthetic (window,
+    target) rows from the seed, scored by the deep_training phase's model
+    (its weights, and its table cut to the smaller tree's codes); then
+    tree_cluster (k-means, 10 iterations) on that model's leaf embeddings of
+    the whole 1M catalog ``tree``.  The caller zeroes and reads the launch
+    counts around it."""
+    t_phase = t0 = time.perf_counter()
+    ids = np.arange(1, JTM_DEEP_ITEMS + 1)
+    sub_tree = ArrayTree.from_loaded(build_tree(*category_sorted_codes(ids, ids % 97)))
+    params = model.params_numpy()
+    params["embedding"] = params["embedding"][: sub_tree.total_codes]
+    scorer = params_from_numpy(params, device=dev)
+    rng = np.random.default_rng(SEED + 7)
+    targets = rng.integers(1, JTM_DEEP_ITEMS + 1, size=JTM_DEEP_ROWS)
+    seqs = rng.integers(1, JTM_DEEP_ITEMS + 1, size=(JTM_DEEP_ROWS, SEQ_LEN))
+    seqs[:, :3] = np.where(rng.random((JTM_DEEP_ROWS, 3)) < 0.3, 0, seqs[:, :3])
+    learner = TreeLearner(tree=sub_tree, model=scorer, train_seqs=seqs, train_targets=targets,
+                          gap=2, device=dev)
+    check(sub_tree.max_level % 2 == 1, "the deep tree has no step of one chain level")
+    setup_s = time.perf_counter() - t0
+    # the step of one chain level (the last, max_level being odd) gives K1
+    # [8192, 2] and the add 2 columns padded to 4: each of its calls is held
+    # against the plain versions (its score seconds include the audit)
+    accumulate, audit = learner._accumulate_device, {}
+
+    def step_audited(proj, old_level, level):
+        if level - old_level > 1:
+            return accumulate(proj, old_level, level)
+        with k1_audited() as k1_audit, adds_audited() as add_audit:
+            acc = accumulate(proj, old_level, level)
+        audit.update(level=level, k1_vs_plain=k1_audit, adds_bit_exact=add_audit["calls"])
+        return acc
+
+    learner._accumulate_device = step_audited
+    with LevelLog() as lv:
+        t0 = time.perf_counter()
+        proj = learner.optimize()
+        sweep_s = time.perf_counter() - t0
+    check_projection(proj, sub_tree)
+    check(audit.get("k1_vs_plain", {}).get("shapes") == [[SWEEP_ROWS, 2]]
+          and audit["adds_bit_exact"] == audit["k1_vs_plain"]["calls"] > 0,
+          f"the one-chain-level step was not audited: {audit}")
+    del learner, scorer
+    with torch.no_grad():
+        leaf = model.embedding[torch.as_tensor(tree.item_codes.astype(np.int64), device=dev)]
+    leaf = leaf.cpu().numpy()
+    # the clustering's seconds in the device 2-means of each tree level
+    # (ended by a synchronize), the rest being host numpy and transfers
+    two_means, two_means_s = cluster._sorted_two_means_rank, [0.0]
+
+    def timed_two_means(*args):
+        t = time.perf_counter()
+        out = two_means(*args)
+        torch.cuda.synchronize()
+        two_means_s[0] += time.perf_counter() - t
+        return out
+
+    cluster._sorted_two_means_rank = timed_two_means
+    try:
+        t0 = time.perf_counter()
+        _, codes = tree_cluster(tree.item_ids, leaf, 10, "kmeans", device=dev)
+        cluster_s = time.perf_counter() - t0
+    finally:
+        cluster._sorted_two_means_rank = two_means
+    check(len(np.unique(codes)) == len(codes), "the 1M clustering repeats a code")
+    rebalance_s = sum(x["rebalance_s"] for x in lv.levels)
+    return {"sweep": {"items": JTM_DEEP_ITEMS, "max_level": sub_tree.max_level,
+                      "cut": f"{JTM_DEEP_ITEMS} of the {DEEP_ITEMS} items: the host rebalance "
+                             "costs ~14 us an item a level, ~140 s at 1M (see JTM_DEEP_ITEMS)",
+                      "rows": JTM_DEEP_ROWS, "gap": 2, "batch_rows": SWEEP_ROWS,
+                      "setup_s": setup_s, "seconds": sweep_s,
+                      "score_s": sum(x["score_s"] for x in lv.levels),
+                      "rebalance_s": rebalance_s,
+                      "rebalance_us_per_item_level": rebalance_s / len(lv.levels)
+                      / JTM_DEEP_ITEMS * 1e6,
+                      "levels": lv.levels, "audited_step": audit},
+            "cluster": {"items": tree.num_items, "max_level": tree.max_level,
+                        "cluster_iter": 10, "seconds": cluster_s,
+                        "device_two_means_s": two_means_s[0],
+                        "host_and_transfers_s": cluster_s - two_means_s[0]},
+            "total_seconds": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -975,7 +1309,7 @@ def main() -> int:
           f"mv/pmv steps: {facts_ex['launches']}")
     emit({"phase": "example_training", **facts_ex})
     zero_launches()
-    facts_deep, pmv_commit = deep_training(dev, deep.tree, deep_seqs)
+    facts_deep, pmv_commit, deep_model = deep_training(dev, deep.tree, deep_seqs)
     facts_deep["launches"] = read_launches()
     emit({"phase": "deep_training", **facts_deep})
     for name in launches:
@@ -986,6 +1320,24 @@ def main() -> int:
     rk = row_kernels(dev, pmv_commit, mv_table_add)
     del pmv_commit, mv_table_add
     emit({"phase": "row_kernels", **rk})
+
+    # ---- the TDM/JTM workflow through the CLI, and the deep sweep and
+    # clustering: launch counts zeroed just before each, read just after
+    zero_launches()
+    facts_wf = workflow(dev, seqs)
+    facts_wf["launches"] = read_launches()
+    check(facts_wf["launches"]["din_score"] > 0 and facts_wf["launches"]["add_rows"] > 0,
+          f"workflow: {facts_wf['launches']}")
+    emit({"phase": "workflow", **facts_wf})
+    zero_launches()
+    facts_jd = jtm_deep(dev, deep.tree, deep_model)
+    facts_jd["launches"] = read_launches()
+    check(facts_jd["launches"]["din_score"] > 0 and facts_jd["launches"]["add_rows"] > 0,
+          f"jtm_deep: {facts_jd['launches']}")
+    emit({"phase": "jtm_deep", **facts_jd})
+    del deep_model
+    for name in launches:
+        launches[name] += facts_wf["launches"][name] + facts_jd["launches"][name]
 
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
@@ -1006,7 +1358,11 @@ def main() -> int:
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
                              kern["din_score"]["wide"]["max_abs_err"],
                              kern["din_score"]["l24"]["max_abs_err"],
-                             facts_ex["k1_vs_plain"]["max_abs_err"]),
+                             kern["din_score"]["sweep"]["max_abs_err"],
+                             kern["din_score"]["sweep_u2"]["max_abs_err"],
+                             facts_ex["k1_vs_plain"]["max_abs_err"],
+                             facts_wf["sweep"]["k1_vs_plain"]["max_abs_err"],
+                             facts_jd["sweep"]["audited_step"]["k1_vs_plain"]["max_abs_err"]),
             "packed_level": kern["packed_level"]["max_abs_err"],
             "write_rows": row_errors(rk, "write"), "add_rows": row_errors(rk, "add")}
     summary = []
@@ -1020,6 +1376,11 @@ def main() -> int:
             **({"cold_ms": k["cold_ms"]} if "cold_ms" in k else {}),
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "ok": True,
+            # K1 also at the JTM sweep's batch shape
+            **({"sweep_ms": k["sweep"]["ms"], "sweep_cold_ms": k["sweep"]["cold_ms"],
+                "sweep_plain_ms": k["sweep"]["plain_ms"],
+                "sweep_bound_ms": k["sweep"]["bound_ms"], "sweep_shape": k["sweep"]["shape"]}
+               if name == "din_score" else {}),
         })
     emit({"kernels": summary})
 

@@ -1,4 +1,6 @@
-"""PyTorch + CUDA port of ``dismember_tpu``: TDM beam-search serving.
+"""PyTorch + CUDA port of ``dismember_tpu``: the TDM and JTM workflows
+with the DIN scorer (training, beam-search serving, tree clustering, JTM
+tree learning, the alternation drivers and the ``tdm-*``/``jtm-*`` CLI).
 
 Module paths mirror the JAX package.  The port imports torch and numpy only
 (never jax, never ``dismember_tpu``) and keeps its own copy of every host

@@ -1,0 +1,231 @@
+"""CLI entry points: the reference's TDM and JTM commands.
+
+Port of the ``tdm-*`` and ``jtm-*`` commands of ``dismember_tpu/cli/main.py``
+(examples/ in the reference, SURVEY.md §2.6): same command names, same conf
+keys (``--conf``; the reference's ``--tdmConfFile``/``--jtmConfFile`` are
+also accepted), same stage files, and the post-train recommend smoke test +
+latency loop (examples/.../tdm/package.scala:115-126).  Conf paths resolve
+against the working directory, as the reference's project-root-relative
+``data/...`` paths expect.  Every command runs on ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions).  The ``otm-*`` and
+``dr-*`` commands are not ported yet.
+
+Usage:  python -m dismember_tpu_torch.cli <command> --conf <file> [--device cpu] [--quiet]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+
+from dismember_tpu_torch.core import config as cfg
+from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree, save_pytree
+from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.core.io import open_file
+from dismember_tpu_torch.data import tdm_dataset as tds
+from dismember_tpu_torch.data.ingest import unique_items_with_category
+from dismember_tpu_torch.index.arraytree import ArrayTree
+from dismember_tpu_torch.index.cluster import cluster_tree_from_embeddings
+from dismember_tpu_torch.index.tree_io import category_sorted_codes, write_tree
+from dismember_tpu_torch.train.jtm import TreeLearner, write_projection_tree
+from dismember_tpu_torch.train.tdm import TDMTrainer, build_model
+
+logger = logging.getLogger("dismember_tpu_torch.cli")
+
+COMMANDS = {}
+
+
+def command(name):
+    def deco(fn):
+        COMMANDS[name] = fn
+        return fn
+
+    return deco
+
+
+def _conf_base(conf_path: str) -> str:
+    """Reference confs use project-root-relative paths like data/xxx."""
+    return os.getcwd()
+
+
+# ---------------------------------------------------------------------------
+# TDM / JTM shared stages
+# ---------------------------------------------------------------------------
+
+
+def _initialize_tree(conf_path: str) -> None:
+    p = cfg.TreeInitParams.from_conf(cfg.read_conf(conf_path, "init"), _conf_base(conf_path))
+    samples, raw = tds.generate_all(
+        p.data_path, p.seq_len, p.min_seq_len, p.split_for_eval, p.split_ratio
+    )
+    tds.write_train_file(p.train_path, samples, split_mode=p.split_for_eval)
+    if p.split_for_eval:
+        tds.write_eval_file(p.eval_path, samples)
+    tds.write_stat_file(p.stat_path, samples.stat)
+    tds.write_user_consumed_file(p.user_consumed_path, samples.user_consumed)
+    ids, cats = unique_items_with_category(raw)
+    sorted_ids, codes = category_sorted_codes(ids, cats)
+    with open_file(p.leaf_id_path, "w", encoding="utf-8") as f:
+        for i in ids:
+            f.write(f"{int(i)}\n")
+    write_tree(p.tree_pb_path, sorted_ids, codes, stat=samples.stat)
+    logger.info(
+        f"tree initialized: {len(sorted_ids)} items -> {p.tree_pb_path}; "
+        f"{len(samples.train_targets)} train / {len(samples.eval_users)} eval samples"
+    )
+
+
+def _train_deep_model(conf_path: str, device) -> None:
+    p = cfg.TDMModelParams.from_conf(cfg.read_conf(conf_path, "model"), _conf_base(conf_path))
+    tree = ArrayTree.from_file(p.tree_pb_path)
+    train_seqs, train_targets = tds.read_train_file(p.train_path)
+    eval_data = tds.read_eval_file(p.eval_path, p.seq_len)
+    consumed = tds.read_user_consumed_file(p.user_consumed_path)
+    trainer = TDMTrainer(
+        tree=tree,
+        model_type=p.deep_model,
+        embed_size=p.embed_size,
+        learning_rate=p.learning_rate,
+        total_batch_size=p.total_batch_size,
+        total_eval_batch_size=p.total_eval_batch_size,
+        seq_len=p.seq_len,
+        layer_neg_counts=p.layer_negative_counts,
+        sample_with_prob=p.sample_with_probability,
+        sample_tolerance=p.sample_tolerance,
+        start_sample_level=p.start_sample_level,
+        topk=p.topk_number,
+        beam_size=p.beam_size,
+        device=device,
+    )
+    trainer.train(
+        train_seqs,
+        train_targets,
+        iterations=p.iteration_number,
+        eval_data=eval_data if p.evaluate_during_training else None,
+        user_consumed=consumed if p.evaluate_during_training else None,
+        progress_interval=p.show_progress_interval,
+    )
+    save_pytree(
+        p.model_path,
+        trainer.params,
+        meta={
+            "model": p.deep_model,
+            "embed_size": p.embed_size,
+            "seq_len": p.seq_len,
+            "tree_pb_path": p.tree_pb_path,
+        },
+    )
+    trainer.export_embeddings(p.embed_path)
+    _recommend_smoke(trainer, eval_data[0])
+
+
+def _recommend_smoke(trainer: TDMTrainer, eval_seqs: np.ndarray) -> None:
+    """Post-train smoke + latency loop (examples/.../tdm/package.scala:115)."""
+    if len(eval_seqs) == 0:
+        return
+    seq = eval_seqs[0]
+    rec = trainer.recommend(seq)
+    logger.info(f"Recommendation result: {rec.tolist()}")
+    n = 100
+    start = time.perf_counter()
+    for _ in range(n):
+        trainer.recommend(seq)
+    avg_ms = (time.perf_counter() - start) / n * 1e3
+    logger.info(f"Average recommend time: {avg_ms:.4f}ms")
+
+
+@command("tdm-initialize-tree")
+def tdm_init_tree(args):
+    _initialize_tree(args.conf)
+
+
+@command("tdm-train-deep-model")
+def tdm_train(args):
+    _train_deep_model(args.conf, args.device)
+
+
+@command("tdm-cluster-tree")
+def tdm_cluster(args):
+    p = cfg.ClusterParams.from_conf(cfg.read_conf(args.conf, "cluster"), _conf_base(args.conf))
+    t0 = time.perf_counter()
+    ids, _codes = cluster_tree_from_embeddings(
+        p.embed_path, p.tree_pb_path, p.cluster_iter, p.cluster_type, device=args.device
+    )
+    logger.info(
+        f"clustered {len(ids)} items ({p.cluster_type}) in "
+        f"{time.perf_counter() - t0:.2f}s -> {p.tree_pb_path}"
+    )
+
+
+@command("jtm-initialize-tree")
+def jtm_init_tree(args):
+    _initialize_tree(args.conf)
+
+
+@command("jtm-train-deep-model")
+def jtm_train(args):
+    _train_deep_model(args.conf, args.device)
+
+
+@command("jtm-tree-learning")
+def jtm_tree_learning(args):
+    p = cfg.JTMTreeParams.from_conf(cfg.read_conf(args.conf, "tree"), _conf_base(args.conf))
+    tree = ArrayTree.from_file(p.tree_pb_path)
+    meta = load_meta(p.model_path)
+    model = build_model(meta["model"], tree.max_level, meta["embed_size"], meta["seq_len"],
+                        device=args.device)
+    model.load_numpy(load_pytree(p.model_path, model.param_tree()))
+    train_seqs, train_targets = tds.read_train_file(p.data_path)
+    learner = TreeLearner(
+        tree=tree,
+        model=model,
+        train_seqs=train_seqs,
+        train_targets=train_targets,
+        gap=p.gap,
+        hierarchical=p.hierarchical_preference,
+        min_level=p.min_level,
+        device=args.device,
+    )
+    t0 = time.perf_counter()
+    projection = learner.optimize()
+    logger.info(f"total tree learning time: {time.perf_counter() - t0:.2f}s")
+    write_projection_tree(tree, projection, p.tree_pb_path)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="dismember-tpu-torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    parser.add_argument("command", choices=sorted(COMMANDS))
+    parser.add_argument(
+        "--conf",
+        "--tdmConfFile",
+        "--jtmConfFile",
+        dest="conf",
+        required=True,
+        help="path to the flat conf file (reference format)",
+    )
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of every stage (default cuda; cpu runs the "
+                             "kernels' plain versions)")
+    parser.add_argument("--quiet", action="store_true")
+    args = parser.parse_args(argv)
+    logging.basicConfig(
+        level=logging.ERROR if args.quiet else logging.INFO, format="%(message)s"
+    )
+    args.device = resolve_device(args.device)
+    COMMANDS[args.command](args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

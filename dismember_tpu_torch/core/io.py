@@ -83,3 +83,15 @@ def read_bytes(path: str) -> bytes:
 def write_bytes(path: str, data: bytes) -> None:
     with open_file(path, "wb") as f:
         f.write(data)
+
+
+def exists(path: str) -> bool:
+    if is_remote(path):
+        try:
+            import fsspec
+
+            fs, p = fsspec.core.url_to_fs(path)
+            return fs.exists(p)
+        except ImportError:
+            return False
+    return os.path.exists(path)

@@ -106,6 +106,26 @@ class ArrayTree:
         out[ok] = anc_codes[ok].astype(np.int32)
         return out
 
+    def ancestor_at_level(self, codes: np.ndarray, level: int) -> np.ndarray:
+        """Ancestor of each (bottom-level) code at ``level`` via heap shifts."""
+        codes = np.asarray(codes, dtype=np.int64)
+        levels = np.floor(np.log2(np.maximum(codes, 0) + 1)).astype(np.int64)
+        out = codes.copy()
+        for _ in range(int((levels - level).max(initial=0))):
+            shift = levels > level
+            out[shift] = (out[shift] - 1) >> 1
+            levels = levels - shift
+        out[codes < 0] = -1
+        return out
+
+    def codes_to_item_ids(self, codes: np.ndarray) -> np.ndarray:
+        """Leaf codes -> item ids (-1 for non-existent)."""
+        codes = np.asarray(codes, dtype=np.int64)
+        valid = (codes >= 0) & (codes < self.total_codes)
+        out = np.full(codes.shape, -1, dtype=np.int32)
+        out[valid] = self.node_id[codes[valid]]
+        return out
+
     @property
     def node_meta(self) -> np.ndarray:
         """float32 [total_codes, 2] rows: (exists, node id).  float32 holds

@@ -5,7 +5,8 @@ Replaces the Pallas kernel ``dismember_tpu/ops/din_kernel.py::_din_kernel``
 ``din_score_f32`` (``csrc/din_kernels.cu``) for CUDA tensors and runs
 :func:`din_score_plain`, the same arithmetic in plain PyTorch, for CPU
 tensors.  It scores every forward-only DIN call of the port: the classic
-beam loop's levels, ``TDMServing.predict`` and the trainer's eval loss.
+beam loop's levels, ``TDMServing.predict``, the trainer's eval loss and the
+JTM sweep's [8192, 4] score batches (``train/jtm.py``).
 
 On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
 bound by bytes: ~13.9 MB of candidate and sequence embeddings, padding and
@@ -37,6 +38,22 @@ _MASK_F32 = float(np.float32(MASK_VALUE))
 
 # K1 launches on CUDA tensors; chip_smoke.py zeroes and reads it
 launches = 0
+
+# the one embedding width K1 and K3 are built for (csrc/din_kernels.cu)
+KERNEL_WIDTH = 16
+
+
+def check_kernel_width(embed_size: int, device: torch.device) -> None:
+    """Raise when a scorer of width ``embed_size`` would run on CUDA, where K1
+    and K3 take E = 16 only; the CPU scores any width through the plain
+    versions.  Called where a trainer, a server or a tree learner is built,
+    so a run fails before it trains, not at its first evaluation."""
+    if device.type == "cuda" and embed_size != KERNEL_WIDTH:
+        raise ValueError(
+            f"embed_size={embed_size}: the CUDA kernels K1 and K3 are built for "
+            f"E={KERNEL_WIDTH} only (ROADMAP queue 1, next g: K1/K3 at the other "
+            "widths the JAX package serves); use E=16, or device='cpu'"
+        )
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,9 @@ and shuffles it to the row's lanes, rows aimed out of range load nothing,
 and several rows' loads are in flight before their stores.  K2 skips a row
 whose index equals its predecessor's (the packed Adam commit ends in a run
 of entries that all repeat its scratch row, which then costs one write);
-the add, whose indices must be unique, skips none.
+the add, whose indices must be unique, skips none.  The add serves the mv
+step's table update (``train/sparse_adam.py``) and the JTM sweep's weight
+accumulator (``train/jtm.py`` ``add_runs``).
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ import torch
 from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.arraytree import ArrayTree
+from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.packed_beam import (
     PackedTree,
     build_pair_table,
@@ -42,6 +43,7 @@ class TDMServing:
         self.topk = topk
         self.candidate_num = candidate_num
         self.device = params.embedding.device
+        check_kernel_width(params.embed_size, self.device)
         self._beam_fns: dict[int, object] = {}
         self._pair_table = None
 

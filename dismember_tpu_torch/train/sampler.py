@@ -33,12 +33,12 @@ from dismember_tpu_torch.index.arraytree import ArrayTree
 _NEG_INF = -1e30
 
 
-def pack_exists_rows(node_exists: np.ndarray, device="cpu") -> torch.Tensor:
+def pack_exists_rows(node_exists: np.ndarray, device="cuda") -> torch.Tensor:
     """node_exists [N] bool -> [ceil(N/128), 128] float32 rows (the JAX
     package's layout; the port reads it with plain indexing)."""
     n = len(node_exists)
     flat = np.pad(np.asarray(node_exists, np.float32), (0, (-n) % 128))
-    return torch.as_tensor(flat.reshape(-1, 128), device=device)
+    return torch.as_tensor(flat.reshape(-1, 128), device=resolve_device(device))
 
 
 def exists_lookup(exists_rows: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,7 @@ from dismember_tpu_torch.core.metrics import EvalResult, compute_metrics_batch
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.models.din import DIN
 from dismember_tpu_torch.models.losses import bce_with_logits
+from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
 from dismember_tpu_torch.train import sparse_adam
 from dismember_tpu_torch.train.sampler import TreeSampler
@@ -142,6 +143,7 @@ class TDMTrainer:
         if self.embed_dtype is not None:
             raise _not_ported("embed_dtype", "item 7: bf16 embedding tables")
         self.device = resolve_device(self.device)
+        check_kernel_width(self.embed_size, self.device)
         self.sampler = TreeSampler.build(
             self.tree, self.layer_neg_counts, start_level=self.start_sample_level,
             with_prob=self.sample_with_prob, tolerance=self.sample_tolerance,

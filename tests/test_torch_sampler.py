@@ -66,7 +66,7 @@ def test_parse_neg_counts_matches_jax():
 
 def test_exists_rows_match_jax(trees):
     jtree, tree = trees
-    rows = pack_exists_rows(tree.node_exists)
+    rows = pack_exists_rows(tree.node_exists, device="cpu")
     np.testing.assert_array_equal(rows.numpy(), np.asarray(j_pack_exists_rows(jtree.node_exists)))
     codes = np.random.default_rng(0).integers(0, tree.total_codes, 500)
     np.testing.assert_array_equal(
