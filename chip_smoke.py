@@ -5,8 +5,8 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
-     ptxas's registers and spills (K1 above 64 registers or spilling fails
-     the run), and K3's tensor-core instructions (HMMA) counted in
+     ptxas's registers and spills (K1 or the one-tile K3 above 64 registers
+     or spilling fails the run), and K3's tensor-core instructions (HMMA) counted in
      ``cuobjdump -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
@@ -14,15 +14,18 @@ Phases, one JSON line each; any failed check raises and fails the run:
      for sequences past 10 positions, and at a JTM sweep batch's shapes
      [8192, 4] and [8192, 2]), O(1)-scale inputs and biases, with
      an all-padding row, a ragged last block, dead parents and missing
-     children; a control (K1's f32 scorer in K3's place) that must fail K3's
-     check; kernel and plain times from CUDA events (K1 and K3 both warm in
-     L2, as the serving loop leaves their inputs, and cold);
+     children; K3 also at beams 65, 110, 128 and 1,500 (two launches) and
+     at L = 17, 24 and 40 (K3_WIDE); a control (K1's f32 scorer in K3's
+     place) that must fail K3's check; kernel and plain times from CUDA
+     events (K1 and K3 both warm in L2, as the serving loop leaves their
+     inputs, and cold; K3 also at beam 110 and L = 24);
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
-     the classic route (K1), and ``predict`` (K1); each route's top-10
-     against the same route with the plain versions on the card, ``predict``
-     on its logits;
+     the classic route (K1), ``recommend`` of the heaviest user (210 items
+     consumed: beam 110, packed route), and ``predict`` (K1); each route's
+     top-10 against the same route with the plain versions on the card,
+     ``predict`` on its logits;
   5. deep catalog: a 1M-item synthetic tree (20 levels) built in memory, an
      f32 pair table, ``recommend_batch(4096)``: QPS, K3 launches, ids;
   example_training (after 5): ``TDMTrainer`` at configs/tdm.conf's settings
@@ -57,6 +60,20 @@ Phases, one JSON line each; any failed check raises and fails the run:
      one-chain-level step ([8192, 2], the add's 2 columns padded to 4) held
      against the plain versions; tree_cluster on the 1M catalog's leaf
      embeddings, its seconds split into the device 2-means and the rest;
+  otm_example: the port's OTM CLI in process from a copy of configs/otm.conf
+     (``model.epoch_num`` cut to 1): otm-train-deep-model -> otm-construct-
+     tree (every sweep K1 call and add audited; the mapping a bijection onto
+     leaves) -> otm-train-deep-model under the learned mapping ->
+     ``OTMServing.load`` and ``recommend_batch`` of 4096 windows (K3); then
+     ``evaluate`` with every K3 call audited, one batch's frozen forwards
+     with every K1 call audited, three same-seed batches bitwise equal, the
+     dense/mv/pmv agreement on one batch, and the ms of a batch, none of
+     them in the phase's launch counts (the CLI path's alone);
+  otm_deep: OTM at 1M synthetic items (20 levels, 16 level steps a batch of
+     256, auto route pmv: 16 K2 launches a batch), a warm-up and 20 timed
+     batches, the packed state against a rerun with K2's plain version,
+     then ``batch_beam_search`` of 4096 windows (16 K3 levels) timed and
+     once more with every K3 call audited;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
 
@@ -91,6 +108,7 @@ from dismember_tpu_torch.data.ingest import (  # noqa: E402
     unique_items_with_category,
     user_interactions,
 )
+from dismember_tpu_torch.data.otm_dataset import OTMData, load_mapping, upper_log2  # noqa: E402
 from dismember_tpu_torch.data.tdm_dataset import (  # noqa: E402
     generate_split_samples,
     read_train_file,
@@ -124,9 +142,11 @@ from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
     make_beam_fn,
     make_config,
 )
-from dismember_tpu_torch.serving import TDMServing  # noqa: E402
+from dismember_tpu_torch.serving import OTMServing, TDMServing  # noqa: E402
+from dismember_tpu_torch.train import otm as otm_train  # noqa: E402
 from dismember_tpu_torch.train import sparse_adam  # noqa: E402
 from dismember_tpu_torch.train.jtm import TreeLearner  # noqa: E402
+from dismember_tpu_torch.train.otm import OTMTrainer  # noqa: E402
 from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns  # noqa: E402
 
 SEED = 0
@@ -175,6 +195,19 @@ JTM_DEEP_ROWS = 1 << 20  # synthetic (window, target) rows of the deep sweep
 # against the phase's ~90 s.  2^19 (~76 s) is the largest power of two that
 # fits.  The clustering runs on the whole 1M catalog.
 JTM_DEEP_ITEMS = 1 << 19
+# configs/otm.conf's cut for the otm_example phase: one epoch (5 in the file)
+OTM_EPOCHS = 1
+# the otm_deep phase (scripts/bench_otm_deep.py's shapes): rows a batch,
+# timed batches after one warm-up, labels a row
+OTM_DEEP_BATCH, OTM_DEEP_BATCHES, OTM_LABELS = 256, 20, 5
+# K3 past the serving shape: (batch, beam, L, timed).  Beams 65-128 pass the
+# 48 KB of staging a block had before the opt-in; 110 is the example
+# catalog's widest recommend ((210 consumed + topk) // 2); 1,500 passes one
+# block (~1,340 on an H100) and is split into two launches.  L = 17-40 take
+# two and three sequence tiles.
+K3_WIDE = ((1024, 65, SEQ_LEN, False), (BATCH, 110, SEQ_LEN, True),
+           (1024, 128, SEQ_LEN, False), (256, 1500, SEQ_LEN, False),
+           (1024, BEAM, 17, False), (BATCH, BEAM, 24, True), (1024, BEAM, 40, False))
 
 
 def emit(obj) -> None:
@@ -427,15 +460,72 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
 
     # K3: 4096 rows x 20 parents of 128-lane pair rows; 15% missing
     # children, 10% dead parents and one row with every parent dead
-    rw, used = 128, 2 * E + 6
-    rows = torch.zeros(b, BEAM, rw)
-    rows[..., : 2 * E] = torch.randn(b, BEAM, 2 * E, generator=g) * EMB_STD
-    rows[..., 2 * E : 2 * E + 2] = (torch.rand(b, BEAM, 2, generator=g) < 0.85).float()
-    rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, BEAM, 2), generator=g).float()
-    rows[..., 2 * E + 3 : used : 2] = torch.randint(0, 4096, (b, BEAM, 2), generator=g).float()
-    alive = torch.rand(b, BEAM, generator=g) < 0.9
+    rows, alive = k3_rows(g, b, BEAM, dev)
+    ks, _, ps, agree3 = k3_check(rows, alive, seq_e, pad, weights)
+    # control: K1's f32 scorer on the same candidates (block order) must
+    # fail K3's check, or the check cannot tell a K3 that skips its roundings
+    live = ps > NEG_INF / 2
+    blk = torch.cat([rows[..., :E], rows[..., E : 2 * E]], dim=1).contiguous()
+    control = agreement("packed_level", din_score(blk, seq_e, pad, *weights)[live], ps[live])
+    check(not control["ok"], f"control: an f32 scorer passes K3's check: {control}")
+    # warm: the serving loop's gather has just written the rows; cold: after
+    # the flush
+    results["packed_level"] = dict(
+        **agree3, **k3_times(rows, alive, seq_e, pad, weights, flush),
+        shape=[b, BEAM, rows.shape[2], l, E], control_f32_scorer=control,
+    )
+    del rows, alive, ks, ps, blk
+    # K3 at wider beams (a block holds fewer query rows past 48 KB of
+    # staging; 1,500 parents pass one block and go in two launches) and
+    # longer sequences (16-position tiles), each against its plain version;
+    # beam 110 (the example catalog's widest recommend) and L = 24 also timed
+    wide = {}
+    for bb, beam, ll, timed in K3_WIDE:
+        rows, alive = k3_rows(g, bb, beam, dev)
+        s_e, s_pad = seq_inputs(g, bb, ll, dev)
+        n0 = packed_level_kernel.launches
+        agree = k3_check(rows, alive, s_e, s_pad, weights)[3]
+        wide[f"beam{beam}_l{ll}"] = dict(
+            **agree, shape=[bb, beam, rows.shape[2], ll, E],
+            launches=packed_level_kernel.launches - n0,
+            **(k3_times(rows, alive, s_e, s_pad, weights, flush) if timed else {}))
+        del rows, alive, s_e, s_pad
+    check(wide["beam1500_l10"]["launches"] == 2, f"beam 1500 is not split in two: {wide}")
+    results["packed_level"]["wide"] = wide
+    del flush
+    torch.cuda.synchronize()
+    return results
+
+
+def seq_inputs(g: torch.Generator, b: int, l: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """[b, l, E] sequence embeddings with 30% padding (zero rows) and one
+    all-padding row, and the padding mask."""
+    seq_e = torch.randn(b, l, E, generator=g) * EMB_STD
+    pad = (torch.rand(b, l, generator=g) < 0.3).float()
+    pad[0] = 1.0
+    seq_e[pad > 0] = 0.0
+    return seq_e.to(dev), pad.to(dev)
+
+
+def k3_rows(g: torch.Generator, b: int, beam: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """[b, beam] 128-lane pair rows (15% missing children, random id
+    digits) and their parents' alive mask (10% dead, row 1 all dead)."""
+    used = 2 * E + 6
+    rows = torch.zeros(b, beam, 128)
+    rows[..., : 2 * E] = torch.randn(b, beam, 2 * E, generator=g) * EMB_STD
+    rows[..., 2 * E : 2 * E + 2] = (torch.rand(b, beam, 2, generator=g) < 0.85).float()
+    rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, beam, 2), generator=g).float()
+    rows[..., 2 * E + 3 : used : 2] = torch.randint(0, 4096, (b, beam, 2), generator=g).float()
+    alive = torch.rand(b, beam, generator=g) < 0.9
     alive[1] = False
-    rows, alive = rows.to(dev), alive.to(dev)
+    return rows.to(dev), alive.to(dev)
+
+
+def k3_check(rows, alive, seq_e, pad, weights) -> tuple[torch.Tensor, ...]:
+    """K3 through its wrapper against its plain version: id lanes bit for
+    bit, the dead mask and dead scores equal, live scores within K3's
+    tolerance.  Returns (kernel scores, kernel ids, plain scores,
+    agreement)."""
     ks, kh = packed_level(rows, alive, seq_e, pad, *weights, E)
     ps, ph = packed_level_plain(rows, alive, seq_e, pad, *weights, E)
     torch.cuda.synchronize()
@@ -444,30 +534,25 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     live = ps > NEG_INF / 2
     check(torch.equal(ks > NEG_INF / 2, live), "packed_level: dead mask differs")
     check(bool((ks[~live] == ps[~live]).all()), "packed_level: dead scores differ")
-    agree3 = within("packed_level", ks[live], ps[live])
-    # control: K1's f32 scorer on the same candidates (block order) must
-    # fail K3's check, or the check cannot tell a K3 that skips its roundings
-    blk = torch.cat([rows[..., :E], rows[..., E : 2 * E]], dim=1).contiguous()
-    control = agreement("packed_level", din_score(blk, seq_e, pad, *weights)[live], ps[live])
-    check(not control["ok"], f"control: an f32 scorer passes K3's check: {control}")
+    return ks, kh, ps, within("packed_level", ks[live], ps[live])
+
+
+def k3_times(rows, alive, seq_e, pad, weights, flush) -> dict:
+    """The raw K3 launch warm and cold, the plain version, and the bound."""
+    b, beam, rw = rows.shape
+    l = seq_e.shape[1]
     alive_f = alive.float()
-    sc, hl = torch.empty_like(ks), torch.empty_like(kh)
-    launch3 = lambda *p: _cuda.check_launch("packed_level", lib.packed_level_bf16(  # noqa: E731
-        *p, *wptrs, sc.data_ptr(), hl.data_ptr(), b, BEAM, rw, l, E, stream))
-    ptrs = [t.data_ptr() for t in (rows, alive_f, seq_e, pad)]
-    by, op = k3_bound(b, BEAM, l, E)
-    # warm: the serving loop's gather has just written the rows; cold: after
-    # the flush
-    results["packed_level"] = dict(
-        **agree3, **time_ms(lambda: launch3(*ptrs)),
-        **time_ms(lambda: launch3(*ptrs), "cold_", flush=flush),
-        **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E), "plain_"),
-        bound_ms=by, bound_by=op, shape=[b, BEAM, rw, l, E],
-        control_f32_scorer=control,
-    )
-    del flush
-    torch.cuda.synchronize()
-    return results
+    sc = torch.empty(b, 2 * beam, device=rows.device)
+    hl = torch.empty(b, 2 * beam, 2, device=rows.device)
+    lib, stream = _cuda.library(), _cuda.stream_handle(rows.device)
+    args = [t.data_ptr() for t in (rows, alive_f, seq_e, pad, *weights, sc, hl)]
+    launch = lambda: _cuda.check_launch("packed_level", lib.packed_level_bf16(  # noqa: E731
+        *args, b, beam, rw, l, E, stream))
+    by, op = k3_bound(b, beam, l, E)
+    return dict(**time_ms(launch), **time_ms(launch, "cold_", flush=flush),
+                **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E),
+                          "plain_"),
+                bound_ms=by, bound_by=op)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -478,8 +563,8 @@ class NearTieAudit:
     differently (the next level's top-beam, the final top-k), the plain
     scores of the two choices differ by at most twice that: a near tie."""
 
-    def __init__(self, name: str, n_levels: int):
-        self.name, self.n_levels = name, n_levels
+    def __init__(self, name: str, n_levels: int, beam: int = BEAM):
+        self.name, self.n_levels, self.beam = name, n_levels, beam
         self.level, self.max_err, self.max_share = 0, 0.0, 0.0
         self.max_gap, self.near_ties = 0.0, 0
 
@@ -488,7 +573,7 @@ class NearTieAudit:
         self.max_err = max(self.max_err, a["max_abs_err"])
         self.max_share = max(self.max_share, a.get("share_beyond_f32_tol", 0.0))
         self.level += 1
-        k = TOPK if self.level == self.n_levels else BEAM
+        k = TOPK if self.level == self.n_levels else self.beam
         ks, ps = torch.where(live, ks, NEG_INF), torch.where(live, ps, NEG_INF)
         chosen = torch.gather(ps, 1, torch.topk(ks, k, dim=1).indices)
         gap = (torch.topk(ps, k, dim=1).values - chosen).abs()
@@ -521,7 +606,8 @@ def audit_packed(model: DIN, packed: PackedTree, codes, kernel_lists: list) -> d
     """The packed route (K3) against the same route with K3's plain version."""
     plain = topk_lists(make_packed_beam_fn(packed, DIN.precompute_seq, packed_level_plain),
                        model, codes)
-    audit = NearTieAudit("packed_level", packed.cfg.max_level - packed.cfg.start_level)
+    audit = NearTieAudit("packed_level", packed.cfg.max_level - packed.cfg.start_level,
+                         packed.cfg.beam)
 
     def audited_level(rows, alive, seq_e, pad, *w):
         ks, kh = packed_level(rows, alive, seq_e, pad, *w)
@@ -569,7 +655,8 @@ def check_lists(lists: list, tree: ArrayTree) -> None:
 
 def example_data():
     """The example catalog's tree file, a DIN checkpoint from seeded numpy
-    params, 4096 query windows, facts, and the train/eval windows."""
+    params, 4096 query windows, facts, the train/eval windows and the
+    heaviest user's items."""
     raw = read_csv(str(ROOT / "data" / "example_data.csv"))
     samples = generate_split_samples(user_interactions(raw), SEQ_LEN, 2, 0.8)
     ids, cats = unique_items_with_category(raw)
@@ -583,8 +670,12 @@ def example_data():
     # every eval window, then train windows up to the batch
     seqs = np.concatenate([samples.eval_seqs, samples.train_seqs])[:BATCH]
     check(len(seqs) == BATCH, "not enough windows")
+    # the user with the most interactions (210): its last window, and all
+    # its items as the consumed list, widen recommend's beam to 110
+    users = user_interactions(raw)
+    heavy = max(users, key=lambda u: len(users[u]))
     return tree_path, ckpt, seqs, {"eval_windows": int(len(samples.eval_seqs)),
-                                   "catalog_items": int(len(sid))}, samples
+                                   "catalog_items": int(len(sid))}, samples, users[heavy]
 
 
 # ---------------------------------------------------------------- phase 5
@@ -616,6 +707,19 @@ def zero_launches() -> None:
 def read_launches() -> dict:
     return {"din_score": din_kernel.launches, "packed_level": packed_level_kernel.launches,
             **row_writer.launches}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within the block, kernel launches leave the counts as they were: for
+    the calls made only to compare a kernel with its plain version."""
+    saved = read_launches()
+    try:
+        yield
+    finally:
+        din_kernel.launches = saved["din_score"]
+        packed_level_kernel.launches = saved["packed_level"]
+        row_writer.launches.update(write_rows=saved["write_rows"], add_rows=saved["add_rows"])
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -1188,6 +1292,272 @@ def jtm_deep(dev, tree: ArrayTree, model: DIN) -> dict:
             "total_seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------- OTM
+def otm_dir() -> Path:
+    """A fresh working directory holding configs/otm.conf (``model.epoch_num``
+    cut to OTM_EPOCHS) and the example data at the conf's ``data/`` paths."""
+    wd = OUT / "otm"
+    shutil.rmtree(wd, ignore_errors=True)
+    (wd / "data").mkdir(parents=True)
+    shutil.copy(ROOT / "data" / "example_data.csv", wd / "data")
+    lines = (ROOT / "configs" / "otm.conf").read_text().splitlines(keepends=True)
+    cut = [f"model.epoch_num                 {OTM_EPOCHS}\n"
+           if ln.startswith("model.epoch_num") else ln for ln in lines]
+    check(cut != lines, "otm.conf: no model.epoch_num to cut")
+    (wd / "otm.conf").write_text("".join(cut))
+    return wd
+
+
+@contextlib.contextmanager
+def k3_audited():
+    """Within the block, the packed loops that ``OTMTrainer`` builds score
+    every level through K3 held against its plain version on the same
+    inputs (``k3_check``); yields the calls and the largest error and share
+    beyond K1's tolerance.  The trainer's cached loop must be dropped
+    first."""
+    seen = {"calls": 0, "max_abs_err": 0.0, "max_share_beyond_f32_tol": 0.0}
+    saved = otm_train.make_packed_beam_fn
+
+    def level(rows, alive, seq_e, pad, *w):
+        ks, kh, _, a = k3_check(rows, alive, seq_e, pad, w[:-1])
+        seen["calls"] += 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], a["max_abs_err"])
+        seen["max_share_beyond_f32_tol"] = max(seen["max_share_beyond_f32_tol"],
+                                               a["share_beyond_f32_tol"])
+        return ks, kh
+
+    otm_train.make_packed_beam_fn = lambda packed, pre: saved(packed, pre, level)
+    try:
+        yield seen
+    finally:
+        otm_train.make_packed_beam_fn = saved
+
+
+def otm_routes(make, seqs, targets) -> dict:
+    """Dense, mv and pmv trainers from one seed take one batch (configs/
+    otm.conf's n_levels level steps).  Losses agree at every level.  Lazy
+    and dense Adam differ by design on a row a level step leaves untouched
+    after an earlier one moved it (dense Adam moves it again by its
+    momentum), so dense is held against mv on the scorer weights and on the
+    embedding rows no earlier level left behind: rows of the last level's
+    nodes, of the sequences, and untouched rows; mv against pmv on every
+    parameter, the rows earlier levels' K2 commits wrote included."""
+    trs = {"dense": make(sparse_embed_update=False),
+           "mv": make(sparse_embed_update=True, sparse_format="mv"),
+           "pmv": make(sparse_embed_update=True, sparse_format="pmv")}
+    with uncounted():  # the batch's trajectory, as every route will take it
+        _, _, nodes = trs["mv"]._targets_and_trajectory(seqs, targets)
+    left = torch.zeros(trs["mv"].model.embedding.shape[0], dtype=torch.bool,
+                       device=seqs.device)
+    left[nodes[:-1][nodes[:-1] >= 0]] = True
+    left[nodes[-1][nodes[-1] >= 0]] = False
+    left[seqs[seqs >= 0]] = False
+    losses = {m: t._train_batch(seqs, targets) for m, t in trs.items()}
+    trs["pmv"]._sync_mirrors()
+    rel = max(((losses[m] - losses["dense"]).abs() / losses["dense"].abs()).max().item()
+              for m in ("mv", "pmv"))
+    pmv_gap = param_gap(trs["pmv"], trs["mv"])
+    with torch.no_grad():  # the rows left behind leave the dense comparison
+        trs["dense"].model.embedding[left] = trs["mv"].model.embedding[left]
+    out = {"levels": trs["mv"].n_levels, "max_loss_rel_diff": rel, "rows_left_behind": int(left.sum()),
+           "param_gap": {"dense_vs_mv": param_gap(trs["dense"], trs["mv"]),
+                         "pmv_vs_mv": pmv_gap}}
+    check(rel <= LOSS_RTOL, f"dense/mv/pmv losses disagree: {out}")
+    check(max(out["param_gap"].values()) <= 1.0, f"dense/mv/pmv params disagree: {out}")
+    return out
+
+
+def otm_example(dev) -> dict:
+    """The port's OTM CLI in process on the example catalog, from a copy of
+    configs/otm.conf: otm-train-deep-model -> otm-construct-tree (every
+    sweep K1 call and add audited) -> otm-train-deep-model under the learned
+    mapping -> OTMServing.load and recommend_batch of 4096 windows; then, on
+    the served model, evaluate with every K3 call audited, one batch's
+    frozen forwards with every K1 call audited, same-seed determinism, the
+    dense/mv/pmv agreement and the ms of a batch.  The caller zeroes and
+    reads the launch counts around it; they count the CLI path alone (the
+    audits, checks and timing after it leave them as they were)."""
+    wd = otm_dir()
+    stages: dict[str, float] = {}
+
+    def run(stage: str, command: str) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli_main([command, "--conf", "otm.conf"]) == 0, f"{command} failed")
+        torch.cuda.synchronize()
+        stages[stage] = time.perf_counter() - t0
+
+    with contextlib.chdir(wd):
+        run("otm-train-deep-model", "otm-train-deep-model")
+        first = load_mapping("data/otm_mapping.txt")[0]
+        with LevelLog() as lv, k1_audited() as k1_sweep, adds_audited() as add_sweep:
+            run("otm-construct-tree", "otm-construct-tree")
+        learned = load_mapping("data/otm_mapping.txt")[0]
+        codes = np.asarray(list(learned.values()))
+        lo = (1 << upper_log2(len(learned))) - 1
+        check(learned.keys() == first.keys() and len(np.unique(codes)) == len(codes)
+              and bool(((codes >= lo) & (codes < 2 * lo + 1)).all()),
+              "the learned mapping is not a bijection onto leaves")
+        check(k1_sweep["calls"] > 0 and add_sweep["calls"] > 0,
+              "the construction made no K1 or add call")
+        conf = Path("otm.conf").read_text()
+        off = conf.replace("model.initialize_mapping        true",
+                           "model.initialize_mapping        false")
+        check(off != conf, "otm.conf: no model.initialize_mapping to turn off")
+        Path("otm.conf").write_text(off)
+        run("otm-train-deep-model (learned mapping)", "otm-train-deep-model")
+        check(load_mapping("data/otm_mapping.txt")[0] == learned, "the retrain moved the mapping")
+        t0 = time.perf_counter()
+        serv = OTMServing.load("data/otm_model.bin", "data/otm_mapping.txt",
+                               "data/example_data.csv", device=dev)
+        stages["OTMServing.load"] = time.perf_counter() - t0
+    tr = serv._trainer
+    d = tr.data
+    windows = np.concatenate([d.eval_seqs, d.train_seqs])[:BATCH]
+    k3 = packed_level_kernel.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lists = tr.recommend_batch(windows)
+    stages["recommend_batch(4096)"] = time.perf_counter() - t0
+    k3_serve = packed_level_kernel.launches - k3
+    check(k3_serve == tr.n_levels, f"recommend_batch: {k3_serve} K3 launches")
+    check(all(len(r) == TOPK and len(np.unique(r)) == TOPK and np.isin(r, list(learned)).all()
+              for r in lists), "recommend_batch: a list is short, repeats or holds a non-item")
+    with uncounted(), k3_audited() as k3_eval:  # the CLI path ends here
+        tr._packed_cache = None
+        ev = tr.evaluate()
+    tr._packed_cache = None
+    n_eval = -(-len(d.eval_seqs) // tr.eval_batch_size)
+    check(k3_eval["calls"] == tr.n_levels * n_eval, f"evaluate: {k3_eval}")
+    check(all(0.0 <= getattr(ev, k) <= 1.0 for k in ("precision", "recall", "ndcg"))
+          and np.isfinite(ev.loss), f"evaluate: {ev}")
+    bs = tr.train_batch_size
+    batch = [tr._codes(a[i * bs : (i + 1) * bs]) for i in range(3)
+             for a in (d.train_seqs, d.train_labels)]
+    with uncounted(), k1_audited() as k1_frozen:  # a repeat of the batch's frozen part
+        tr._targets_and_trajectory(batch[0], batch[1])
+    check(k1_frozen["calls"] == 3 * tr.n_levels - 2, f"one batch's frozen forwards: {k1_frozen}")
+    make = lambda **kw: OTMTrainer(d, embed_size=E, learning_rate=3e-3,  # noqa: E731
+                                   beam_size=BEAM, topk=TOPK, seq_len=SEQ_LEN, seed=SEED,
+                                   device=dev, **kw)
+    with uncounted():
+        a, b = make(), make()
+        check(not a._sparse, "example catalog: the auto route is not dense")
+        for i in range(0, 6, 2):
+            a._train_batch(batch[i], batch[i + 1])
+            b._train_batch(batch[i], batch[i + 1])
+        check(same_params(a, b), "same-seed OTM batches are not bitwise deterministic")
+        n_timed = 20
+        timed = [tr._codes(x[: n_timed * bs].reshape(n_timed, bs, -1))
+                 for x in (d.train_seqs, d.train_labels)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_timed):
+            a._train_batch(timed[0][i], timed[1][i])
+        torch.cuda.synchronize()
+        ms_batch = (time.perf_counter() - t0) / n_timed * 1e3
+        routes = otm_routes(make, batch[0], batch[1])
+    return {"cut": f"model.epoch_num {OTM_EPOCHS} in otm.conf (5 in the file); nothing else "
+                   "changed",
+            "items": d.num_items, "leaf_level": tr.leaf_level, "n_levels": tr.n_levels,
+            "train_windows": int(len(d.train_seqs)), "batch_rows": bs,
+            "auto_route": "dense", "stage_seconds": stages,
+            "total_seconds": sum(stages.values()), "ms_per_batch": ms_batch,
+            "construction": {"levels": lv.levels, "k1_vs_plain": k1_sweep,
+                             "adds_bit_exact": add_sweep["calls"],
+                             "items_moved": int(sum(first[k] != learned[k] for k in first))},
+            "serving": {"windows": BATCH, "k3_launches": k3_serve},
+            "eval": {"windows": int(len(d.eval_seqs)), "loss": ev.loss,
+                     "precision": ev.precision, "recall": ev.recall, "ndcg": ev.ndcg,
+                     "k3_vs_plain": k3_eval},
+            "frozen_k1_vs_plain": k1_frozen, "deterministic_batches": 3,
+            "routes_one_batch": routes}
+
+
+def otm_deep(dev) -> dict:
+    """OTM at DEEP_ITEMS synthetic items (scripts/bench_otm_deep.py's data:
+    leaf codes from the seed, sequences of 10, 5 labels): 20 levels, start
+    level 4, 16 level steps a batch of OTM_DEEP_BATCH rows, auto route pmv
+    (one K2 launch a level step).  A warm-up batch and OTM_DEEP_BATCHES timed
+    ones; the packed state against a rerun with K2's plain version; then
+    batch_beam_search of 4096 windows (16 K3 levels), timed, and once more
+    with every K3 call audited.  The caller zeroes and reads the launch
+    counts around it."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 8)
+    leaf_level = upper_log2(DEEP_ITEMS)
+    lo = (1 << leaf_level) - 1
+    n = OTM_DEEP_BATCH * (OTM_DEEP_BATCHES + 1)
+    data = OTMData(
+        item_to_code={}, code_to_item={}, leaf_level=leaf_level, num_items=DEEP_ITEMS,
+        all_nodes=np.empty(0, bool),
+        train_seqs=rng.integers(lo, lo + DEEP_ITEMS, size=(n, SEQ_LEN)),
+        train_labels=rng.integers(lo, lo + DEEP_ITEMS, size=(n, OTM_LABELS)),
+        train_users=np.zeros(n, np.int64), eval_seqs=np.empty((0, SEQ_LEN), np.int64),
+        eval_labels=np.empty((0, OTM_LABELS), np.int64), eval_users=np.empty(0, np.int64),
+        user_consumed={}, label_num=OTM_LABELS)
+    make = lambda: OTMTrainer(data, embed_size=E, beam_size=BEAM, seed=SEED,  # noqa: E731
+                              total_train_batch_size=OTM_DEEP_BATCH * 2 * BEAM, device=dev)
+    tr = make()
+    check(tr._pmv and tr.n_levels == 16 and tr.train_batch_size == OTM_DEEP_BATCH,
+          f"1M OTM: route pmv {tr._pmv}, {tr.n_levels} levels, batch {tr.train_batch_size}")
+    batches = [(tr._codes(data.train_seqs[i::OTM_DEEP_BATCHES + 1]),
+                tr._codes(data.train_labels[i::OTM_DEEP_BATCHES + 1]))
+               for i in range(OTM_DEEP_BATCHES + 1)]
+    setup_s = time.perf_counter() - t0
+    k2 = row_writer.launches["write_rows"]
+    tr._train_batch(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in batches[1:]:
+        losses = tr._train_batch(*bt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == tr.n_levels * len(batches), f"{k2} K2 launches in {len(batches)} batches")
+    check(bool(torch.isfinite(losses).all()), "1M OTM losses are not finite")
+    with uncounted(), capturing("write_rows", row_writer.write_rows_plain):
+        twin = make()
+        for bt in batches:
+            twin._train_batch(*bt)
+    check(torch.equal(bits(tr.emb_state["pmv"]), bits(twin.emb_state["pmv"]))
+          and same_params(tr, twin), "1M OTM: pmv state differs from the plain-writer rerun")
+    pmv_gb = tr.emb_state["pmv"].numel() * 4 / 1e9
+    del twin
+    windows = rng.integers(lo, lo + DEEP_ITEMS, size=(BATCH, SEQ_LEN))
+    windows[:, :3] = np.where(rng.random((BATCH, 3)) < 0.3, -1, windows[:, :3])  # padding
+    k3 = packed_level_kernel.launches
+    t1 = time.perf_counter()
+    ids, scores = tr.batch_beam_search(windows)  # syncs the mirror, builds the pair table
+    first_s = time.perf_counter() - t1
+    calls = 3
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        ids, scores = tr.batch_beam_search(windows)
+    search_s = time.perf_counter() - t1
+    k3 = packed_level_kernel.launches - k3
+    check(k3 == tr.n_levels * (calls + 1), f"1M OTM serving: {k3} K3 launches")
+    check(ids.shape == (BATCH, 2 * BEAM) and bool((ids >= lo).all())
+          and bool(np.isfinite(scores).all()), "1M OTM serving: a candidate is not a live leaf")
+    with uncounted(), k3_audited() as k3_audit:
+        tr._packed_cache = None
+        audited_ids, _ = tr.batch_beam_search(windows)
+    tr._packed_cache = None
+    check(k3_audit["calls"] == tr.n_levels and np.array_equal(audited_ids, ids),
+          f"1M OTM serving audit: {k3_audit}")
+    return {"items": DEEP_ITEMS, "leaf_level": leaf_level, "start_level": tr.start_level,
+            "n_levels": tr.n_levels, "batch_rows": OTM_DEEP_BATCH, "auto_route": "pmv",
+            "pmv_state": list(tr.emb_state["pmv"].shape), "pmv_state_gb": pmv_gb,
+            "setup_s": setup_s, "timed_batches": OTM_DEEP_BATCHES,
+            "ms_per_batch": elapsed / OTM_DEEP_BATCHES * 1e3,
+            "samples_per_s": OTM_DEEP_BATCHES * OTM_DEEP_BATCH / elapsed,
+            "k2_launches": k2, "k2_launches_per_batch": k2 // len(batches),
+            "final_level_losses": losses.tolist(), "pmv_equals_plain_writer_rerun": True,
+            "serving": {"windows": BATCH, "first_call_s": first_s, "calls": calls,
+                        "ms_per_batch": search_s / calls * 1e3, "qps": BATCH * calls / search_s,
+                        "k3_launches": k3, "k3_vs_plain": k3_audit}}
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -1214,16 +1584,22 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     k1_usage = ptxas_usage(log, "din_score_kernel")
+    k3_usage = {k: ptxas_usage(log, f"packed_level_kernelILb{k}E") for k in (1, 0)}
     hmma = hmma_counts(lib_path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
-          "k1_ptxas": k1_usage, "sass_hmma": hmma})
+          "k1_ptxas": k1_usage, "k3_ptxas": {"one_tile": k3_usage[1], "tiles": k3_usage[0]},
+          "sass_hmma": hmma})
     check(0 < k1_usage["registers"] <= 64 and k1_usage["spill_bytes"] == 0,
           f"K1 uses more than 64 registers or spills: {k1_usage}")
+    # the one-tile K3 (every L <= 16) within 64 registers and no spill, so
+    # the serving batch's 1,024 blocks fit the card in one wave
+    check(0 < k3_usage[1]["registers"] <= 64 and k3_usage[1]["spill_bytes"] == 0,
+          f"K3's one-tile kernel uses more than 64 registers or spills: {k3_usage}")
     check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
 
     # ---- 3. kernels against their plain versions
-    tree_path, ckpt, seqs, facts4, samples = example_data()  # set-up of the main path
+    tree_path, ckpt, seqs, facts4, samples, heavy = example_data()  # set-up of the main path
     weights = tuple(t.detach() for t in params_from_numpy(
         seed_params(7, np.random.default_rng(SEED + 4)), device=dev).scorer_weights())
     kern = kernels_vs_plain(dev, weights, facts4["catalog_items"])
@@ -1237,6 +1613,9 @@ def main() -> int:
     serv = TDMServing.load(ckpt, tree_path, topk=TOPK, candidate_num=BEAM)
     packed_lists = serv.recommend_batch(seqs)  # auto route: packed (K3)
     k3_example = packed_level_kernel.launches
+    # the heaviest user: beam (210 + 10) // 2 = 110 on the packed route
+    heavy_rec = serv.recommend(heavy[-SEQ_LEN:], consumed=heavy)
+    k3_heavy = packed_level_kernel.launches - k3_example
     classic = TDMServing.load(ckpt, tree_path, topk=TOPK, candidate_num=BEAM, packed=False)
     classic_lists = classic.recommend_batch(seqs)  # classic route (K1)
     k1_classic = din_kernel.launches
@@ -1257,12 +1636,20 @@ def main() -> int:
     cfg = make_config(serv.tree, BEAM)
     levels = cfg.max_level - cfg.start_level
     check(k3_example == levels, f"packed route: {k3_example} K3 launches, not {levels}")
+    heavy_beam = (len(heavy) + TOPK) // 2
+    hcfg = make_config(serv.tree, heavy_beam)
+    check(k3_heavy == hcfg.max_level - hcfg.start_level,
+          f"the heavy user's recommend: {k3_heavy} K3 launches")
+    check_lists([heavy_rec], serv.tree)
+    check(not np.isin(heavy_rec, heavy).any(), "recommend returned a consumed item")
     check(k1_classic == levels, f"classic route: {k1_classic} K1 launches, not {levels}")
     check(launches["din_score"] == levels + 1, "predict did not launch K1 once")
     check_lists(packed_lists, serv.tree)
     check_lists(classic_lists, classic.tree)
     check(pred.shape == pred_items.shape and bool(np.isfinite(pred).all()), "predict output")
     codes = torch.as_tensor(serv.tree.ids_to_codes(seqs), dtype=torch.long, device=dev)
+    codes_heavy = torch.as_tensor(serv.tree.ids_to_codes(heavy[None, -SEQ_LEN:]),
+                                  dtype=torch.long, device=dev)
     with torch.inference_mode():
         # predict's logits: K1's (as predict computed them) against plain
         item_codes = torch.as_tensor(serv.tree.ids_to_codes(pred_items[None]),
@@ -1281,13 +1668,19 @@ def main() -> int:
             codes, packed_lists),
         classic_vs_plain=audit_classic(classic.params, classic.tree, codes, classic_lists),
         predict_logits_vs_plain=within("din_score", logits, logits_plain),
+        heavy_user={"interactions": len(heavy), "beam": heavy_beam, "k3_launches": k3_heavy,
+                    "vs_plain": audit_packed(
+                        serv.params, make_packed_tree(serv.tree, serv.params.embedding,
+                                                      heavy_beam),
+                        codes_heavy, topk_lists(serv._beam_fn(heavy_beam), serv.params,
+                                                codes_heavy))},
     )
     emit({"phase": "example_serving", **facts4})
 
     # ---- 5. checks of the deep catalog
     dcfg = make_config(deep.tree, BEAM)
     dlevels = dcfg.max_level - dcfg.start_level
-    k3_deep = launches["packed_level"] - k3_example
+    k3_deep = launches["packed_level"] - k3_example - k3_heavy
     check(k3_deep == dlevels * (calls + 1),
           f"deep catalog: {k3_deep} K3 launches, not {dlevels} x {calls + 1}")
     check_lists(deep_lists, deep.tree)
@@ -1339,6 +1732,23 @@ def main() -> int:
     for name in launches:
         launches[name] += facts_wf["launches"][name] + facts_jd["launches"][name]
 
+    # ---- OTM through the CLI on the example catalog, and at 1M items:
+    # launch counts zeroed just before each, read just after
+    zero_launches()
+    facts_oe = otm_example(dev)
+    facts_oe["launches"] = read_launches()
+    check(facts_oe["launches"]["din_score"] > 0 and facts_oe["launches"]["packed_level"] > 0
+          and facts_oe["launches"]["add_rows"] > 0, f"otm_example: {facts_oe['launches']}")
+    emit({"phase": "otm_example", **facts_oe})
+    zero_launches()
+    facts_od = otm_deep(dev)
+    facts_od["launches"] = read_launches()
+    check(all(facts_od["launches"][k] > 0 for k in ("din_score", "packed_level", "write_rows")),
+          f"otm_deep: {facts_od['launches']}")
+    emit({"phase": "otm_deep", **facts_od})
+    for name in launches:
+        launches[name] += facts_oe["launches"][name] + facts_od["launches"][name]
+
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
            "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
@@ -1362,8 +1772,14 @@ def main() -> int:
                              kern["din_score"]["sweep_u2"]["max_abs_err"],
                              facts_ex["k1_vs_plain"]["max_abs_err"],
                              facts_wf["sweep"]["k1_vs_plain"]["max_abs_err"],
-                             facts_jd["sweep"]["audited_step"]["k1_vs_plain"]["max_abs_err"]),
-            "packed_level": kern["packed_level"]["max_abs_err"],
+                             facts_jd["sweep"]["audited_step"]["k1_vs_plain"]["max_abs_err"],
+                             facts_oe["construction"]["k1_vs_plain"]["max_abs_err"],
+                             facts_oe["frozen_k1_vs_plain"]["max_abs_err"]),
+            "packed_level": max(kern["packed_level"]["max_abs_err"],
+                                *(c["max_abs_err"] for c in kern["packed_level"]["wide"].values()),
+                                facts4["heavy_user"]["vs_plain"]["max_abs_err"],
+                                facts_oe["eval"]["k3_vs_plain"]["max_abs_err"],
+                                facts_od["serving"]["k3_vs_plain"]["max_abs_err"]),
             "write_rows": row_errors(rk, "write"), "add_rows": row_errors(rk, "add")}
     summary = []
     for name, k in timed.items():
@@ -1381,6 +1797,11 @@ def main() -> int:
                 "sweep_plain_ms": k["sweep"]["plain_ms"],
                 "sweep_bound_ms": k["sweep"]["bound_ms"], "sweep_shape": k["sweep"]["shape"]}
                if name == "din_score" else {}),
+            # K3 also at beam 110 (the example catalog's widest recommend)
+            # and at L = 24 (two sequence tiles)
+            **({f"{case}_{key}": k["wide"][case][key] for case in ("beam110_l10", "beam20_l24")
+                for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "shape")}
+               if name == "packed_level" else {}),
         })
     emit({"kernels": summary})
 

@@ -1,14 +1,15 @@
-"""CLI entry points: the reference's TDM and JTM commands.
+"""CLI entry points: the reference's TDM, JTM and OTM commands.
 
-Port of the ``tdm-*`` and ``jtm-*`` commands of ``dismember_tpu/cli/main.py``
+Port of the ``tdm-*``, ``jtm-*`` and ``otm-*`` commands of
+``dismember_tpu/cli/main.py``
 (examples/ in the reference, SURVEY.md §2.6): same command names, same conf
 keys (``--conf``; the reference's ``--tdmConfFile``/``--jtmConfFile`` are
 also accepted), same stage files, and the post-train recommend smoke test +
 latency loop (examples/.../tdm/package.scala:115-126).  Conf paths resolve
 against the working directory, as the reference's project-root-relative
 ``data/...`` paths expect.  Every command runs on ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions).  The ``otm-*`` and
-``dr-*`` commands are not ported yet.
+``cuda``; ``cpu`` runs the kernels' plain versions).  The ``dr-*``
+commands are not ported yet.
 
 Usage:  python -m dismember_tpu_torch.cli <command> --conf <file> [--device cpu] [--quiet]
 """
@@ -29,10 +30,12 @@ from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.data import tdm_dataset as tds
 from dismember_tpu_torch.data.ingest import unique_items_with_category
+from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping, save_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.cluster import cluster_tree_from_embeddings
 from dismember_tpu_torch.index.tree_io import category_sorted_codes, write_tree
-from dismember_tpu_torch.train.jtm import TreeLearner, write_projection_tree
+from dismember_tpu_torch.train.jtm import TreeLearner, otm_tree_learner, write_projection_tree
+from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import TDMTrainer, build_model
 
 logger = logging.getLogger("dismember_tpu_torch.cli")
@@ -198,6 +201,83 @@ def jtm_tree_learning(args):
 
 
 # ---------------------------------------------------------------------------
+# OTM
+# ---------------------------------------------------------------------------
+
+
+@command("otm-train-deep-model")
+def otm_train(args):
+    p = cfg.OTMModelParams.from_conf(cfg.read_conf(args.conf, "model"), _conf_base(args.conf))
+    mapping = None if p.initialize_mapping else load_mapping(p.mapping_path)
+    data = build_otm_data(
+        p.data_path,
+        p.seq_len,
+        p.min_seq_len,
+        p.split_ratio,
+        leaf_init_mode=p.leaf_init_mode,
+        label_num=p.label_num,
+        seed=p.seed,
+        mapping=mapping,
+    )
+    trainer = OTMTrainer(
+        data,
+        model_type=p.deep_model,
+        embed_size=p.embed_size,
+        learning_rate=p.learning_rate,
+        total_train_batch_size=p.train_batch_size,
+        total_eval_batch_size=p.eval_batch_size,
+        beam_size=p.beam_size,
+        topk=p.topk_number,
+        seq_len=p.seq_len,
+        target_mode=p.target_mode,
+        seed=p.seed,
+        device=args.device,
+    )
+    trainer.train(p.epoch_num, progress_interval=p.show_progress_interval)
+    save_pytree(
+        p.model_path,
+        trainer.params,
+        meta={
+            "model": p.deep_model,
+            "embed_size": p.embed_size,
+            "seq_len": p.seq_len,
+            "num_items": data.num_items,
+        },
+    )
+    save_mapping(p.mapping_path, data.item_to_code)
+
+
+@command("otm-construct-tree")
+def otm_construct(args):
+    p = cfg.OTMTreeParams.from_conf(cfg.read_conf(args.conf, "tree"), _conf_base(args.conf))
+    data = build_otm_data(
+        p.data_path,
+        p.seq_len,
+        p.min_seq_len,
+        p.split_ratio,
+        label_num=p.label_num,
+        mapping=load_mapping(p.mapping_path),
+    )
+    meta = load_meta(p.model_path)
+    # the scorer over the complete tree's 2^(leaf_level+1) - 1 codes
+    model = build_model(meta["model"], data.leaf_level, meta["embed_size"], meta["seq_len"],
+                        device=args.device)
+    model.load_numpy(load_pytree(p.model_path, model.param_tree()))
+    learner = otm_tree_learner(
+        model,
+        data.item_to_code,
+        data.train_seqs,
+        data.train_labels,
+        gap=p.gap,
+        device=args.device,
+    )
+    t0 = time.perf_counter()
+    projection = learner.optimize()
+    logger.info(f"total tree construction time: {time.perf_counter() - t0:.2f}s")
+    save_mapping(p.mapping_path, projection)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -210,6 +290,7 @@ def main(argv=None) -> int:
         "--conf",
         "--tdmConfFile",
         "--jtmConfFile",
+        "--otmConfFile",
         dest="conf",
         required=True,
         help="path to the flat conf file (reference format)",

@@ -1,6 +1,6 @@
 """Flat config-file loading with the reference's key namespace.
 
-Copy of the TDM/JTM part of ``dismember_tpu/core/config.py``.  The reference
+Copy of the TDM, JTM and OTM part of ``dismember_tpu/core/config.py``.  The reference
 reads flat ``prefix.key value`` files (configs/*.conf) through
 ``Property.readConf`` (scalann utils/Property.scala:12-48) and converts them to
 per-stage case classes (examples/.../tdm/package.scala:8-113); reference conf
@@ -195,5 +195,89 @@ class JTMTreeParams:
             seq_len=int(_get(conf, "seq_len")),
             hierarchical_preference=_bool(conf.get("hierarchical_preference", "false")),
             min_level=int(conf.get("min_level", "0")),
+            thread_number=int(conf.get("thread_number", "0")),
+        )
+
+
+@dataclasses.dataclass
+class OTMModelParams:
+    """``model.*`` keys (OTM train stage)."""
+
+    data_path: str
+    model_path: str
+    deep_model: str
+    thread_number: int
+    train_batch_size: int
+    eval_batch_size: int
+    embed_size: int
+    learning_rate: float
+    epoch_num: int
+    topk_number: int
+    beam_size: int
+    show_progress_interval: int
+    seq_len: int
+    min_seq_len: int
+    split_ratio: float
+    leaf_init_mode: str
+    initialize_mapping: bool
+    mapping_path: str
+    label_num: int
+    target_mode: str
+    seed: int
+
+    @classmethod
+    def from_conf(cls, conf: Mapping[str, str], base_dir: str = "") -> "OTMModelParams":
+        return cls(
+            data_path=_resolve(base_dir, _get(conf, "data_path")),
+            model_path=_resolve(base_dir, _get(conf, "model_path")),
+            deep_model=_get(conf, "deep_model").lower(),
+            thread_number=int(conf.get("thread_number", "0")),
+            train_batch_size=int(_get(conf, "train_batch_size")),
+            eval_batch_size=int(_get(conf, "eval_batch_size")),
+            embed_size=int(_get(conf, "embed_size")),
+            learning_rate=float(_get(conf, "learning_rate")),
+            epoch_num=int(_get(conf, "epoch_num")),
+            topk_number=int(_get(conf, "topk_number")),
+            beam_size=int(_get(conf, "beam_size")),
+            show_progress_interval=int(_get(conf, "show_progress_interval")),
+            seq_len=int(_get(conf, "seq_len")),
+            min_seq_len=int(_get(conf, "min_seq_len")),
+            split_ratio=float(_get(conf, "split_ratio")),
+            leaf_init_mode=_get(conf, "leaf_init_mode").lower(),
+            initialize_mapping=_bool(_get(conf, "initialize_mapping")),
+            mapping_path=_resolve(base_dir, _get(conf, "mapping_path")),
+            label_num=int(_get(conf, "label_num")),
+            target_mode=_get(conf, "target_mode").lower(),
+            seed=int(conf.get("seed", "42")),
+        )
+
+
+@dataclasses.dataclass
+class OTMTreeParams:
+    """``tree.*`` keys (OTM tree-construction stage)."""
+
+    data_path: str
+    model_path: str
+    mapping_path: str
+    deep_model: str
+    gap: int
+    label_num: int
+    seq_len: int
+    min_seq_len: int
+    split_ratio: float
+    thread_number: int
+
+    @classmethod
+    def from_conf(cls, conf: Mapping[str, str], base_dir: str = "") -> "OTMTreeParams":
+        return cls(
+            data_path=_resolve(base_dir, _get(conf, "data_path")),
+            model_path=_resolve(base_dir, _get(conf, "model_path")),
+            mapping_path=_resolve(base_dir, _get(conf, "mapping_path")),
+            deep_model=_get(conf, "deep_model").lower(),
+            gap=int(_get(conf, "gap")),
+            label_num=int(_get(conf, "label_num")),
+            seq_len=int(_get(conf, "seq_len")),
+            min_seq_len=int(_get(conf, "min_seq_len")),
+            split_ratio=float(_get(conf, "split_ratio")),
             thread_number=int(conf.get("thread_number", "0")),
         )

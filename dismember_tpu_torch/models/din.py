@@ -79,14 +79,15 @@ class DIN(nn.Module):
 
     @torch.no_grad()
     def load_numpy(self, params: dict) -> None:
-        """Copy a params pytree of arrays in; shapes must match."""
+        """Copy a params pytree of arrays in, each at its parameter's dtype;
+        shapes must match."""
 
         def copy(dst, src, path):
             if isinstance(dst, dict):
                 for k in dst:
                     copy(dst[k], src[k], f"{path}/{k}" if path else k)
                 return
-            src = torch.tensor(np.asarray(src, dtype=np.float32))
+            src = torch.tensor(np.asarray(src), dtype=dst.dtype)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
                     f"{path}: shape {tuple(src.shape)}, expected {tuple(dst.shape)}"

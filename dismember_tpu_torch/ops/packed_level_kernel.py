@@ -17,14 +17,22 @@ and hilo [B, 2*beam, 2].
 
 :func:`packed_level` launches ``packed_level_bf16`` (``csrc/din_kernels.cu``)
 for CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel
-is built for E=16 and L <= 16 only.  It runs its products on the tensor
-cores (bf16 operands are the contract), so on the H100 at the serving
-shapes (B=4096, beam=20) it is bound by bytes: of each 128-lane row it needs
-the 2E+6 = 38 used lanes (~12.5 MB a level, ~17.5 MB with the sequence
-tiles and outputs).  The row gather stays outside it.
+is built for E=16 and takes any L (in 16-position tiles).  A query row's
+staging area in shared memory grows with the beam; a beam wider than one
+row of a block can hold (``packed_level_max_beam``, ~1,340 parents at L <=
+16 on an H100) is split here into chunks of parents, one launch each, and
+the chunks' outputs are put back into block order.  Each parent's two
+children are scored independently of the other parents, so the split
+changes no score.  The kernel runs its products on the tensor cores (bf16
+operands are the contract), so on the H100 at the serving shapes (B=4096,
+beam=20) it is bound by bytes: of each 128-lane row it needs the 2E+6 = 38
+used lanes (~12.5 MB a level, ~17.5 MB with the sequence tiles and
+outputs).  The row gather stays outside it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,7 +40,6 @@ from dismember_tpu_torch.ops import _cuda
 from dismember_tpu_torch.ops.din_kernel import score_chain
 
 NEG_INF = -3.4e38  # score of a missing child or dead parent
-_MAX_L = 16  # the kernel pads the sequence to one 16-wide mma tile
 
 # K3 launches on CUDA tensors; chip_smoke.py zeroes and reads it
 launches = 0
@@ -56,6 +63,49 @@ def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
     return torch.where(ok, logit, NEG_INF), hilo
 
 
+@functools.cache
+def _kernel_max_beam(l: int, device_index: int) -> int:
+    """The widest beam one launch takes at sequence length ``l`` on a card."""
+    with torch.cuda.device(device_index):
+        beam = _cuda.library().packed_level_max_beam(l)
+    if beam < 1:
+        raise RuntimeError(f"packed_level: no beam fits a block at L={l}")
+    return beam
+
+
+def _split_beam(level_fn, max_beam: int, rows, alive, *rest):
+    """``level_fn`` over chunks of at most ``max_beam`` parents, its
+    block-ordered outputs put back together: every chunk's left children,
+    then every chunk's right children."""
+    beam = rows.shape[1]
+    parts = [level_fn(rows[:, k : k + max_beam].contiguous(),
+                      alive[:, k : k + max_beam].contiguous(), *rest)
+             for k in range(0, beam, max_beam)]
+    halves = [(s.shape[1] // 2, s, h) for s, h in parts]
+    scores = torch.cat([s[:, :c] for c, s, _ in halves] + [s[:, c:] for c, s, _ in halves], 1)
+    hilo = torch.cat([h[:, :c] for c, _, h in halves] + [h[:, c:] for c, _, h in halves], 1)
+    return scores, hilo
+
+
+def _launch(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
+            embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K3 launch over the whole beam, on checked CUDA tensors."""
+    global launches
+    dev = rows.device
+    b, beam, row = rows.shape
+    scores = torch.empty((b, 2 * beam), dtype=torch.float32, device=dev)
+    hilo = torch.empty((b, 2 * beam, 2), dtype=torch.float32, device=dev)
+    code = _cuda.library().packed_level_bf16(
+        rows.data_ptr(), alive.data_ptr(), seq_e.data_ptr(), pad.data_ptr(),
+        att_w.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), scores.data_ptr(), hilo.data_ptr(),
+        b, beam, row, seq_e.shape[1], embed_size, _cuda.stream_handle(dev),
+    )
+    _cuda.check_launch("packed_level", code)
+    launches += 1
+    return scores, hilo
+
+
 def packed_level(
     rows: torch.Tensor,  # [B, beam, ROW] float32 gathered pair rows
     alive: torch.Tensor,  # [B, beam] bool/float parent-alive mask
@@ -69,20 +119,19 @@ def packed_level(
     embed_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-ordered (scores [B, 2*beam], id hi/lo [B, 2*beam, 2]): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    global launches
+    kernel for CUDA tensors, in chunks of parents through the beam split
+    when the beam is wider than one launch takes; the plain version for CPU
+    tensors."""
     dev = rows.device
+    weights = (att_w, w1, b1, w2, b2)
     if dev.type == "cpu":
-        return packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
-                                  embed_size)
+        return packed_level_plain(rows, alive, seq_e, pad, *weights, embed_size)
     if dev.type != "cuda":
         raise ValueError(f"packed_level: unsupported device {dev}")
-    b, beam, row = rows.shape
+    b, beam, _ = rows.shape
     l, e = seq_e.shape[1], embed_size
     alive = alive.to(torch.float32)
     name = "packed_level"
-    if l > _MAX_L:
-        raise ValueError(f"{name}: the kernel takes sequences of at most {_MAX_L}, got {l}")
     _cuda.check_inputs(name, dev, rows=rows, alive=alive, seq_e=seq_e, pad=pad,
                        att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
     for arg, t, shape in (("alive", alive, (b, beam)), ("seq_e", seq_e, (b, l, e)),
@@ -90,14 +139,8 @@ def packed_level(
                           ("w1", w1, (e, 2 * e)), ("b1", b1, (e,)),
                           ("w2", w2, (1, e)), ("b2", b2, (1,))):
         _cuda.check_shape(name, arg, t, shape)
-    scores = torch.empty((b, 2 * beam), dtype=torch.float32, device=dev)
-    hilo = torch.empty((b, 2 * beam, 2), dtype=torch.float32, device=dev)
-    code = _cuda.library().packed_level_bf16(
-        rows.data_ptr(), alive.data_ptr(), seq_e.data_ptr(), pad.data_ptr(),
-        att_w.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), scores.data_ptr(), hilo.data_ptr(),
-        b, beam, row, l, e, _cuda.stream_handle(dev),
-    )
-    _cuda.check_launch(name, code)
-    launches += 1
-    return scores, hilo
+    max_beam = _kernel_max_beam(l, dev.index if dev.index is not None
+                                else torch.cuda.current_device())
+    if beam > max_beam:
+        return _split_beam(_launch, max_beam, rows, alive, seq_e, pad, *weights, embed_size)
+    return _launch(rows, alive, seq_e, pad, *weights, embed_size)

@@ -94,7 +94,7 @@ def build_pair_table(
         raise NotImplementedError(
             f"a pair table of {n_pairs} rows exceeds {MAX_F32_TABLE_BYTES} bytes "
             "in f32; the bf16 pair table is not ported yet (ROADMAP queue 1, "
-            "next item b)"
+            "next item c)"
         )
     dev = embedding.device
 

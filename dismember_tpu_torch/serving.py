@@ -1,11 +1,13 @@
-"""TDM serving facade: load persisted artifacts, score and recommend.
+"""Serving facades: load persisted artifacts, score and recommend.
 
-Port of ``TDMServing`` from ``dismember_tpu/serving.py`` (TDM.scala's
-``predict`` = sigmoid scores, ``recommend`` = beam search + consumed filter +
-top-k).  Trees with ``max_level >= 8`` serve through the packed pair-table
-loop (K3 per level), smaller ones through the classic loop (K1 per level);
-``predict`` scores through K1.  A pair table over 4 GB in f32 (where the
-JAX facade switches to bf16 lanes) raises ``NotImplementedError``.
+Port of ``TDMServing`` and ``OTMServing`` from ``dismember_tpu/serving.py``.
+TDM (TDM.scala's ``predict`` = sigmoid scores, ``recommend`` = beam search +
+consumed filter + top-k): trees with ``max_level >= 8`` serve through the
+packed pair-table loop (K3 per level), smaller ones through the classic
+loop (K1 per level); ``predict`` scores through K1.  A pair table over 4 GB
+in f32 (where the JAX facade switches to bf16 lanes) raises
+``NotImplementedError``.  OTM (OTM.scala) serves through its trainer's
+packed loop over the complete tree (K3 per level), in raw item-id space.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree
 from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.packed_beam import (
@@ -23,6 +26,7 @@ from dismember_tpu_torch.retrieval.packed_beam import (
     make_packed_beam_fn,
 )
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn, make_config
+from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import build_model, packed_fns, serving_fns
 
 
@@ -135,3 +139,53 @@ class TDMServing:
         cn = candidate_num or self.candidate_num
         ids, scores = self._beam_fn(cn)(self.params, self._codes(seqs))
         return filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), k, consumed)
+
+
+class OTMServing:
+    """OTM facade (otm/.../model/OTM.scala): load model + item<->leaf-code
+    mapping, serve beam-search recommendations in raw item-id space."""
+
+    def __init__(self, trainer: OTMTrainer):
+        self._trainer = trainer
+
+    @classmethod
+    def load(
+        cls, model_path: str, mapping_path: str, data_path: str,
+        seq_len: int = 10, min_seq_len: int = 2, split_ratio: float = 0.8,
+        label_num: int = 5, beam_size: int = 20, topk: int = 10, device="cuda",
+    ) -> "OTMServing":
+        """Load a checkpoint (either package's) and a mapping file onto
+        ``device``; raises if ``device`` is CUDA and there is none."""
+        dev = resolve_device(device)
+        mapping = load_mapping(mapping_path)
+        data = build_otm_data(
+            data_path, seq_len, min_seq_len, split_ratio,
+            label_num=label_num, mapping=mapping,
+        )
+        meta = load_meta(model_path)
+        trainer = OTMTrainer(
+            data, model_type=meta["model"], embed_size=meta["embed_size"],
+            beam_size=beam_size, topk=topk, seq_len=meta["seq_len"], device=dev,
+        )
+        trainer.load_numpy(load_pytree(model_path, trainer.params))
+        return cls(trainer)
+
+    def recommend(
+        self, sequence_items: np.ndarray, topk: int | None = None,
+        consumed_items: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """sequence/result in raw item-id space (codes mapped internally)."""
+        t = self._trainer
+        seq_codes = np.asarray(
+            [t.data.item_to_code.get(int(i), -1) for i in sequence_items],
+            dtype=np.int64,
+        )
+        consumed_codes = None
+        if consumed_items is not None:
+            consumed_codes = [np.asarray(
+                [t.data.item_to_code[int(i)] for i in consumed_items
+                 if int(i) in t.data.item_to_code], dtype=np.int64,
+            )]
+        return t.recommend_batch(
+            seq_codes[None, :], topk=topk, consumed=consumed_codes
+        )[0]

@@ -1,8 +1,8 @@
 """Alternating train → index → retrain drivers with stage checkpoint/resume.
 
-Port of the TDM and JTM drivers of ``dismember_tpu/train/pipeline.py``.  The
-reference's alternation protocol is human-driven: re-run the CLIs stage by
-stage, persisting each stage's output (model blob, tree pb).  Here the loop
+Port of the TDM, JTM and OTM drivers of ``dismember_tpu/train/pipeline.py``.
+The reference's alternation protocol is human-driven: re-run the CLIs stage
+by stage, persisting each stage's output (model blob, tree pb, mapping).  Here the loop
 is one program; after every stage a state file records (round, stage tag,
 artifact paths), in the JAX package's format, so a killed run resumes at the
 stage boundary, whichever package wrote the state.  Every stage runs on
@@ -21,9 +21,11 @@ from dismember_tpu_torch.core.checkpoint import load_pytree, save_pytree
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import exists as path_exists
 from dismember_tpu_torch.core.io import open_file
+from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping, save_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.cluster import cluster_tree_from_embeddings
-from dismember_tpu_torch.train.jtm import TreeLearner, write_projection_tree
+from dismember_tpu_torch.train.jtm import TreeLearner, otm_tree_learner, write_projection_tree
+from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import TDMTrainer
 
 logger = logging.getLogger("dismember_tpu_torch.pipeline")
@@ -183,6 +185,81 @@ def run_jtm_alternation(
             write_projection_tree(trainer.tree, projection, new_tree)
             logger.info(f"jtm round {rnd} tree learning: {time.perf_counter() - t0:.1f}s")
             state.artifacts["tree"] = new_tree
+        state.round = rnd
+        state.stage = "indexed"
+        state.save(state_path)
+    return trainer, results
+
+
+def run_otm_alternation(
+    workdir: str,
+    data_path: str,
+    rounds: int = 2,
+    epochs_per_round: int = 5,
+    seq_len: int = 10,
+    min_seq_len: int = 2,
+    split_ratio: float = 0.8,
+    label_num: int = 5,
+    leaf_init_mode: str = "random",
+    data_mode: str = "default",
+    gap: int = 2,
+    seed: int = 42,
+    trainer_kwargs: dict | None = None,
+    device: str = "cuda",
+):
+    """OTM loop: train (per-level pseudo-target steps) -> tree construction
+    (item->leaf re-assignment) -> rebuild dataset under the new mapping ->
+    retrain, with stage checkpoint/resume.
+
+    The dataset is rebuilt each round because sequences/labels live in
+    mapped-code space (otm LocalDataSet.scala:15-44 reloads the mapping the
+    same way).  Returns (final trainer, per-round last-epoch eval dicts).
+    """
+    dev = resolve_device(device)
+    if "://" not in workdir:
+        os.makedirs(workdir, exist_ok=True)
+    state_path = os.path.join(workdir, "otm_pipeline_state.json")
+    state = StageState.load(state_path) or StageState(round=0, stage="init", artifacts={})
+    results = []
+    trainer = None
+    while state.round < rounds:
+        rnd = state.round + 1
+        mapping_path = state.artifacts.get("mapping")
+        mapping = (load_mapping(mapping_path)
+                   if mapping_path and path_exists(mapping_path) else None)
+        data = build_otm_data(
+            data_path, seq_len, min_seq_len, split_ratio,
+            leaf_init_mode=leaf_init_mode, label_num=label_num, seed=seed,
+            mapping=mapping, data_mode=data_mode,
+        )
+        trainer = OTMTrainer(data, device=dev, **(trainer_kwargs or {}))
+        model_ckpt = os.path.join(workdir, f"otm_model_round{rnd}")
+        if state.stage == "trained" and path_exists(model_ckpt + ".npz"):
+            trainer.load_numpy(load_pytree(model_ckpt, trainer.params))
+            ev = trainer.evaluate()
+            results.append({"round": rnd, "recall": ev.recall, "ndcg": ev.ndcg,
+                            "precision": ev.precision, "loss": ev.loss})
+        else:
+            t0 = time.perf_counter()
+            logs = trainer.train(num_epochs=epochs_per_round)
+            logger.info(f"otm round {rnd} train: {time.perf_counter() - t0:.1f}s")
+            save_pytree(model_ckpt, trainer.params, meta={"round": rnd})
+            state.stage = "trained"
+            state.artifacts[f"model_round{rnd}"] = model_ckpt
+            state.save(state_path)
+            last = logs[-1]
+            results.append({"round": rnd, "recall": last["recall"], "ndcg": last["ndcg"],
+                            "precision": last["precision"], "loss": last["eval_loss"]})
+
+        if rnd < rounds:
+            t0 = time.perf_counter()
+            learner = otm_tree_learner(trainer.model, data.item_to_code, data.train_seqs,
+                                       data.train_labels, gap=gap, device=dev)
+            projection = learner.optimize()
+            new_mapping = os.path.join(workdir, f"otm_mapping_round{rnd + 1}.txt")
+            save_mapping(new_mapping, projection)
+            logger.info(f"otm round {rnd} tree construction: {time.perf_counter() - t0:.1f}s")
+            state.artifacts["mapping"] = new_mapping
         state.round = rnd
         state.stage = "indexed"
         state.save(state_path)

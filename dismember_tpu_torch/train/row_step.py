@@ -1,0 +1,234 @@
+"""The train step on gathered embedding rows, its Adam state and the pmv
+mirror: what the TDM and OTM trainers share.
+
+A step takes a batch of candidate codes [B, U] (-1 invalid) with BCE labels
+and weights, and the query sequences [B, L]:
+
+    gather the touched embedding rows once (table, or packed p|m|v state)
+    -> DIN forward [B, U] through ``DIN.train_apply_from_emb`` and
+       BCE-with-logits, differentiated w.r.t. the gathered rows and the
+       scorer weights
+    -> Adam: dense over the whole table (duplicate-row gradients summed by
+       ``sparse_adam.dedup_rows``, so the step has no float atomics), or
+       lazy row-sparse Adam on the touched rows (``train/sparse_adam.py``),
+       whose packed formats commit through K2.
+
+In pmv mode the packed state owns the table and ``model.embedding`` is a
+MIRROR: ``_sync_mirrors`` re-materializes it at eval/train boundaries and
+``_adopt_mirrors`` pushes an external assignment (detected by the
+Parameter's identity and in-place version) back into the p lanes, the JAX
+package's contract.  The Adam state is optax's, so the JAX trainers' states
+load as they are (:meth:`RowStepTrainer.load_numpy`).
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core.checkpoint import flatten
+from dismember_tpu_torch.models.din import DIN
+from dismember_tpu_torch.models.losses import bce_with_logits
+from dismember_tpu_torch.train import sparse_adam
+
+logger = logging.getLogger("dismember_tpu_torch.train")
+
+
+def _find_adam(state):
+    """(count, mu, nu) of optax's ``ScaleByAdamState``, given as it is or
+    inside a tuple (optax's chain state); None if there is none."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state.count, state.mu, state.nu
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+class RowStepTrainer:
+    """Mixin of the trainers: needs ``model`` (DIN), ``learning_rate``,
+    ``embed_size`` and ``device``; :meth:`_init_optimizer` sets the rest."""
+
+    model: DIN
+
+    def _init_optimizer(self, sparse: bool, sparse_format: str) -> None:
+        """Dense Adam, or lazy sparse Adam on the embedding in the mv or pmv
+        format ("auto": pmv when the width packs, 3E <= 128)."""
+        self._sparse = sparse
+        self._pmv = False
+        self._mirrors_stale = False
+        self.emb_state = None
+        if sparse:
+            if sparse_format not in ("auto", "mv", "pmv"):
+                raise ValueError(f"unknown sparse_format {sparse_format!r}")
+            packable = sparse_adam.pmv_slots(self.embed_size) > 0
+            self._pmv = packable if sparse_format == "auto" else sparse_format == "pmv"
+            if self._pmv and not packable:
+                raise ValueError(
+                    f"pmv needs a packable width (3*E <= 128; E={self.embed_size})")
+            table = self.model.embedding.detach()
+            if self._pmv:
+                self.emb_state = sparse_adam.pmv_init(table)
+                self._record_mirror_id()
+            else:
+                self.emb_state = sparse_adam.init_state(table)
+        self.adam = self._adam_init()
+
+    # ------------------------------------------------------------------
+    def _named_params(self) -> dict[str, torch.nn.Parameter]:
+        return flatten(self.model.param_tree())
+
+    def _adam_names(self) -> list[str]:
+        """Parameters the trainer's Adam state covers (all but the
+        embedding in the sparse modes, whose rows have their own state)."""
+        return [n for n in self._named_params() if not (self._sparse and n == "embedding")]
+
+    def _adam_init(self) -> dict:
+        p = self._named_params()
+        zeros = lambda: {n: torch.zeros_like(p[n]) for n in self._adam_names()}  # noqa: E731
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @property
+    def params(self) -> dict:
+        """The params pytree (the embedding is the mirror in pmv mode)."""
+        return self.model.param_tree()
+
+    def load_numpy(self, params: dict, opt_state=None) -> None:
+        """Take a params pytree and, optionally, an optimizer state, as
+        arrays: the JAX package's trainers' ``.params`` and ``.opt_state``
+        load as they are (``jax.tree.map(np.asarray, ...)``).  The state is
+        optax's Adam chain state (a tuple holding a ``ScaleByAdamState``) in
+        the dense mode, and ``(that, {"pmv" | "mv" | "m", "v", "count"})`` in
+        the sparse modes.  In pmv mode the packed state owns the table, and
+        the embedding is re-read from it.  Arrays take each parameter's
+        dtype."""
+        self.model.load_numpy(params)
+        if opt_state is None:
+            return  # pmv mode adopts the new mirror at the next train()
+        rest = opt_state
+        if self._sparse:
+            rest, emb = opt_state
+            want = {"pmv"} if self._pmv else set(self.emb_state) - {"count"}
+            if set(emb) - {"count"} != want:
+                raise ValueError(f"embedding state has {sorted(emb)}, expected {sorted(want)}")
+            self.emb_state = {
+                k: int(np.asarray(v)) if k == "count" else
+                torch.tensor(np.asarray(v, np.float32), device=self.device)
+                for k, v in emb.items()
+            }
+        found = _find_adam(rest)
+        if found is None:
+            raise ValueError("no Adam state (count, mu, nu) in opt_state")
+        count, mu, nu = found
+        named = self._named_params()
+        mu, nu = flatten(mu), flatten(nu)
+        conv = lambda a, n: torch.tensor(  # noqa: E731
+            np.asarray(a), dtype=named[n].dtype, device=self.device).reshape(named[n].shape)
+        names = self._adam_names()
+        self.adam = {"count": int(np.asarray(count)),
+                     "mu": {n: conv(mu[n], n) for n in names},
+                     "nu": {n: conv(nu[n], n) for n in names}}
+        if self._pmv:
+            self._mirrors_stale = True
+            self._sync_mirrors()
+
+    def _codes(self, codes: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(codes, dtype=torch.long, device=self.device)
+
+    # ------------------------------------------------------------------
+    def step_from_samples(self, seq_codes: torch.Tensor, codes: torch.Tensor,
+                          labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """One train step on a batch of candidates; returns the loss (a 0-d
+        tensor on the device, before the update)."""
+        b, u = codes.shape
+        l, e = seq_codes.shape[1], self.embed_size
+        flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
+        valid = flat != PADDING_IDX
+        safe = torch.where(valid, flat, 0)
+        if self._pmv:
+            rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
+        else:
+            rows = self.model.embedding.detach()[safe]
+        rows = (rows * valid[:, None].to(rows.dtype)).requires_grad_()
+        params = self._named_params()
+        rest_names = [n for n in params if n != "embedding"]
+        with torch.enable_grad():
+            ctx = DIN.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
+                                       (seq_codes == PADDING_IDX).float())
+            logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
+            loss = bce_with_logits(logits, labels, weights)
+            g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])
+        g_rows = g_rows * valid[:, None].to(g_rows.dtype)
+        grads = dict(zip(rest_names, g_rest))
+        with torch.no_grad():
+            if not self._sparse:
+                grads["embedding"] = self._dense_table_grad(flat, g_rows)
+            self._adam_step(params, grads)
+            lr = self.learning_rate
+            if self._pmv:
+                sparse_adam.pmv_apply_rows(self.emb_state, flat, g_rows, lr)
+                self._mirrors_stale = True
+            elif self._sparse:
+                sparse_adam.apply_rows(self.model.embedding.detach(), self.emb_state,
+                                       flat, g_rows, lr)
+        return loss.detach()
+
+    def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
+        """The [V, E] table gradient: per-occurrence row gradients summed
+        per code in a fixed order (no float atomics), zeros elsewhere."""
+        codes_u, g_sum, live = sparse_adam.dedup_rows(flat, g_rows)
+        grad = torch.zeros_like(self.model.embedding)
+        grad[codes_u[live]] = g_sum[live]
+        return grad
+
+    def _adam_step(self, params: dict, grads: dict) -> None:
+        """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) on ``grads``, in place."""
+        st = self.adam
+        st["count"] += 1
+        for n, g in grads.items():
+            st["mu"][n], st["nu"][n], upd = sparse_adam.adam_update(
+                st["mu"][n], st["nu"][n], g, st["count"], self.learning_rate)
+            params[n].add_(upd)
+
+    # -- pmv mirror management (the JAX package's contract) ---------------
+    def _mirror_key(self) -> tuple[int, int]:
+        # identity and in-place version: a replaced Parameter or a copy into
+        # it (load_numpy) both count as an external assignment
+        emb = self.model.embedding
+        return id(emb), emb._version
+
+    def _record_mirror_id(self) -> None:
+        self._mirror_id = self._mirror_key()
+
+    def _sync_mirrors(self) -> None:
+        """Re-materialize the [V, E] embedding mirror from the packed p|m|v
+        state (no-op outside pmv mode or when already in sync)."""
+        if not self._pmv or not self._mirrors_stale:
+            return
+        v_rows, e = self.model.embedding.shape
+        with torch.no_grad():
+            self.model.embedding.copy_(sparse_adam.pmv_unpack(self.emb_state, v_rows, e))
+        self._mirrors_stale = False
+        self._record_mirror_id()
+
+    def _adopt_mirrors(self) -> None:
+        """Push an externally assigned embedding into the packed state's p
+        lanes, keeping moments.  Called at train() entry.  If the packed
+        state was newer (steps driven without _sync_mirrors), the external
+        values win with a warning."""
+        if not self._pmv or self._mirror_key() == self._mirror_id:
+            return
+        if self._mirrors_stale:
+            logger.warning(
+                "embedding mirror was externally replaced while the packed "
+                "p|m|v state was newer; adopting the external values into the "
+                "packed state (moments kept)."
+            )
+        sparse_adam.pmv_refresh(self.emb_state, self.model.embedding.detach().float())
+        self._mirrors_stale = False
+        self._record_mirror_id()

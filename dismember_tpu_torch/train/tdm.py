@@ -3,17 +3,11 @@ serving needs.
 
 Port of ``dismember_tpu/train/tdm.py``, DIN only: ``build_model``,
 ``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS`` and
-``TDMTrainer``.  A train step:
-
-    sample negatives on the device (``train/sampler.py``)
-    -> gather the touched embedding rows once (table, or packed p|m|v state)
-    -> grouped DIN forward [B, U] through ``DIN.train_apply_from_emb`` and
-       BCE-with-logits, differentiated w.r.t. the gathered rows and the
-       scorer weights
-    -> Adam: dense over the whole table (duplicate-row gradients summed by
-       ``sparse_adam.dedup_rows``, so the step has no float atomics), or
-       lazy row-sparse Adam on the touched rows (``train/sparse_adam.py``),
-       whose packed formats commit through K2.
+``TDMTrainer``.  A train step samples negatives on the device
+(``train/sampler.py``) and takes one step of ``train/row_step.py`` on the
+sampled codes: the touched rows gathered once, the DIN forward and BCE
+differentiated w.r.t. them, dense or lazy sparse Adam (mv or pmv, whose
+packed formats commit through K2).
 
 Batch accounting parity: ``total_batch_size`` counts *expanded* rows, so
 the number of targets per step is ``max(1, total_batch // unit)`` with
@@ -32,8 +26,6 @@ import time
 import numpy as np
 import torch
 
-from dismember_tpu_torch.constants import PADDING_IDX
-from dismember_tpu_torch.core.checkpoint import flatten
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.core.metrics import EvalResult, compute_metrics_batch
@@ -43,6 +35,7 @@ from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
 from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train.row_step import RowStepTrainer
 from dismember_tpu_torch.train.sampler import TreeSampler
 
 logger = logging.getLogger("dismember_tpu_torch.tdm")
@@ -95,21 +88,8 @@ def packed_fns(model_type: str):
 MATMUL_FIRST_SCORERS = frozenset({"din"})
 
 
-def _find_adam(state):
-    """(count, mu, nu) of optax's ``ScaleByAdamState``, given as it is or
-    inside a tuple (optax's chain state); None if there is none."""
-    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
-        return state.count, state.mu, state.nu
-    if isinstance(state, (tuple, list)):
-        for s in state:
-            found = _find_adam(s)
-            if found is not None:
-                return found
-    return None
-
-
 @dataclasses.dataclass
-class TDMTrainer:
+class TDMTrainer(RowStepTrainer):
     tree: ArrayTree
     model_type: str = "din"
     embed_size: int = 16
@@ -152,10 +132,10 @@ class TDMTrainer:
         self.num_targets_per_batch = max(1, self.total_batch_size // self.sampler.unit)
         base_num_index = (1 << (self.tree.max_level + 1)) - 1
         if self.sparse_embed_update is not None:
-            self._sparse = self.sparse_embed_update
+            sparse = self.sparse_embed_update
         else:
             touched = self.num_targets_per_batch * (self.sampler.unit + self.seq_len)
-            self._sparse = sparse_adam.sparse_worthwhile(
+            sparse = sparse_adam.sparse_worthwhile(
                 base_num_index, touched, embed_dim=self.embed_size)
         self.model = build_model(
             self.model_type, self.tree.max_level, self.embed_size, self.seq_len,
@@ -163,86 +143,10 @@ class TDMTrainer:
         )
         # pmv mode: the embedding is a MIRROR of the packed p|m|v state,
         # re-materialized by _sync_mirrors at eval/train boundaries
-        self._pmv = False
-        self._mirrors_stale = False
-        self.emb_state = None
-        if self._sparse:
-            if self.sparse_format not in ("auto", "mv", "pmv"):
-                raise ValueError(f"unknown sparse_format {self.sparse_format!r}")
-            packable = sparse_adam.pmv_slots(self.embed_size) > 0
-            self._pmv = packable if self.sparse_format == "auto" else self.sparse_format == "pmv"
-            if self._pmv and not packable:
-                raise ValueError(
-                    f"pmv needs a packable width (3*E <= 128; E={self.embed_size})")
-            table = self.model.embedding.detach()
-            if self._pmv:
-                self.emb_state = sparse_adam.pmv_init(table)
-                self._record_mirror_id()
-            else:
-                self.emb_state = sparse_adam.init_state(table)
-        self.adam = self._adam_init()
+        self._init_optimizer(sparse, self.sparse_format)
         self._gen = torch.Generator(device=self.device)
         self._beam_fn = None
         self._beam_fn_width = None
-
-    # ------------------------------------------------------------------
-    def _named_params(self) -> dict[str, torch.nn.Parameter]:
-        return flatten(self.model.param_tree())
-
-    def _adam_names(self) -> list[str]:
-        """Parameters the trainer's Adam state covers (all but the
-        embedding in the sparse modes, whose rows have their own state)."""
-        return [n for n in self._named_params() if not (self._sparse and n == "embedding")]
-
-    def _adam_init(self) -> dict:
-        p = self._named_params()
-        zeros = lambda: {n: torch.zeros_like(p[n]) for n in self._adam_names()}  # noqa: E731
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
-
-    @property
-    def params(self) -> dict:
-        """The params pytree (the embedding is the mirror in pmv mode)."""
-        return self.model.param_tree()
-
-    def load_numpy(self, params: dict, opt_state=None) -> None:
-        """Take a params pytree and, optionally, an optimizer state, as
-        arrays: the JAX package's ``TDMTrainer.params`` and ``.opt_state``
-        load as they are (``jax.tree.map(np.asarray, ...)``).  The state is
-        optax's Adam chain state (a tuple holding a ``ScaleByAdamState``) in
-        the dense mode, and ``(that, {"pmv" | "mv" | "m", "v", "count"})`` in
-        the sparse modes.  In pmv mode the packed state owns the table, and
-        the embedding is re-read from it."""
-        self.model.load_numpy(params)
-        if opt_state is None:
-            return  # pmv mode adopts the new mirror at the next train()
-        rest = opt_state
-        if self._sparse:
-            rest, emb = opt_state
-            want = {"pmv"} if self._pmv else set(self.emb_state) - {"count"}
-            if set(emb) - {"count"} != want:
-                raise ValueError(f"embedding state has {sorted(emb)}, expected {sorted(want)}")
-            self.emb_state = {
-                k: int(np.asarray(v)) if k == "count" else
-                torch.tensor(np.asarray(v, np.float32), device=self.device)
-                for k, v in emb.items()
-            }
-        found = _find_adam(rest)
-        if found is None:
-            raise ValueError("no Adam state (count, mu, nu) in opt_state")
-        count, mu, nu = found
-        names = self._adam_names()
-        mu, nu = flatten(mu), flatten(nu)
-        conv = lambda a, n: torch.tensor(  # noqa: E731
-            np.asarray(a, np.float32), device=self.device).reshape(self._named_params()[n].shape)
-        self.adam = {"count": int(np.asarray(count)),
-                     "mu": {n: conv(mu[n], n) for n in names},
-                     "nu": {n: conv(nu[n], n) for n in names}}
-        if self._pmv:
-            self._mirrors_stale = True
-            self._sync_mirrors()
-
-    def _codes(self, codes: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(codes, dtype=torch.long, device=self.device)
 
     # ------------------------------------------------------------------
     def sample(self, target_codes: torch.Tensor):
@@ -250,100 +154,8 @@ class TDMTrainer:
         from the trainer's generator."""
         return self.sampler.sample(self._gen, target_codes)
 
-    def step_from_samples(self, seq_codes: torch.Tensor, codes: torch.Tensor,
-                          labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-        """One train step on a sampled batch; returns the loss (a 0-d
-        tensor on the device, before the update)."""
-        b, u = codes.shape
-        l, e = seq_codes.shape[1], self.embed_size
-        flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
-        valid = flat != PADDING_IDX
-        safe = torch.where(valid, flat, 0)
-        if self._pmv:
-            rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
-        else:
-            rows = self.model.embedding.detach()[safe]
-        rows = (rows * valid[:, None].to(rows.dtype)).requires_grad_()
-        params = self._named_params()
-        rest_names = [n for n in params if n != "embedding"]
-        with torch.enable_grad():
-            ctx = DIN.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
-                                       (seq_codes == PADDING_IDX).float())
-            logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
-            loss = bce_with_logits(logits, labels, weights)
-            g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])
-        g_rows = g_rows * valid[:, None].to(g_rows.dtype)
-        grads = dict(zip(rest_names, g_rest))
-        with torch.no_grad():
-            if not self._sparse:
-                grads["embedding"] = self._dense_table_grad(flat, g_rows)
-            self._adam_step(params, grads)
-            lr = self.learning_rate
-            if self._pmv:
-                sparse_adam.pmv_apply_rows(self.emb_state, flat, g_rows, lr)
-                self._mirrors_stale = True
-            elif self._sparse:
-                sparse_adam.apply_rows(self.model.embedding.detach(), self.emb_state,
-                                       flat, g_rows, lr)
-        return loss.detach()
-
     def _train_step(self, target_codes: torch.Tensor, seq_codes: torch.Tensor) -> torch.Tensor:
         return self.step_from_samples(seq_codes, *self.sample(target_codes))
-
-    def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
-        """The [V, E] table gradient: per-occurrence row gradients summed
-        per code in a fixed order (no float atomics), zeros elsewhere."""
-        codes_u, g_sum, live = sparse_adam.dedup_rows(flat, g_rows)
-        grad = torch.zeros_like(self.model.embedding)
-        grad[codes_u[live]] = g_sum[live]
-        return grad
-
-    def _adam_step(self, params: dict, grads: dict) -> None:
-        """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) on ``grads``, in place."""
-        st = self.adam
-        st["count"] += 1
-        for n, g in grads.items():
-            st["mu"][n], st["nu"][n], upd = sparse_adam.adam_update(
-                st["mu"][n], st["nu"][n], g, st["count"], self.learning_rate)
-            params[n].add_(upd)
-
-    # -- pmv mirror management (the JAX package's contract) ---------------
-    def _mirror_key(self) -> tuple[int, int]:
-        # identity and in-place version: a replaced Parameter or a copy into
-        # it (load_numpy) both count as an external assignment
-        emb = self.model.embedding
-        return id(emb), emb._version
-
-    def _record_mirror_id(self) -> None:
-        self._mirror_id = self._mirror_key()
-
-    def _sync_mirrors(self) -> None:
-        """Re-materialize the [V, E] embedding mirror from the packed p|m|v
-        state (no-op outside pmv mode or when already in sync)."""
-        if not self._pmv or not self._mirrors_stale:
-            return
-        v_rows, e = self.model.embedding.shape
-        with torch.no_grad():
-            self.model.embedding.copy_(sparse_adam.pmv_unpack(self.emb_state, v_rows, e))
-        self._mirrors_stale = False
-        self._record_mirror_id()
-
-    def _adopt_mirrors(self) -> None:
-        """Push an externally assigned embedding into the packed state's p
-        lanes, keeping moments.  Called at train() entry.  If the packed
-        state was newer (steps driven without _sync_mirrors), the external
-        values win with a warning."""
-        if not self._pmv or self._mirror_key() == self._mirror_id:
-            return
-        if self._mirrors_stale:
-            logger.warning(
-                "embedding mirror was externally replaced while the packed "
-                "p|m|v state was newer; adopting the external values into the "
-                "packed state (moments kept)."
-            )
-        sparse_adam.pmv_refresh(self.emb_state, self.model.embedding.detach().float())
-        self._mirrors_stale = False
-        self._record_mirror_id()
 
     @torch.inference_mode()
     def _eval_loss_step(self, gen: torch.Generator, target_codes: torch.Tensor,

@@ -21,9 +21,10 @@ launches on the same inputs in the order base, new, new, base:
 Before any timed call, K1 and K3 of each version (and the ``div`` probe's
 K3) must lie within twice their tolerance of the first version's scores,
 and the add must agree with the first version's bit for bit.  Each
-library's ptxas registers and spills of K1 are printed.  With ``--base`` it
-also compares the SASS of the kernels this tree did not redesign (K2
-``write_kernel``, K3 ``packed_level_kernel``) between the two libraries.
+library's ptxas registers and spills of K1 and K3 are printed.  With
+``--base`` it also says whether the SASS of K2 ``write_kernel`` and of K3
+``packed_level_kernel`` (its one-tile instance, where it has two) is
+equal between the two libraries.
 
 ``--probe`` adds variants of this tree's K1 and K3, built with edits of
 their source, to split their time.  K1: ``k1_empty`` (returns at once: the
@@ -93,9 +94,9 @@ PROBES = {
                "  extern __shared__ float4 smem4[];\n  if (B > 0) return;\n  const int lane")],
     "stage_only": [("for (int m0 = 0; m0 < U; m0 += 16) {",
                     "for (int m0 = 0; m0 < 0; m0 += 16) {")],
-    "no_softmax": [("#pragma unroll\n    for (int h = 0; h < 2; ++h) {\n      float mx",
-                    "#pragma unroll\n    for (int h = 0; h < 0; ++h) {\n      float mx")],
-    "no_exp": [("          s = expf(s - mx);", "          s = s - mx;")],
+    "no_softmax": [("#pragma unroll\n      for (int h = 0; h < 2; ++h) {\n        float mx",
+                    "#pragma unroll\n      for (int h = 0; h < 0; ++h) {\n        float mx")],
+    "no_exp": [("            s = expf(s - mx);", "            s = s - mx;")],
     "no_cvt": [("  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
                 "  return *reinterpret_cast<const uint32_t*>(&v);",
                 "  return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);"),
@@ -212,7 +213,9 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
-                                    for k in ("", "ILi16ELi10E", "ILi16ELi0E")}})
+                                    for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
+                 **{f"k3{k}": cs.ptxas_usage(log, f"packed_level_kernel{k}")
+                    for k in ("", "ILb1E", "ILb0E")}})
     libs = {label: load(label) for label in sources}
 
     if args.base:
@@ -220,7 +223,8 @@ def main() -> int:
         pick = lambda fs, *keys: next(v for n, v in fs.items() if any(k in n for k in keys))  # noqa: E731
         # the write: the plain kernel of a parent, write_kernel<false> here
         for name, keys in (("write_kernel", ("write_kernelE", "write_kernelILb0")),
-                           ("packed_level_kernel", ("packed_level_kernel",))):
+                           ("packed_level_kernel", ("packed_level_kernelE",
+                                                    "packed_level_kernelILb1E"))):
             a, b = pick(old, *keys), pick(new, *keys)
             cs.emit({"sass_identical": name, "equal": a == b, "instructions": [len(a), len(b)]})
 

@@ -201,8 +201,10 @@ def test_cli_needs_cuda_unless_cpu_is_asked(small_csv, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli(["tdm-initialize-tree", "--conf", conf])
-    with pytest.raises(SystemExit):  # the OTM and DR commands are not ported
-        cli(["otm-train-deep-model", "--conf", conf, "--device", "cpu"])
+    with pytest.raises(SystemExit):  # the DR commands are not ported
+        cli(["dr-train-deep-model", "--conf", conf, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli(["otm-train-deep-model", "--conf", conf])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pack_exists_rows(np.ones(5, bool))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
