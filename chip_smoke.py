@@ -74,6 +74,21 @@ Phases, one JSON line each; any failed check raises and fails the run:
      batches, the packed state against a rerun with K2's plain version,
      then ``batch_beam_search`` of 4096 windows (16 K3 levels) timed and
      once more with every K3 call audited;
+  dr_example: the port's Deep Retrieval CLI in process from a copy of
+     configs/deep-retrieval.conf (``model.epoch_num`` cut to 1):
+     dr-train-deep-model -> dr-coordinate-descent -> dr-train-deep-model
+     under the learned mapping -> ``DRServing.load`` and 4096 windows on the
+     exact (auto), packed and block routes, each top-10 equal to the host
+     route's but for score or beam near ties; ``evaluate``; then dense and
+     pmv trainers on one repeated batch (losses and params within the
+     dense tolerances, the first pmv E-step's three K2 calls audited) and
+     timed E-steps of each route; the CLI path (dense) launches no kernel;
+  dr_deep: bench.py's DR cells: 1M items served on the block route (auto),
+     ms a 4096-window call and the top-10 overlap with the exact route on
+     256 queries; the E-step at 10M items (auto route pmv, three K2
+     launches a step, the first step's calls audited), 2 warm-up and 10
+     timed steps, the mirror sync, then K2 on that step's three commits
+     against its plain version and timed beside ``index_copy_``;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
 
@@ -102,7 +117,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from dismember_tpu_torch.cli.main import main as cli_main  # noqa: E402
-from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree, save_pytree  # noqa: E402
+from dismember_tpu_torch.core.checkpoint import (  # noqa: E402
+    flatten,
+    load_meta,
+    load_pytree,
+    save_pytree,
+)
+from dismember_tpu_torch.data.dr_dataset import DRData  # noqa: E402
 from dismember_tpu_torch.data.ingest import (  # noqa: E402
     read_csv,
     unique_items_with_category,
@@ -116,6 +137,7 @@ from dismember_tpu_torch.data.tdm_dataset import (  # noqa: E402
 from dismember_tpu_torch.index import cluster  # noqa: E402
 from dismember_tpu_torch.index.arraytree import ArrayTree  # noqa: E402
 from dismember_tpu_torch.index.cluster import read_embeddings_csv, tree_cluster  # noqa: E402
+from dismember_tpu_torch.index.paths import PathIndex  # noqa: E402
 from dismember_tpu_torch.index.tree_io import (  # noqa: E402
     build_tree,
     category_sorted_codes,
@@ -124,6 +146,8 @@ from dismember_tpu_torch.index.tree_io import (  # noqa: E402
 )
 from dismember_tpu_torch.models import din as din_model  # noqa: E402
 from dismember_tpu_torch.models.din import DIN, params_from_numpy  # noqa: E402
+from dismember_tpu_torch.models import dr_models  # noqa: E402
+from dismember_tpu_torch.models.dr_models import rerank_user_vector  # noqa: E402
 from dismember_tpu_torch.models.embedding import embed_lookup  # noqa: E402
 from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel, row_writer  # noqa: E402
 from dismember_tpu_torch.ops.din_kernel import din_score, din_score_plain  # noqa: E402
@@ -137,14 +161,17 @@ from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
     make_packed_beam_fn,
     make_packed_tree,
 )
+from dismember_tpu_torch.retrieval.dr_serve import make_dr_serving_fn  # noqa: E402
+from dismember_tpu_torch.retrieval.path_beam import path_beam_search  # noqa: E402
 from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
     filter_topk,
     make_beam_fn,
     make_config,
 )
-from dismember_tpu_torch.serving import OTMServing, TDMServing  # noqa: E402
+from dismember_tpu_torch.serving import DRServing, OTMServing, TDMServing  # noqa: E402
 from dismember_tpu_torch.train import otm as otm_train  # noqa: E402
 from dismember_tpu_torch.train import sparse_adam  # noqa: E402
+from dismember_tpu_torch.train.dr import DRTrainer  # noqa: E402
 from dismember_tpu_torch.train.jtm import TreeLearner  # noqa: E402
 from dismember_tpu_torch.train.otm import OTMTrainer  # noqa: E402
 from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns  # noqa: E402
@@ -200,6 +227,30 @@ OTM_EPOCHS = 1
 # the otm_deep phase (scripts/bench_otm_deep.py's shapes): rows a batch,
 # timed batches after one warm-up, labels a row
 OTM_DEEP_BATCH, OTM_DEEP_BATCHES, OTM_LABELS = 256, 20, 5
+# configs/deep-retrieval.conf's trainer settings; the dr_example phase runs
+# the file as it is but for model.epoch_num, cut to DR_EPOCHS (5 in the file)
+DR_CONF = dict(num_layers=3, num_nodes=100, num_paths_per_item=2, embed_size=E,
+               learning_rate=3e-3, train_batch_size=8192, eval_batch_size=8192, num_sampled=1,
+               topk=TOPK, beam_size=BEAM, seq_len=SEQ_LEN)
+DR_EPOCHS = 1
+# dr_example's pmv trainer: steps on one repeated batch (where lazy and dense
+# Adam agree), then timed batches of the pmv and dense routes
+DR_PMV_STEPS, DR_TIMED_BATCHES = 3, 10
+# A served top-10 may differ from the host route's only on near ties: every
+# item of the difference scores (in f32, on the host) within
+# NEAR_TIE[route] * (|w|.|u| + |b|) of the host list's last score, for both
+# items; bf16 rounds each operand by at most 2^-9, so 2^-7 holds the routes
+# that round w, b and u.  The block route also takes its beam from bf16
+# sequence embeddings, so a window may also differ by a beam near tie
+# (dr_block_beam_ties).
+NEAR_TIE = {"exact": 2.0**-20, "packed": 2.0**-7, "block": 2.0**-7}
+# the dr_deep phase: bench.py's DR configuration (bench.py:253-330), the
+# serving catalog, the E-step catalog, negatives a row, the E-step's untimed
+# and timed steps, the queries of the block-against-exact agreement and its
+# least share
+DR_SERVE_ITEMS, DR_TRAIN_ITEMS, DR_SAMPLED = 1_000_000, 10_000_000, 8
+DR_WARMUP_STEPS, DR_TIMED_STEPS, DR_SERVE_CALLS = 2, 10, 10
+DR_AGREE_QUERIES, DR_MIN_AGREEMENT = 256, 0.95
 # K3 past the serving shape: (batch, beam, L, timed).  Beams 65-128 pass the
 # 48 KB of staging a block had before the opt-in; 110 is the example
 # catalog's widest recommend ((210 consumed + topk) // 2); 1,500 passes one
@@ -1558,6 +1609,415 @@ def otm_deep(dev) -> dict:
                         "k3_launches": k3, "k3_vs_plain": k3_audit}}
 
 
+# ---------------------------------------------------------------- Deep Retrieval
+def dr_dir() -> Path:
+    """A fresh working directory holding configs/deep-retrieval.conf
+    (``model.epoch_num`` cut to DR_EPOCHS) and the example data at the
+    conf's ``data/`` paths."""
+    wd = OUT / "dr"
+    shutil.rmtree(wd, ignore_errors=True)
+    (wd / "data").mkdir(parents=True)
+    shutil.copy(ROOT / "data" / "example_data.csv", wd / "data")
+    lines = (ROOT / "configs" / "deep-retrieval.conf").read_text().splitlines(keepends=True)
+    cut = [f"model.epoch_num                 {DR_EPOCHS}\n"
+           if ln.startswith("model.epoch_num") else ln for ln in lines]
+    check(cut != lines, "deep-retrieval.conf: no model.epoch_num to cut")
+    (wd / "dr.conf").write_text("".join(cut))
+    return wd
+
+
+@contextlib.contextmanager
+def writes_audited():
+    """Within the block, every ``row_writer.write_rows`` call runs K2 in
+    place and is held bit for bit against ``write_rows_plain`` on a copy of
+    the same table; yields the calls (table, and copies of the indices and
+    rows), for timing them afterwards."""
+    saved = row_writer.write_rows
+    calls = []
+
+    def audited(table, idx, rows):
+        ref = row_writer.write_rows_plain(table.clone(), idx, rows)
+        saved(table, idx, rows)
+        check(torch.equal(bits(table), bits(ref)),
+              f"write_rows: K2 differs from its plain version at {tuple(table.shape)}")
+        del ref
+        calls.append({"table": table, "idx": idx.clone(), "rows": rows.clone()})
+        return table
+
+    row_writer.write_rows = audited
+    try:
+        yield calls
+    finally:
+        row_writer.write_rows = saved
+
+
+@torch.no_grad()
+def dr_block_beam_ties(tr: DRTrainer, fn, seqs: np.ndarray) -> np.ndarray:
+    """[B] bool: the block route's beam (its sequence side from the bf16
+    pack) first departs from the f32 beam at a near tie.  bf16 moves layer
+    d's sequence logits by at most eps_d = 2^-8 * max_k |seq| . |W_d[k]|
+    and a depth-t prefix's log-probability by at most 2 * sum_{d<t} eps_d,
+    so at the first depth where the kept prefixes differ, every prefix in
+    the difference must lie within twice that of the f32 beam's last."""
+    lp, n, k = tr.layer_params, tr.data.num_items, tr.num_nodes
+    q = tr._ids(seqs)
+    b, le = q.shape[0], q.shape[1] * tr.embed_size
+    seq_abs = embed_lookup(lp["embedding"], q).reshape(b, le).abs()
+    eps = [2.0**-8 * (seq_abs @ h["weight"][:, :le].abs().T).max(-1).values
+           for h in lp["heads"]]
+    packed = (fn._seq_pack[q.clamp_min(0)].float() * (q >= 0)[:, :, None])[:, :, : tr.embed_size]
+    parts = [packed.reshape(b, le) @ h["weight"][:, :le].T for h in lp["heads"]]
+
+    def logp(paths):  # f32 log-probabilities of prefixes [B, W, t]
+        t = paths.shape[2]
+        logits = dr_models.layer_forward_training(
+            {"embedding": lp["embedding"], "heads": lp["heads"][:t]}, q, paths, n, k)
+        return sum(torch.log_softmax(lg, -1).gather(-1, paths[:, :, d : d + 1])[..., 0]
+                   for d, lg in enumerate(logits))
+
+    decided = np.zeros(b, bool)
+    out = np.zeros(b, bool)
+    for t in range(1, tr.num_layers + 1):
+        f32 = path_beam_search(lp, q, tr.beam, n, k, t)[0]
+        bf = path_beam_search(lp, q, tr.beam, n, k, t, seq_parts=parts[:t])[0]
+        lf, lb = logp(f32), logp(bf)
+        reach = (4 * sum(eps[:t]))[:, None]
+        last = lf.min(-1).values[:, None]
+        near_f = ((lf - last).abs() <= reach).cpu().numpy()
+        near_b = ((lb - last).abs() <= reach).cpu().numpy()
+        f32, bf = f32.cpu().numpy(), bf.cpu().numpy()
+        for i in np.flatnonzero(~decided):
+            a, c = {tuple(x) for x in f32[i]}, {tuple(x) for x in bf[i]}
+            if a == c:
+                continue
+            decided[i] = True
+            out[i] = (all(near_f[i][j] for j, x in enumerate(f32[i]) if tuple(x) not in c)
+                      and all(near_b[i][j] for j, x in enumerate(bf[i]) if tuple(x) not in a))
+    return out
+
+
+@torch.no_grad()
+def dr_route_vs_host(ids: np.ndarray, host: list, tr: DRTrainer, seqs: np.ndarray,
+                     rel: float, beam_ties: np.ndarray | None = None) -> dict:
+    """A served route's top-10 lists against the host route's: windows that
+    differ, those whose difference is a near tie (see NEAR_TIE; for the
+    block route, whose ``beam_ties`` are given, widened by its bf16 user
+    vector's reach) or comes from a beam near tie, the rest, and the mean
+    overlap."""
+    rp = tr.rerank_params
+    q = tr._ids(seqs)
+    uv = rerank_user_vector(rp, q).cpu().numpy()
+    sw, sb = rp["softmax_w"].cpu().numpy(), rp["softmax_b"].cpu().numpy()
+    # the block route's user vector comes from bf16 item embeddings: each
+    # of its lanes moves by at most 2^-8 * |W| . |x|
+    du = np.zeros_like(uv)
+    if beam_ties is not None:
+        x = embed_lookup(rp["embedding"], q).reshape(len(seqs), -1).abs()
+        du = (2.0**-8 * x @ rp["linear"]["weight"].abs().T).cpu().numpy()
+    differ = near = beam_near = 0
+    overlap = 0.0
+    for i, want in enumerate(host):
+        got = ids[i][ids[i] >= 0]
+        overlap += len(set(got.tolist()) & set(want.tolist())) / max(len(want), 1)
+        if set(got.tolist()) == set(want.tolist()):
+            continue
+        differ += 1
+        score = lambda x: float(sw[x] @ uv[i] + sb[x])  # noqa: E731
+        tol = lambda x: (rel * (float(np.abs(sw[x]) @ np.abs(uv[i])) + abs(float(sb[x])))  # noqa: E731
+                         + float(np.abs(sw[x]) @ du[i]))
+        last = want[-1]
+        if all(abs(score(x) - score(last)) <= tol(x) + tol(last)
+               for x in set(got.tolist()) ^ set(want.tolist())):
+            near += 1
+        elif beam_ties is not None and beam_ties[i]:
+            beam_near += 1
+    return {"windows": len(host), "differ": differ, "score_near_ties": near,
+            "beam_near_ties": beam_near, "other": differ - near - beam_near,
+            "overlap": overlap / len(host)}
+
+
+def dr_estep_batch(tr: DRTrainer, seqs: np.ndarray, targets: np.ndarray):
+    """(seqs, paths, labels) of one E-step batch on the trainer's device."""
+    return tr._ids(seqs), tr._ids(tr.path_index.item_paths[targets]), tr._ids(targets)
+
+
+def dr_routes_one_batch(dev, data, path_index) -> dict:
+    """Dense and pmv trainers from one seed take DR_PMV_STEPS E-steps on
+    one batch with the same negatives (lazy and dense Adam agree there);
+    losses and params within tests/test_tdm_train.py:178's tolerances, the
+    first pmv step's three K2 calls audited.  Then DR_TIMED_BATCHES timed
+    E-steps of each route on the following batches."""
+    make = lambda **kw: DRTrainer(data, path_index=path_index, seed=SEED, device=dev,  # noqa: E731
+                                  **DR_CONF, **kw)
+    dense, pmv = make(sparse_embed_update=False), make(sparse_embed_update=True)
+    check(pmv._pmv and not dense._sparse, "the DR routes did not resolve to dense and pmv")
+    b = pmv.num_targets_per_batch
+    seqs, paths, labels = dr_estep_batch(pmv, data.train_seqs[:b], data.train_targets[:b])
+    negs = pmv.sample_negatives(labels)
+    loss_gap = 0.0
+    for step in range(DR_PMV_STEPS):
+        with writes_audited() if step == 0 else contextlib.nullcontext([]) as audit:
+            lp, rp = pmv._estep_fused(seqs, paths, labels, negs)
+        if step == 0:
+            calls = audit
+        ld, rd = dense._estep_fused(seqs, paths, labels, negs)
+        loss_gap = max(loss_gap, ((lp - ld).abs() / ld.abs()).max().item(),
+                       abs(rp.item() - rd.item()) / abs(rd.item()))
+    pmv._sync_mirrors()
+    gap = 0.0
+    for a, r in ((pmv.layer_params, dense.layer_params), (pmv.rerank_params, dense.rerank_params)):
+        ref = flatten(r)
+        for n, t in flatten(a).items():
+            gap = max(gap, ((t - ref[n]).abs() / (PARAM_ATOL + PARAM_RTOL * ref[n].abs()))
+                      .max().item())
+    check(len(calls) == 3, f"one pmv E-step made {len(calls)} K2 calls, not 3")
+    check(loss_gap <= LOSS_RTOL and gap <= 1.0,
+          f"dense/pmv E-steps disagree: loss {loss_gap}, params {gap}")
+    ms = {}
+    for name, tr in (("pmv", pmv), ("dense", dense)):
+        batches = [dr_estep_batch(tr, data.train_seqs[i * b : (i + 1) * b],
+                                  data.train_targets[i * b : (i + 1) * b])
+                   for i in range(1, DR_TIMED_BATCHES + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s, p, lab in batches:
+            tr._estep_fused(s, p, lab, tr.sample_negatives(lab))
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / DR_TIMED_BATCHES * 1e3
+    return {"steps_on_one_batch": DR_PMV_STEPS, "max_loss_rel_diff": loss_gap,
+            "param_gap": gap, "audited_k2_calls": [[list(c["table"].shape), len(c["idx"])]
+                                                   for c in calls],
+            "targets_per_batch": b, "timed_batches": DR_TIMED_BATCHES,
+            "ms_per_batch": ms}
+
+
+def dr_example(dev) -> dict:
+    """The port's DR CLI in process on the example catalog, from a copy of
+    configs/deep-retrieval.conf: dr-train-deep-model (random mapping) ->
+    dr-coordinate-descent -> dr-train-deep-model under the learned mapping
+    -> DRServing.load and 4096 windows on each serving route (exact, the
+    auto route here, packed and block) against the host route; then the
+    pmv route on the same data (K2, three launches an E-step).  The caller
+    zeroes and reads the launch counts around it: the CLI path (dense at
+    3,325 items) launches no kernel, the pmv steps launch K2."""
+    wd = dr_dir()
+    stages: dict[str, float] = {}
+
+    def run(stage: str, command: str) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli_main([command, "--conf", "dr.conf"]) == 0, f"{command} failed")
+        torch.cuda.synchronize()
+        stages[stage] = time.perf_counter() - t0
+
+    with contextlib.chdir(wd):
+        run("dr-train-deep-model", "dr-train-deep-model")
+        first, ids = PathIndex.read("data/dr_mapping.bin", DR_CONF["num_nodes"])
+        run("dr-coordinate-descent", "dr-coordinate-descent")
+        learned, ids2 = PathIndex.read("data/dr_mapping.bin", DR_CONF["num_nodes"])
+        ip = learned.item_paths
+        check(ids2 == ids and ip.shape == first.item_paths.shape
+              and bool(((ip >= 0) & (ip < DR_CONF["num_nodes"])).all()),
+              "coordinate descent did not give a J-path mapping of every item")
+        conf = Path("dr.conf").read_text()
+        off = conf.replace("model.initialize_mapping        true",
+                           "model.initialize_mapping        false")
+        check(off != conf, "dr.conf: no model.initialize_mapping to turn off")
+        Path("dr.conf").write_text(off)
+        run("dr-train-deep-model (learned mapping)", "dr-train-deep-model")
+        check(np.array_equal(PathIndex.read("data/dr_mapping.bin",
+                                            DR_CONF["num_nodes"])[0].item_paths, ip),
+              "the retrain moved the mapping")
+        t0 = time.perf_counter()
+        serv = DRServing.load("data/dr_model.bin", "data/dr_mapping.bin",
+                              "data/example_data.csv", device=dev)
+        stages["DRServing.load"] = time.perf_counter() - t0
+    tr = serv._trainer
+    d = tr.data
+    windows = np.concatenate([d.eval_seqs, d.train_seqs])[:BATCH]
+    t0 = time.perf_counter()
+    host = tr.recommend_batch(windows, path_to_items=serv._p2i)
+    host_s = time.perf_counter() - t0
+    routes = {}
+    for route in ("exact", "packed", "block"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn = (serv.device_serving_fn(topk=TOPK) if route == "exact" else
+              make_dr_serving_fn(tr, topk=TOPK, rerank_table=route))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(fn.route == route, f"{route}: the closure took the {fn.route} route")
+        q = tr._ids(windows)
+        fn(tr.layer_params, tr.rerank_params, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, scores = fn(tr.layer_params, tr.rerank_params, q)
+        got = got.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got.shape == (BATCH, TOPK) and bool(np.isfinite(scores.cpu().numpy()).all()),
+              f"{route}: lists of the wrong shape or scores not finite")
+        check(all(len(np.unique(r[r >= 0])) == (r >= 0).sum() for r in got),
+              f"{route}: a list repeats an item")
+        ties = dr_block_beam_ties(tr, fn, windows) if route == "block" else None
+        vs = dr_route_vs_host(got, host, tr, windows, NEAR_TIE[route], ties)
+        routes[route] = {"build_s": build_s, "ms_per_batch": ms, "vs_host": vs}
+        check(vs["other"] == 0, f"{route}: top-10 differs from the host route: {vs}")
+    ev = tr.evaluate()
+    check(all(0.0 <= getattr(ev, k) <= 1.0 for k in ("precision", "recall", "ndcg"))
+          and np.isfinite(ev.rerank_loss), f"evaluate: {ev}")
+    pmv_facts = dr_routes_one_batch(dev, d, tr.path_index)
+    return {"cut": f"model.epoch_num {DR_EPOCHS} in deep-retrieval.conf (5 in the file); "
+                   "nothing else changed",
+            "items": d.num_items, "train_windows": int(len(d.train_seqs)),
+            "eval_windows": int(len(d.eval_seqs)), "auto_route": "dense",
+            "stage_seconds": stages, "total_seconds": sum(stages.values()),
+            "items_moved_by_cd": int((first.item_paths != ip).any(axis=(1, 2)).sum()),
+            "serving": {"windows": BATCH, "host_route_s": host_s, **routes},
+            "eval": {"layer_loss": ev.layer_loss, "rerank_loss": ev.rerank_loss,
+                     "precision@10": ev.precision, "recall@10": ev.recall,
+                     "ndcg@10": ev.ndcg},
+            "pmv": pmv_facts}
+
+
+@torch.no_grad()
+def dr_o1_params(tr: DRTrainer, seed: int) -> None:
+    """Replace the trainer's init (N(0, 0.05)) by seeded O(1)-scale
+    weights: embeddings N(0, EMB_STD), the rest N(0, W_STD), so beams and
+    top-k lists are far from ties."""
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    for tree in (tr.layer_params, tr.rerank_params):
+        for name, t in flatten(tree).items():
+            std = EMB_STD if name == "embedding" else W_STD
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device) * std)
+
+
+def dr_data(n_items: int, rows: int, rng: np.random.Generator) -> DRData:
+    """bench.py's synthetic DR catalog: uniform windows and targets."""
+    return DRData(item_to_id={}, id_to_item={}, num_items=n_items,
+                  train_seqs=rng.integers(0, n_items, size=(rows, SEQ_LEN)),
+                  train_targets=rng.integers(0, n_items, size=rows),
+                  eval_seqs=np.empty((0, SEQ_LEN), np.int64),
+                  eval_labels=np.empty((0, 1), np.int64), eval_users=np.empty(0, np.int64),
+                  user_consumed={})
+
+
+def dr_deep(dev) -> dict:
+    """bench.py's DR cells: serving at DR_SERVE_ITEMS items (auto route:
+    block), ms of a 4096-window call on the host clock and the block route
+    against the exact route on DR_AGREE_QUERIES queries; the E-step at
+    DR_TRAIN_ITEMS items (auto route: pmv, three K2 launches a step), the
+    first step's K2 calls audited, ms a step, then the mirror sync.  The
+    caller zeroes and reads the launch counts around it.  Returns the facts
+    and the audited K2 calls of one E-step (for the kernel table)."""
+    rng = np.random.default_rng(SEED + 9)
+    shape = {k: DR_CONF[k] for k in ("num_layers", "num_nodes", "num_paths_per_item",
+                                     "embed_size", "seq_len", "topk", "beam_size")}
+    t0 = time.perf_counter()
+    tr = DRTrainer(dr_data(DR_SERVE_ITEMS, BATCH, rng), train_batch_size=2 * BATCH,
+                   num_sampled=DR_SAMPLED, seed=SEED, device=dev, **shape)
+    dr_o1_params(tr, SEED + 10)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = make_dr_serving_fn(tr, beam=BEAM, topk=TOPK)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    check(fn.route == "block", f"1M DR serving: the auto route is {fn.route}, not block")
+    q = tr._ids(tr.data.train_seqs)
+    lp, rp = tr.layer_params, tr.rerank_params
+    ids, _ = fn(lp, rp, q)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DR_SERVE_CALLS):
+        ids, scores = fn(lp, rp, q)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+    # a list is short when the beam's paths hold fewer than 10 items (a
+    # path is empty with probability e^-2 at 2M assignments over 1M paths)
+    check(bool(((ids >= -1) & (ids < DR_SERVE_ITEMS)).all())
+          and all(len(np.unique(r[r >= 0])) == (r >= 0).sum() for r in ids)
+          and bool(np.isfinite(scores[ids >= 0]).all()) and (ids >= 0).any(1).all(),
+          "1M DR serving: a list repeats an item, holds a non-item or is empty")
+    exact = make_dr_serving_fn(tr, beam=BEAM, topk=TOPK, rerank_table="exact")
+    ref = exact(lp, rp, q[:DR_AGREE_QUERIES])[0].cpu().numpy()
+    agree = float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max((b >= 0).sum(), 1)
+                           for a, b in zip(ids[:DR_AGREE_QUERIES], ref)]))
+    check(agree >= DR_MIN_AGREEMENT, f"1M DR serving: block agrees with exact on {agree}")
+    serving = {"items": DR_SERVE_ITEMS, "route": "block", "geometry": list(fn._geometry),
+               "paths": int(fn._dmap.path_items.shape[0]),
+               "items_per_path": int(fn._dmap.path_items.shape[1]),
+               "block_table_gb": fn._block_tab.numel() * 2 / 1e9,
+               "trainer_setup_s": trainer_s, "path_map_and_tables_s": tables_s,
+               "windows": BATCH, "calls": DR_SERVE_CALLS,
+               "ms_per_batch": serve_s / DR_SERVE_CALLS * 1e3,
+               "qps": BATCH * DR_SERVE_CALLS / serve_s,
+               "short_lists": int((ids < 0).any(1).sum()),
+               "block_vs_exact_top10_overlap": agree, "agreement_queries": DR_AGREE_QUERIES}
+    del tr, fn, exact, q, lp, rp
+
+    steps = DR_WARMUP_STEPS + DR_TIMED_STEPS
+    t0 = time.perf_counter()
+    data = dr_data(DR_TRAIN_ITEMS, BATCH * steps, rng)
+    tr = DRTrainer(data, train_batch_size=2 * BATCH, num_sampled=DR_SAMPLED, seed=SEED,
+                   device=dev, **shape)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(tr._pmv, "10M DR E-step: the auto route is not pmv")
+    batches = [dr_estep_batch(tr, data.train_seqs[i * BATCH : (i + 1) * BATCH],
+                              data.train_targets[i * BATCH : (i + 1) * BATCH])
+               for i in range(steps)]
+    k2 = row_writer.launches["write_rows"]
+    with writes_audited() as calls:
+        s, p, lab = batches[0]
+        tr._estep_fused(s, p, lab, tr.sample_negatives(lab))
+    check(len(calls) == 3, f"10M DR E-step: {len(calls)} K2 calls in one step")
+    for s, p, lab in batches[1:DR_WARMUP_STEPS]:
+        tr._estep_fused(s, p, lab, tr.sample_negatives(lab))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s, p, lab in batches[DR_WARMUP_STEPS:]:
+        losses, rloss = tr._estep_fused(s, p, lab, tr.sample_negatives(lab))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == 3 * steps, f"10M DR E-step: {k2} K2 launches in {steps} steps, not 3 a step")
+    check(bool(torch.isfinite(losses).all()) and bool(torch.isfinite(rloss)),
+          "10M DR E-step losses are not finite")
+    t0 = time.perf_counter()
+    tr._sync_mirrors()
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(tr.rerank_params["softmax_w"]).all()), "10M DR mirrors")
+    states = {"layer_embedding": tr.layer_opt_state[1], "rerank_embedding": tr.rerank_opt_state[1],
+              "softmax_wb": tr.rerank_opt_state[2]}
+    estep = {"items": DR_TRAIN_ITEMS, "route": "pmv", "num_sampled": DR_SAMPLED,
+             "targets_per_step": BATCH, "expanded_rows_per_step": 2 * BATCH,
+             "pmv_states": {k: list(v["pmv"].shape) for k, v in states.items()},
+             "pmv_states_gb": sum(v["pmv"].numel() for v in states.values()) * 4 / 1e9,
+             "setup_s": setup_s, "warmup_steps": DR_WARMUP_STEPS,
+             "timed_steps": DR_TIMED_STEPS, "ms_per_step": elapsed / DR_TIMED_STEPS * 1e3,
+             "expanded_rows_per_s": 2 * BATCH * DR_TIMED_STEPS / elapsed,
+             "k2_launches": k2, "k2_launches_per_step": k2 // steps,
+             "audited_k2_calls": [[list(c["table"].shape), len(c["idx"])] for c in calls],
+             "final_losses": [*losses.tolist(), rloss.item()], "mirror_sync_s": sync_s}
+    return {"serving_1m": serving, "estep_10m": estep}, (tr, calls)
+
+
+def dr_commits(estep) -> dict:
+    """K2 on the 10M E-step's three commits of one step (layer embedding,
+    rerank embedding, w|b), against its plain version and timed, beside
+    ``index_copy_``, after a 256 MB flush each."""
+    tr, calls = estep
+    flush = torch.empty(64 << 20, device=tr.device)
+    names = ("layer_embedding", "rerank_embedding", "softmax_wb")
+    with uncounted():
+        out = {n: row_case("write_rows", c["table"], c["idx"], c["rows"], flush)
+               for n, c in zip(names, calls)}
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -1749,6 +2209,27 @@ def main() -> int:
     for name in launches:
         launches[name] += facts_oe["launches"][name] + facts_od["launches"][name]
 
+    # ---- Deep Retrieval through the CLI on the example catalog, and
+    # bench.py's 1M serving and 10M E-step cells: launch counts zeroed just
+    # before each, read just after
+    zero_launches()
+    facts_dre = dr_example(dev)
+    facts_dre["launches"] = read_launches()
+    check(facts_dre["launches"]["write_rows"] == 3 * (DR_PMV_STEPS + DR_TIMED_BATCHES),
+          f"dr_example: {facts_dre['launches']}, not 3 K2 launches a pmv E-step")
+    emit({"phase": "dr_example", **facts_dre})
+    zero_launches()
+    facts_drd, estep = dr_deep(dev)
+    facts_drd["launches"] = read_launches()
+    check(facts_drd["launches"]["write_rows"] == 3 * (DR_WARMUP_STEPS + DR_TIMED_STEPS),
+          f"dr_deep: {facts_drd['launches']}, not 3 K2 launches an E-step")
+    facts_drd["estep_10m"]["k2_commits"] = dr_commits(estep)
+    del estep
+    emit({"phase": "dr_deep", **facts_drd})
+    for name in launches:
+        launches[name] += facts_dre["launches"][name] + facts_drd["launches"][name]
+    dr_k2 = facts_drd["estep_10m"]["k2_commits"]
+
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
            "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
@@ -1780,7 +2261,9 @@ def main() -> int:
                                 facts4["heavy_user"]["vs_plain"]["max_abs_err"],
                                 facts_oe["eval"]["k3_vs_plain"]["max_abs_err"],
                                 facts_od["serving"]["k3_vs_plain"]["max_abs_err"]),
-            "write_rows": row_errors(rk, "write"), "add_rows": row_errors(rk, "add")}
+            "write_rows": max(row_errors(rk, "write"),
+                              *(c["max_abs_err"] for c in dr_k2.values())),
+            "add_rows": row_errors(rk, "add")}
     summary = []
     for name, k in timed.items():
         check(launches[name] > 0, f"{name} never launched on the main path")
@@ -1797,6 +2280,11 @@ def main() -> int:
                 "sweep_plain_ms": k["sweep"]["plain_ms"],
                 "sweep_bound_ms": k["sweep"]["bound_ms"], "sweep_shape": k["sweep"]["shape"]}
                if name == "din_score" else {}),
+            # K2 also at the 10M DR E-step's three commits
+            **({"dr_estep_10m_commits": {
+                n: {key: c[key] for key in ("table", "rows", "rows_written", "ms", "plain_ms",
+                                            "library_ms", "bound_ms", "bound_by")}
+                for n, c in dr_k2.items()}} if name == "write_rows" else {}),
             # K3 also at beam 110 (the example catalog's widest recommend)
             # and at L = 24 (two sequence tiles)
             **({f"{case}_{key}": k["wide"][case][key] for case in ("beam110_l10", "beam20_l24")

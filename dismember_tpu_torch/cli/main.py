@@ -1,15 +1,14 @@
-"""CLI entry points: the reference's TDM, JTM and OTM commands.
+"""CLI entry points: the reference's TDM, JTM, OTM and Deep Retrieval commands.
 
-Port of the ``tdm-*``, ``jtm-*`` and ``otm-*`` commands of
+Port of the ``tdm-*``, ``jtm-*``, ``otm-*`` and ``dr-*`` commands of
 ``dismember_tpu/cli/main.py``
 (examples/ in the reference, SURVEY.md §2.6): same command names, same conf
-keys (``--conf``; the reference's ``--tdmConfFile``/``--jtmConfFile`` are
-also accepted), same stage files, and the post-train recommend smoke test +
+keys (``--conf``; the reference's ``--tdmConfFile``/``--jtmConfFile``/
+``--otmConfFile``/``--drConfFile`` are also accepted), same stage files, and the post-train recommend smoke test +
 latency loop (examples/.../tdm/package.scala:115-126).  Conf paths resolve
 against the working directory, as the reference's project-root-relative
 ``data/...`` paths expect.  Every command runs on ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions).  The ``dr-*``
-commands are not ported yet.
+``cuda``; ``cpu`` runs the kernels' plain versions).
 
 Usage:  python -m dismember_tpu_torch.cli <command> --conf <file> [--device cpu] [--quiet]
 """
@@ -29,11 +28,15 @@ from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree, save_pyt
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.data import tdm_dataset as tds
+from dismember_tpu_torch.data.dr_dataset import build_dr_data
 from dismember_tpu_torch.data.ingest import unique_items_with_category
 from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping, save_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.cluster import cluster_tree_from_embeddings
+from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.index.tree_io import category_sorted_codes, write_tree
+from dismember_tpu_torch.train.dr import DRTrainer
+from dismember_tpu_torch.train.dr_coordinate import coordinate_descent
 from dismember_tpu_torch.train.jtm import TreeLearner, otm_tree_learner, write_projection_tree
 from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import TDMTrainer, build_model
@@ -278,6 +281,89 @@ def otm_construct(args):
 
 
 # ---------------------------------------------------------------------------
+# Deep Retrieval
+# ---------------------------------------------------------------------------
+
+
+@command("dr-train-deep-model")
+def dr_train(args):
+    p = cfg.DRModelParams.from_conf(cfg.read_conf(args.conf, "model"), _conf_base(args.conf))
+    if p.initialize_mapping:
+        data = build_dr_data(p.data_path, p.seq_len, p.min_seq_len, p.split_ratio)
+        path_index = None
+    else:
+        path_index, item_to_id = PathIndex.read(p.mapping_path, p.num_node)
+        data = build_dr_data(p.data_path, p.seq_len, p.min_seq_len, p.split_ratio, item_to_id)
+    trainer = DRTrainer(
+        data,
+        num_layers=p.num_layer,
+        num_nodes=p.num_node,
+        num_paths_per_item=p.num_path_per_item,
+        embed_size=p.embed_size,
+        learning_rate=p.learning_rate,
+        train_batch_size=p.train_batch_size,
+        eval_batch_size=p.eval_batch_size,
+        num_sampled=p.num_sampled,
+        topk=p.topk_number,
+        beam_size=p.beam_size,
+        seq_len=p.seq_len,
+        path_index=path_index,
+        device=args.device,
+    )
+    trainer.train(p.epoch_num, progress_interval=p.show_progress_interval)
+    save_pytree(
+        p.model_path + ".layer",
+        trainer.layer_params,
+        meta={
+            "num_layer": p.num_layer,
+            "num_node": p.num_node,
+            "embed_size": p.embed_size,
+            "seq_len": p.seq_len,
+            "num_items": data.num_items,
+        },
+    )
+    save_pytree(p.model_path + ".rerank", trainer.rerank_params)
+    if p.initialize_mapping:
+        trainer.path_index.write(p.mapping_path, data.item_to_id)
+
+
+@command("dr-coordinate-descent")
+def dr_cd(args):
+    p = cfg.DRCoordinateParams.from_conf(cfg.read_conf(args.conf, "cd"), _conf_base(args.conf))
+    path_index, item_to_id = PathIndex.read(p.mapping_path, p.num_node)
+    data = build_dr_data(p.data_path, p.seq_len, p.min_seq_len, p.split_ratio, item_to_id)
+    meta = load_meta(p.model_path + ".layer")
+    trainer = DRTrainer(
+        data,
+        num_layers=p.num_layer,
+        num_nodes=p.num_node,
+        num_paths_per_item=p.num_path_per_item,
+        embed_size=meta["embed_size"],
+        train_batch_size=p.train_batch_size,
+        eval_batch_size=p.eval_batch_size,
+        seq_len=p.seq_len,
+        path_index=path_index,
+        device=args.device,
+    )
+    trainer.load_params(load_pytree(p.model_path + ".layer", trainer.layer_params),
+                        load_pytree(p.model_path + ".rerank", trainer.rerank_params))
+    new_index = coordinate_descent(
+        trainer,
+        data.train_seqs,
+        data.train_targets,
+        num_iteration=p.iteration_num,
+        num_candidate_path=p.candidate_path_num,
+        batch_size=max(1, p.train_batch_size // p.num_path_per_item),
+        mode=p.train_mode,
+        decay_factor=p.decay_factor,
+        penalty_factor=p.penalty_factor,
+        penalty_poly_order=p.penalty_poly_order,
+    )
+    new_index.write(p.mapping_path, data.item_to_id)
+    logger.info(f"coordinate descent done -> {p.mapping_path}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -291,6 +377,7 @@ def main(argv=None) -> int:
         "--tdmConfFile",
         "--jtmConfFile",
         "--otmConfFile",
+        "--drConfFile",
         dest="conf",
         required=True,
         help="path to the flat conf file (reference format)",

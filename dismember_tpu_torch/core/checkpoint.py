@@ -1,10 +1,10 @@
 """Checkpoints of parameter trees: the JAX package's ``.npz`` format.
 
-A tree is a nested dict of arrays (numpy or torch).  It is flattened to
-``/``-joined key paths (``embedding``, ``att_linear/weight``, ``mlp1/bias``,
-...), the key scheme of ``dismember_tpu/core/checkpoint.py``, plus an
-optional ``.meta.json`` sidecar, so a checkpoint saved by either package
-loads in the other.
+A tree is nested dicts and lists of arrays (numpy or torch).  It is
+flattened to ``/``-joined key paths (``embedding``, ``att_linear/weight``,
+``heads/0/bias``, ...), the key scheme of ``dismember_tpu/core/checkpoint.py``
+(a dict key or a list index per level), plus an optional ``.meta.json``
+sidecar, so a checkpoint saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -18,16 +18,25 @@ import torch
 from dismember_tpu_torch.core.io import open_file, stage_in, stage_out
 
 
-def flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
-    """Nested dict -> {"a/b": leaf}, keys sorted: the checkpoints' key paths."""
+def _children(node):
+    """(key, child) pairs of an inner node, in the JAX package's order
+    (dict keys sorted, list entries by index); None for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
+def flatten(tree, prefix: str = "") -> dict[str, Any]:
+    """Nested dicts and lists -> {"a/0/b": leaf}: the checkpoints' key paths."""
     out: dict[str, Any] = {}
-    for k in sorted(tree):
-        path = f"{prefix}/{k}" if prefix else str(k)
-        v = tree[k]
-        if isinstance(v, dict):
-            out.update(flatten(v, path))
-        else:
+    for k, v in _children(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        if _children(v) is None:
             out[path] = v
+        else:
+            out.update(flatten(v, path))
     return out
 
 
@@ -37,8 +46,9 @@ def _to_numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def save_pytree(path: str, tree: dict, meta: dict | None = None) -> None:
-    """Save a nested dict of arrays to ``path`` (.npz) with optional meta."""
+def save_pytree(path: str, tree, meta: dict | None = None) -> None:
+    """Save nested dicts and lists of arrays to ``path`` (.npz) with
+    optional meta."""
     arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
     npz_path = path if path.endswith(".npz") else path + ".npz"
     with stage_out(npz_path) as local:
@@ -48,17 +58,19 @@ def save_pytree(path: str, tree: dict, meta: dict | None = None) -> None:
             f.write(json.dumps(meta))
 
 
-def load_pytree(path: str, like: dict) -> dict:
-    """Load the arrays saved by :func:`save_pytree` (either package) into a
-    nested dict of numpy arrays with the keys of ``like``."""
+def load_pytree(path: str, like):
+    """Load the arrays saved by :func:`save_pytree` (either package) into
+    nested dicts and lists of numpy arrays shaped as ``like``."""
     npz_path = path if path.endswith(".npz") else path + ".npz"
 
-    def fill(node: dict, prefix: str, data) -> dict:
-        out = {}
-        for k, v in node.items():
-            p = f"{prefix}/{k}" if prefix else str(k)
-            out[k] = fill(v, p, data) if isinstance(v, dict) else data[p]
-        return out
+    def fill(node, prefix: str, data):
+        if _children(node) is None:
+            return data[prefix]
+        out = {k: fill(v, f"{prefix}/{k}" if prefix else k, data)
+               for k, v in _children(node)}
+        if isinstance(node, dict):
+            return {k: out[str(k)] for k in node}
+        return type(node)(out[str(i)] for i in range(len(node)))
 
     with stage_in(npz_path) as local:
         with np.load(local) as data:

@@ -1,6 +1,6 @@
 """Flat config-file loading with the reference's key namespace.
 
-Copy of the TDM, JTM and OTM part of ``dismember_tpu/core/config.py``.  The reference
+Copy of the TDM, JTM, OTM and Deep Retrieval part of ``dismember_tpu/core/config.py``.  The reference
 reads flat ``prefix.key value`` files (configs/*.conf) through
 ``Property.readConf`` (scalann utils/Property.scala:12-48) and converts them to
 per-stage case classes (examples/.../tdm/package.scala:8-113); reference conf
@@ -280,4 +280,104 @@ class OTMTreeParams:
             min_seq_len=int(_get(conf, "min_seq_len")),
             split_ratio=float(_get(conf, "split_ratio")),
             thread_number=int(conf.get("thread_number", "0")),
+        )
+
+
+@dataclasses.dataclass
+class DRModelParams:
+    """``model.*`` keys (Deep Retrieval train stage)."""
+
+    data_path: str
+    model_path: str
+    mapping_path: str
+    thread_number: int
+    train_batch_size: int
+    eval_batch_size: int
+    num_layer: int
+    num_node: int
+    num_path_per_item: int
+    embed_size: int
+    learning_rate: float
+    epoch_num: int
+    num_sampled: int
+    topk_number: int
+    beam_size: int
+    show_progress_interval: int
+    seq_len: int
+    min_seq_len: int
+    split_ratio: float
+    initialize_mapping: bool
+
+    @classmethod
+    def from_conf(cls, conf: Mapping[str, str], base_dir: str = "") -> "DRModelParams":
+        return cls(
+            data_path=_resolve(base_dir, _get(conf, "data_path")),
+            model_path=_resolve(base_dir, _get(conf, "model_path")),
+            mapping_path=_resolve(base_dir, _get(conf, "mapping_path")),
+            thread_number=int(conf.get("thread_number", "0")),
+            train_batch_size=int(_get(conf, "train_batch_size")),
+            eval_batch_size=int(_get(conf, "eval_batch_size")),
+            num_layer=int(_get(conf, "num_layer")),
+            num_node=int(_get(conf, "num_node")),
+            num_path_per_item=int(_get(conf, "num_path_per_item")),
+            embed_size=int(_get(conf, "embed_size")),
+            learning_rate=float(_get(conf, "learning_rate")),
+            epoch_num=int(_get(conf, "epoch_num")),
+            num_sampled=int(_get(conf, "num_sampled")),
+            topk_number=int(_get(conf, "topk_number")),
+            beam_size=int(_get(conf, "beam_size")),
+            show_progress_interval=int(_get(conf, "show_progress_interval")),
+            seq_len=int(_get(conf, "seq_len")),
+            min_seq_len=int(_get(conf, "min_seq_len")),
+            split_ratio=float(_get(conf, "split_ratio")),
+            initialize_mapping=_bool(_get(conf, "initialize_mapping")),
+        )
+
+
+@dataclasses.dataclass
+class DRCoordinateParams:
+    """``cd.*`` keys (Deep Retrieval coordinate-descent stage)."""
+
+    data_path: str
+    model_path: str
+    mapping_path: str
+    thread_number: int
+    train_batch_size: int
+    eval_batch_size: int
+    num_layer: int
+    num_node: int
+    num_path_per_item: int
+    seq_len: int
+    min_seq_len: int
+    split_ratio: float
+    initialize_mapping: bool
+    candidate_path_num: int
+    iteration_num: int
+    decay_factor: float
+    penalty_factor: float
+    penalty_poly_order: int
+    train_mode: str
+
+    @classmethod
+    def from_conf(cls, conf: Mapping[str, str], base_dir: str = "") -> "DRCoordinateParams":
+        return cls(
+            data_path=_resolve(base_dir, _get(conf, "data_path")),
+            model_path=_resolve(base_dir, _get(conf, "model_path")),
+            mapping_path=_resolve(base_dir, _get(conf, "mapping_path")),
+            thread_number=int(conf.get("thread_number", "0")),
+            train_batch_size=int(_get(conf, "train_batch_size")),
+            eval_batch_size=int(_get(conf, "eval_batch_size")),
+            num_layer=int(_get(conf, "num_layer")),
+            num_node=int(_get(conf, "num_node")),
+            num_path_per_item=int(_get(conf, "num_path_per_item")),
+            seq_len=int(_get(conf, "seq_len")),
+            min_seq_len=int(_get(conf, "min_seq_len")),
+            split_ratio=float(_get(conf, "split_ratio")),
+            initialize_mapping=_bool(_get(conf, "initialize_mapping")),
+            candidate_path_num=int(_get(conf, "candidate_path_num")),
+            iteration_num=int(_get(conf, "iteration_num")),
+            decay_factor=float(conf.get("decay_factor", "0.999")),
+            penalty_factor=float(conf.get("penalty_factor", "3e-6")),
+            penalty_poly_order=int(conf.get("penalty_poly_order", "4")),
+            train_mode=conf.get("train_mode", "streaming").lower(),
         )

@@ -1,10 +1,10 @@
 """Minimal proto3 wire-format codec for the reference's persistence schemas.
 
-Copy of ``dismember_tpu/index/proto.py`` for the tree files, byte-compatible
+Copy of ``dismember_tpu/index/proto.py`` for the tree and mapping files, byte-compatible
 with the reference's scalapb-generated encodings of:
 - tdm/src/main/protobuf/tree.proto      (IdCodePair, IdCodePart, TreeMeta, Node)
 - tdm/src/main/protobuf/store_kv.proto  (KVItem)
-The Deep Retrieval messages (item_mapping.proto) come with the DR slice.
+- deep-retrieval's item_mapping.proto    (Path, Item, ItemSet)
 
 Hand-rolled (no protoc build step): the schemas are tiny and stable.  Proto3
 rules honored: default-valued scalar fields are omitted on encode; repeated
@@ -257,4 +257,84 @@ class TreeMeta:
                 out.max_level = _signed32(value)
             elif field == 2 and wtype == 2:
                 out.id_code_part.append(value)
+        return out
+
+
+# item_mapping.proto ---------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Path:
+    index: list[int] = dataclasses.field(default_factory=list)
+
+    def encode(self) -> bytes:
+        buf = bytearray()
+        if self.index:
+            payload = bytearray()
+            for v in self.index:
+                _write_varint(payload, v)
+            _write_len_delim(buf, 1, bytes(payload))
+        return bytes(buf)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Path":
+        out = cls()
+        for field, wtype, value in _iter_fields(data):
+            if field == 1 and wtype == 2:
+                pos = 0
+                while pos < len(value):
+                    v, pos = _read_varint(value, pos)
+                    out.index.append(_signed32(v))
+            elif field == 1 and wtype == 0:
+                out.index.append(_signed32(value))
+        return out
+
+
+@dataclasses.dataclass
+class Item:
+    item: int = 0
+    id: int = 0
+    paths: list[Path] = dataclasses.field(default_factory=list)
+
+    def encode(self) -> bytes:
+        buf = bytearray()
+        if self.item:
+            _write_tag(buf, 1, 0)
+            _write_varint(buf, self.item)
+        if self.id:
+            _write_tag(buf, 2, 0)
+            _write_varint(buf, self.id)
+        for p in self.paths:
+            _write_len_delim(buf, 3, p.encode())
+        return bytes(buf)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Item":
+        out = cls()
+        for field, wtype, value in _iter_fields(data):
+            if field == 1 and wtype == 0:
+                out.item = _signed32(value)
+            elif field == 2 and wtype == 0:
+                out.id = _signed32(value)
+            elif field == 3 and wtype == 2:
+                out.paths.append(Path.decode(value))
+        return out
+
+
+@dataclasses.dataclass
+class ItemSet:
+    items: list[Item] = dataclasses.field(default_factory=list)
+
+    def encode(self) -> bytes:
+        buf = bytearray()
+        for it in self.items:
+            _write_len_delim(buf, 1, it.encode())
+        return bytes(buf)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ItemSet":
+        out = cls()
+        for field, wtype, value in _iter_fields(data):
+            if field == 1 and wtype == 2:
+                out.items.append(Item.decode(value))
         return out

@@ -1,0 +1,350 @@
+"""On-device Deep Retrieval serving: path beam -> items -> rerank -> top-k.
+
+Port of ``dismember_tpu/retrieval/dr_serve.py``.  The reference serves one
+query at a time through host dicts (DeepRetrieval.recommend:26-46); here
+the inverted path->items map lives on the device:
+
+- ``path_table``: dense [K^D] int32 of row indices (-1 = empty path), so a
+  path's base-K key indexes it directly;
+- ``path_items``: [n_paths, M] item ids (-1 pad), at most
+  ``max_items_per_path`` a path, an overflowing path keeping the items of
+  highest ``item_priority`` (training-target counts).
+
+A batch is then path beam search, key lookup, one row gather, rerank
+scoring of the [B, beam*M] candidates, in-row dedup (an item on several
+retrieved paths counts once), the optional consumed filter and top-k.
+
+``rerank_table`` picks what the rerank reads, and the port keeps each
+route's arithmetic (what is rounded to bf16, where):
+
+- ``"exact"``: f32 rows of the live params;
+- ``"packed"``: the weights and the bias rounded to bf16, one [N, E+1] row
+  an item, products and sums in f32;
+- ``"block"``: one path-major bf16 row a path holding its items' slots
+  (weights | bias | 4 base-256 id digits | valid, ``_block_geometry``'s
+  padding), gathered once a beam path; the sequence side reads a bf16
+  [V, 2E] pack of both item embeddings.  The score of a slot is an f32
+  multiply-add over the E weight planes in order l = 0..E-1 against the
+  bf16-rounded user vector, plus the bias; dedup is top-(k*J) followed by
+  masking every later copy of an id, exact because an item's copies carry
+  identical scores (the same stored row, the same arithmetic), whatever
+  order ``torch.topk`` gives ties;
+- ``"auto"``: block at 2^18 items or more (packed when the block table
+  would pass 8 GB or the width has no slot), exact below.
+
+The JAX package's TPU layout workarounds are not ported: the path table
+stays a flat int32 gather (not [S/128, 128] rows with a one-hot lane
+select), and block slots are item-major (the same rows as its plane-major
+lanes).  The bf16 tables (packed, block, seq pack) are built once, when
+the closure is built, and the closure reads the heads and the node
+embeddings live, as the JAX package's does; ``DRServing`` caches closures,
+so it serves the tables of the moment it first served.  No kernel runs
+here: the products are small matmuls and a 16-term multiply-add.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.index.paths import PathIndex
+from dismember_tpu_torch.models.dr_models import rerank_user_vector
+from dismember_tpu_torch.retrieval.packed_beam import _encode_id_digits
+from dismember_tpu_torch.retrieval.path_beam import path_beam_search
+
+_NEG_INF = -3.4e38
+_PACKED_RERANK_MIN_ITEMS = 1 << 18
+_BLOCK_TABLE_MAX_BYTES = 8 << 30
+_ID_DIGITS, _ID_BASE = 4, 256  # exact bf16 integer lanes (ids < 2^31)
+_SENTINEL = 2**30
+# elements of one [rows, C, consumed] comparison of the consumed filter
+_CONSUMED_CHUNK = 1 << 26
+
+
+@dataclasses.dataclass
+class DevicePathMap:
+    path_table: torch.Tensor  # [K^D] int32 row index or -1
+    path_items: torch.Tensor  # [n_paths, M] int32 item ids, -1 pad
+    num_nodes: int
+    truncated_paths: int  # paths that overflowed M (items dropped)
+
+    @classmethod
+    def build(cls, index: PathIndex, max_items_per_path: int = 128,
+              max_table: int = 1 << 24, item_priority: np.ndarray | None = None,
+              device="cuda") -> "DevicePathMap | None":
+        """The JAX package's arrays, built with numpy sorts instead of its
+        loop over ``path_to_items``: rows in first-occurrence order of the
+        paths over (item, j), each row's items in that order, and an
+        overflowing path's items ordered by descending ``item_priority``
+        (stable) before the cut.  None when K^D passes ``max_table``."""
+        dev = resolve_device(device)
+        k, d, j = index.num_nodes, index.num_layers, index.num_paths_per_item
+        size = k**d
+        if size > max_table:
+            return None
+        keys = index.path_key_of(index.item_paths).reshape(-1)  # (item, j) order
+        items = np.repeat(np.arange(index.num_items, dtype=np.int64), j)
+        uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+        n_paths = len(uniq)
+        order_u = np.argsort(first, kind="stable")  # rows by first occurrence
+        row_of_u = np.empty(n_paths, np.int64)
+        row_of_u[order_u] = np.arange(n_paths)
+        row = row_of_u[inv.reshape(-1)]
+        counts = np.bincount(row, minlength=n_paths)
+        m = min(max_items_per_path, int(counts.max()) if len(counts) else 1)
+        prio = np.zeros(len(row), np.int64)
+        over = counts[row] > m
+        if item_priority is not None:
+            prio = np.where(over, -np.asarray(item_priority)[items], 0)
+        order = np.lexsort((np.arange(len(row)), prio, row))
+        r_s, it_s = row[order], items[order]
+        rank = np.arange(len(r_s)) - (np.cumsum(counts) - counts)[r_s]
+        keep = rank < m
+        path_items = np.full((max(n_paths, 1), m), -1, np.int32)
+        path_items[r_s[keep], rank[keep]] = it_s[keep]
+        table = np.full(size, -1, np.int32)
+        table[uniq[order_u]] = np.arange(n_paths, dtype=np.int32)
+        return cls(path_table=torch.as_tensor(table, device=dev),
+                   path_items=torch.as_tensor(path_items, device=dev),
+                   num_nodes=k, truncated_paths=int((counts > m).sum()))
+
+
+def _train_frequency_priority(trainer) -> np.ndarray | None:
+    """Per-item training-target counts as the truncation priority for
+    ``DevicePathMap.build`` (None when the trainer carries no data)."""
+    data = getattr(trainer, "data", None)
+    targets = getattr(data, "train_targets", None)
+    if targets is None or len(targets) == 0:
+        return None
+    return np.bincount(np.asarray(targets, np.int64), minlength=data.num_items)
+
+
+def _block_geometry(e: int, m: int) -> tuple[int, int] | None:
+    """(planes, m_pad) of the narrowest block row holding ``m`` item slots
+    of ``used = e + 1 + _ID_DIGITS + 1`` planes (weights | bias | id digits
+    | valid) whose width planes * m_pad is a multiple of 128 (the JAX
+    package's choice, kept so both packages pad a path alike)."""
+    used = e + 1 + _ID_DIGITS + 1
+    if used > 128:
+        return None
+    best = None
+    for p in range(used, 129):
+        q = 128 // math.gcd(p, 128)  # m_pad granularity for width % 128 == 0
+        m_pad = -(-m // q) * q
+        width = p * m_pad
+        if best is None or width < best[0]:
+            best = (width, p, m_pad)
+    return (best[1], best[2]) if best else None
+
+
+def _pack_rerank_table(softmax_w: torch.Tensor, softmax_b: torch.Tensor) -> torch.Tensor:
+    """[N, E] weights + [N] bias -> [N, E+1] bf16 rows (lane E = bias)."""
+    return torch.cat([softmax_w, softmax_b[:, None]], 1).to(torch.bfloat16)
+
+
+def _build_block_table(softmax_w: torch.Tensor, softmax_b: torch.Tensor,
+                       path_items: torch.Tensor, planes_n: int, m_pad: int) -> torch.Tensor:
+    """Path-major bf16 table [n_paths, m_pad, planes_n]: slot s of row p
+    holds item ``path_items[p, s]``'s weights, bias, id digits and a valid
+    flag (zeros past the path's items and in the pad planes)."""
+    n_paths, m = path_items.shape
+    e = softmax_w.shape[1]
+    items = torch.full((n_paths, m_pad), -1, dtype=torch.long, device=softmax_w.device)
+    items[:, :m] = path_items
+    flat = items.reshape(-1)
+    safe = flat.clamp_min(0)
+    digits = torch.as_tensor(_encode_id_digits(flat.cpu().numpy(), _ID_DIGITS, _ID_BASE),
+                             device=flat.device)
+    lanes = torch.zeros(flat.shape[0], planes_n, dtype=torch.bfloat16, device=flat.device)
+    lanes[:, :e] = softmax_w[safe].to(torch.bfloat16)
+    lanes[:, e] = softmax_b[safe].to(torch.bfloat16)
+    lanes[:, e + 1 : e + 1 + _ID_DIGITS] = digits.to(torch.bfloat16)
+    lanes[:, e + 1 + _ID_DIGITS] = (flat >= 0).to(torch.bfloat16)
+    return lanes.view(n_paths, m_pad, planes_n)
+
+
+def _build_seq_pack(layer_emb: torch.Tensor, rerank_emb: torch.Tensor) -> torch.Tensor:
+    """[V(+nodes), E] layer + [V, E] rerank item embeddings -> one [V, 2E]
+    bf16 table (lanes 0:E layer, E:2E rerank)."""
+    v = rerank_emb.shape[0]
+    return torch.cat([layer_emb[:v], rerank_emb], 1).to(torch.bfloat16)
+
+
+def path_keys_and_dedup(paths: torch.Tensor, num_nodes: int):
+    """[B, beam, D] paths -> (base-K keys [B, beam], first-occurrence mask).
+
+    A padded beam (num_nodes < beam) repeats a path; only the first copy may
+    count, or an item could exceed the J-occurrence bound the block dedup
+    relies on."""
+    beam = paths.shape[1]
+    keys = torch.zeros(paths.shape[:2], dtype=torch.long, device=paths.device)
+    for d in range(paths.shape[2]):
+        keys = keys * num_nodes + paths[:, :, d]
+    lower = torch.ones(beam, beam, dtype=torch.bool, device=paths.device).tril(-1)
+    dup_path = ((keys[:, :, None] == keys[:, None, :]) & lower).any(-1)
+    return keys, ~dup_path
+
+
+def _consumed_hit(cand: torch.Tensor, consumed: torch.Tensor) -> torch.Tensor:
+    """[B, C] bool: the candidate is among the row's consumed ids [B, Cc]
+    (-1 pads; a -1 candidate is invalid anyway).  Rows in chunks, so the
+    [rows, C, Cc] comparison stays bounded."""
+    b, c = cand.shape
+    rows = max(1, _CONSUMED_CHUNK // max(1, c * consumed.shape[1]))
+    hit = torch.zeros_like(cand, dtype=torch.bool)
+    for s in range(0, b, rows):
+        hit[s : s + rows] = (cand[s : s + rows, :, None] == consumed[s : s + rows, None, :]).any(-1)
+    return hit
+
+
+def _top_items(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top-k of [B, C] scores with their ids; -1 where the score is the
+    invalid sentinel."""
+    top_s, top_i = torch.topk(scores, k, dim=1)
+    top_ids = torch.gather(ids, 1, top_i)
+    return torch.where(top_s > _NEG_INF / 2, top_ids, -1), top_s
+
+
+def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None,
+                       max_items_per_path: int = 128, rerank_table: str = "auto"):
+    """``fn(layer_params, rerank_params, seqs[, consumed]) -> (item ids
+    [B, topk] int64, scores [B, topk] f32)`` on the trainer's device, or
+    None when the dense path table does not fit.  ``seqs`` [B, L] and
+    ``consumed`` [B, C] (-1 pads) are tensors on that device."""
+    dev = trainer.device
+    dmap = DevicePathMap.build(trainer.path_index, max_items_per_path,
+                               item_priority=_train_frequency_priority(trainer), device=dev)
+    if dmap is None:
+        return None
+    beam = beam or trainer.beam
+    m = dmap.path_items.shape[1]
+    # the candidate pool is beam * M wide; fewer than k candidates give -1
+    k = min(topk or trainer.topk, beam * m)
+    num_items, num_nodes = trainer.data.num_items, trainer.num_nodes
+    num_layers = trainer.num_layers
+    e = int(trainer.rerank_params["softmax_w"].shape[1])
+
+    if rerank_table not in ("auto", "exact", "packed", "block"):
+        raise ValueError(f"unknown rerank_table {rerank_table!r}")
+    if rerank_table == "auto":
+        rerank_table = "block" if num_items >= _PACKED_RERANK_MIN_ITEMS else "exact"
+    geom = None
+    if rerank_table == "block":
+        geom = _block_geometry(e, m)
+        if geom is None or dmap.path_items.shape[0] * geom[0] * geom[1] * 2 > _BLOCK_TABLE_MAX_BYTES:
+            rerank_table = "packed"
+    if rerank_table == "block":
+        fn = _make_block_serving_fn(trainer, dmap, beam, k, geom)
+        fn.route = "block"
+        return fn
+
+    packed_wb = None
+    if rerank_table == "packed":
+        packed_wb = _pack_rerank_table(trainer.rerank_params["softmax_w"],
+                                       trainer.rerank_params["softmax_b"])
+
+    @torch.no_grad()
+    def fn(layer_params, rerank_params, seqs, consumed=None):
+        b = seqs.shape[0]
+        paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes, num_layers)
+        keys, _ = path_keys_and_dedup(paths, num_nodes)
+        rows = dmap.path_table[keys].long()  # [B, beam]
+        cand = torch.where((rows >= 0)[:, :, None], dmap.path_items[rows.clamp_min(0)],
+                           -1).reshape(b, beam * m).long()
+        # in-row dedup: value-sort (invalid -> a sentinel at the back), keep
+        # the first occurrence of each item
+        cs = torch.sort(torch.where(cand >= 0, cand, _SENTINEL), dim=1).values
+        first = torch.ones_like(cs, dtype=torch.bool)
+        first[:, 1:] = cs[:, 1:] != cs[:, :-1]
+        ok = (cs < _SENTINEL) & first
+        cs = torch.where(ok, cs, -1)
+        if consumed is not None:
+            ok &= ~_consumed_hit(cs, consumed.long())
+        user_vec = rerank_user_vector(rerank_params, seqs)
+        safe = cs.clamp_min(0)
+        if packed_wb is not None:
+            rows_wb = packed_wb[safe].float()  # [B, C, E+1]
+            w, bias = rows_wb[..., :e], rows_wb[..., e]
+        else:
+            w, bias = rerank_params["softmax_w"][safe], rerank_params["softmax_b"][safe]
+        scores = torch.einsum("be,bce->bc", user_vec, w) + bias
+        return _top_items(torch.where(ok, scores, _NEG_INF), cs, k)
+
+    fn.route = rerank_table
+    fn._dmap = dmap
+    return fn
+
+
+def _score_blocks_topk(blocks: torch.Tensor, path_ok: torch.Tensor, user_vec: torch.Tensor,
+                       consumed, e: int, k: int, j_paths: int):
+    """Score + dedup + top-k over gathered block rows [B, beam, m_pad,
+    planes] bf16; ``path_ok`` [B, beam] marks live, first-copy paths."""
+    b, beam, m_pad, _ = blocks.shape
+    ub = user_vec.to(torch.bfloat16).float()  # the bf16-rounded user operand
+    scores = blocks[..., 0].float() * ub[:, None, None, 0]
+    for l in range(1, e):
+        scores += blocks[..., l].float() * ub[:, None, None, l]  # [B, beam, m_pad]
+    bias = blocks[..., e].float()
+    # id digits are exact bf16 integers <= 255; combined in integers
+    ids = blocks[..., e + 1].long()
+    for d in range(1, _ID_DIGITS):
+        ids = ids * _ID_BASE + blocks[..., e + 1 + d].long()
+    valid = (blocks[..., e + 1 + _ID_DIGITS] > 0) & path_ok[:, :, None]
+    c = beam * m_pad
+    cand = torch.where(valid, ids, -1).reshape(b, c)
+    ok = valid.reshape(b, c)
+    if consumed is not None:
+        ok &= ~_consumed_hit(cand, consumed.long())
+    scores = torch.where(ok, (scores + bias).reshape(b, c), _NEG_INF)
+    # an item sits on at most J retrieved paths, so top-(k*J) holds >= k
+    # distinct items; every later copy of an id is masked, then top-k again
+    kj = min(c, max(k, k * j_paths))
+    top_ids, top_s = _top_items(scores, cand, kj)
+    lower = torch.ones(kj, kj, dtype=torch.bool, device=cand.device).tril(-1)
+    eq = (top_ids[:, :, None] == top_ids[:, None, :]) & (top_ids[:, None, :] >= 0)
+    is_dup = (eq & lower).any(-1)
+    return _top_items(torch.where(is_dup, _NEG_INF, top_s), top_ids, k)
+
+
+def _make_block_serving_fn(trainer, dmap: DevicePathMap, beam: int, k: int, geom):
+    """Path-major block serving (see the module docstring)."""
+    num_items, num_nodes = trainer.data.num_items, trainer.num_nodes
+    num_layers = trainer.num_layers
+    e = int(trainer.rerank_params["softmax_w"].shape[1])
+    j_paths = max(1, int(getattr(trainer, "num_paths", 1)))
+    planes_n, m_pad = geom
+    block_tab = _build_block_table(trainer.rerank_params["softmax_w"],
+                                   trainer.rerank_params["softmax_b"], dmap.path_items.long(),
+                                   planes_n, m_pad)
+    seq_pack = _build_seq_pack(trainer.layer_params["embedding"],
+                               trainer.rerank_params["embedding"])
+
+    @torch.no_grad()
+    def fn(layer_params, rerank_params, seqs, consumed=None):
+        b, l_seq = seqs.shape
+        # one bf16 [V, 2E] gather feeds the heads' sequence parts and the
+        # rerank user vector
+        svalid = seqs != -1
+        srows = (seq_pack[torch.where(svalid, seqs, 0)].float()
+                 * svalid[:, :, None])  # [B, L, 2E]
+        layer_flat = srows[:, :, :e].reshape(b, l_seq * e)
+        seq_parts = [layer_flat @ h["weight"][:, : l_seq * e].T for h in layer_params["heads"]]
+        lin = rerank_params["linear"]
+        user_vec = srows[:, :, e:].reshape(b, l_seq * e) @ lin["weight"].T + lin["bias"]
+        paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes,
+                                    num_layers, seq_parts=seq_parts)
+        keys, first = path_keys_and_dedup(paths, num_nodes)
+        rows = dmap.path_table[keys].long()  # [B, beam]
+        blocks = block_tab[rows.clamp_min(0)]  # [B, beam, m_pad, planes]
+        return _score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
+                                  j_paths)
+
+    fn._dmap = dmap
+    fn._block_tab = block_tab
+    fn._seq_pack = seq_pack
+    fn._geometry = geom
+    return fn

@@ -17,15 +17,19 @@ import torch
 
 from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree
 from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.data.dr_dataset import build_dr_data
 from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
+from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
+from dismember_tpu_torch.retrieval.dr_serve import make_dr_serving_fn
 from dismember_tpu_torch.retrieval.packed_beam import (
     PackedTree,
     build_pair_table,
     make_packed_beam_fn,
 )
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn, make_config
+from dismember_tpu_torch.train.dr import DRTrainer
 from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import build_model, packed_fns, serving_fns
 
@@ -188,4 +192,69 @@ class OTMServing:
             )]
         return t.recommend_batch(
             seq_codes[None, :], topk=topk, consumed=consumed_codes
+        )[0]
+
+
+class DRServing:
+    """Deep Retrieval facade (DeepRetrieval.scala): load the layer and
+    rerank checkpoints and the ItemSet mapping, serve on the device or
+    through the host dict route.
+
+    The device closures are cached per (topk, beam), and each freezes the
+    bf16 tables of its route (block table, seq pack, packed rows) when it is
+    built while reading the heads and the f32 tables live, as the JAX
+    package's ``DRServing`` does: a facade serves a loaded model, which
+    nothing changes afterwards.  A caller that changes the trainer's
+    embeddings or softmax rows drops ``_device_fns`` to serve them."""
+
+    def __init__(self, trainer: DRTrainer):
+        self._trainer = trainer
+        self._p2i = trainer.path_index.path_to_items()
+        self._device_fns: dict[tuple, object] = {}
+
+    def device_serving_fn(self, topk: int = 10, beam: int | None = None):
+        """The device serving closure (``retrieval.dr_serve``); None when
+        the dense path table is too big.  Cached per (topk, beam)."""
+        key = (topk, beam)
+        if key not in self._device_fns:
+            self._device_fns[key] = make_dr_serving_fn(self._trainer, beam=beam, topk=topk)
+        return self._device_fns[key]
+
+    def recommend_batch_device(self, seqs: np.ndarray, topk: int = 10) -> np.ndarray:
+        """[B, L] dense-id windows -> [B, topk] dense item ids (-1 pads)."""
+        fn = self.device_serving_fn(topk=topk)
+        if fn is None:
+            return [self.recommend(s, topk=topk) for s in seqs]
+        t = self._trainer
+        ids, _scores = fn(t.layer_params, t.rerank_params, t._ids(seqs))
+        return ids.cpu().numpy()
+
+    @classmethod
+    def load(cls, model_path: str, mapping_path: str, data_path: str,
+             seq_len: int = 10, min_seq_len: int = 2, split_ratio: float = 0.8,
+             num_nodes: int = 100, device="cuda", **trainer_kwargs) -> "DRServing":
+        """Load checkpoints (either package's) and a mapping onto
+        ``device``; raises if ``device`` is CUDA and there is none."""
+        dev = resolve_device(device)
+        path_index, item_to_id = PathIndex.read(mapping_path, num_nodes)
+        data = build_dr_data(data_path, seq_len, min_seq_len, split_ratio, item_to_id)
+        meta = load_meta(model_path + ".layer")
+        trainer = DRTrainer(
+            data, num_layers=meta["num_layer"], num_nodes=meta["num_node"],
+            num_paths_per_item=path_index.num_paths_per_item,
+            embed_size=meta["embed_size"], seq_len=meta["seq_len"],
+            path_index=path_index, device=dev, **trainer_kwargs)
+        trainer.load_params(load_pytree(model_path + ".layer", trainer.layer_params),
+                            load_pytree(model_path + ".rerank", trainer.rerank_params))
+        return cls(trainer)
+
+    def recommend(self, sequence: np.ndarray, topk: int = 10, beam_size: int | None = None,
+                  consumed: np.ndarray | None = None) -> np.ndarray:
+        """sequence/result in dense item-id space (map via data.item_to_id)."""
+        if beam_size is not None:
+            self._trainer.beam = beam_size
+        return self._trainer.recommend_batch(
+            sequence[None, :], topk=topk,
+            consumed=[consumed] if consumed is not None else None,
+            path_to_items=self._p2i,
         )[0]

@@ -1,9 +1,9 @@
 """Alternating train → index → retrain drivers with stage checkpoint/resume.
 
-Port of the TDM, JTM and OTM drivers of ``dismember_tpu/train/pipeline.py``.
-The reference's alternation protocol is human-driven: re-run the CLIs stage
-by stage, persisting each stage's output (model blob, tree pb, mapping).  Here the loop
-is one program; after every stage a state file records (round, stage tag,
+Port of the TDM, JTM, OTM and Deep Retrieval drivers of
+``dismember_tpu/train/pipeline.py``.  The reference's alternation protocol
+is human-driven: re-run the CLIs stage by stage, persisting each stage's
+output (model blob, tree pb, mapping).  Here the loop is one program; after every stage a state file records (round, stage tag,
 artifact paths), in the JAX package's format, so a killed run resumes at the
 stage boundary, whichever package wrote the state.  Every stage runs on
 ``device`` (CUDA by default).
@@ -24,6 +24,9 @@ from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.data.otm_dataset import build_otm_data, load_mapping, save_mapping
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.cluster import cluster_tree_from_embeddings
+from dismember_tpu_torch.index.paths import PathIndex
+from dismember_tpu_torch.train.dr import DRTrainer
+from dismember_tpu_torch.train.dr_coordinate import coordinate_descent
 from dismember_tpu_torch.train.jtm import TreeLearner, otm_tree_learner, write_projection_tree
 from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import TDMTrainer
@@ -260,6 +263,58 @@ def run_otm_alternation(
             save_mapping(new_mapping, projection)
             logger.info(f"otm round {rnd} tree construction: {time.perf_counter() - t0:.1f}s")
             state.artifacts["mapping"] = new_mapping
+        state.round = rnd
+        state.stage = "indexed"
+        state.save(state_path)
+    return trainer, results
+
+
+def run_dr_alternation(
+    workdir: str,
+    data,  # DRData
+    rounds: int = 2,
+    epochs_per_round: int = 2,
+    cd_kwargs: dict | None = None,
+    trainer_kwargs: dict | None = None,
+    device: str = "cuda",
+):
+    """Deep Retrieval EM loop: E-step training -> M-step coordinate descent,
+    with the JAX package's stage state (``dr_pipeline_state.json``): a
+    resumed run reloads the last mapping and checkpoints and goes on from
+    the next round.  Returns (trainer, per-epoch eval results)."""
+    dev = resolve_device(device)
+    if "://" not in workdir:
+        os.makedirs(workdir, exist_ok=True)
+    state_path = os.path.join(workdir, "dr_pipeline_state.json")
+    state = StageState.load(state_path) or StageState(round=0, stage="init", artifacts={})
+    trainer = DRTrainer(data, device=dev, **(trainer_kwargs or {}))
+    mapping_path = state.artifacts.get("mapping")
+    if mapping_path and path_exists(mapping_path):
+        trainer.path_index, _ = PathIndex.read(mapping_path, trainer.num_nodes)
+    layer_ckpt = state.artifacts.get("layer_params")
+    if layer_ckpt and path_exists(layer_ckpt + ".npz"):
+        trainer.load_params(load_pytree(layer_ckpt, trainer.layer_params),
+                            load_pytree(state.artifacts["rerank_params"],
+                                        trainer.rerank_params))
+
+    results = []
+    while state.round < rounds:
+        rnd = state.round + 1
+        results.extend(trainer.train(num_epochs=epochs_per_round))
+        layer_ckpt = os.path.join(workdir, f"dr_layer_round{rnd}")
+        rerank_ckpt = os.path.join(workdir, f"dr_rerank_round{rnd}")
+        save_pytree(layer_ckpt, trainer.layer_params, meta={"round": rnd})
+        save_pytree(rerank_ckpt, trainer.rerank_params)
+        state.artifacts.update(layer_params=layer_ckpt, rerank_params=rerank_ckpt)
+        state.stage = "trained"
+        state.save(state_path)
+
+        if rnd < rounds:
+            trainer.path_index = coordinate_descent(
+                trainer, data.train_seqs, data.train_targets, **(cd_kwargs or {}))
+            mapping_path = os.path.join(workdir, f"dr_mapping_round{rnd + 1}.bin")
+            trainer.path_index.write(mapping_path, data.item_to_id)
+            state.artifacts["mapping"] = mapping_path
         state.round = rnd
         state.stage = "indexed"
         state.save(state_path)

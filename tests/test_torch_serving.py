@@ -19,15 +19,18 @@ from dismember_tpu.retrieval.packed_beam import make_packed_beam_fn_pallas
 from dismember_tpu.retrieval.packed_beam import make_packed_tree as j_make_packed_tree
 from dismember_tpu.retrieval.tree_beam import make_beam_fn as j_make_beam_fn
 from dismember_tpu.serving import TDMServing as JTDMServing
+from dismember_tpu_torch.data.dr_dataset import DRData
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.models.din import DIN, params_from_numpy
+from dismember_tpu_torch.models.dr_models import dr_params_from_numpy
 from dismember_tpu_torch.retrieval.packed_beam import (
     build_pair_table,
     make_packed_beam_fn,
     make_packed_tree,
 )
 from dismember_tpu_torch.retrieval.tree_beam import make_beam_fn
-from dismember_tpu_torch.serving import TDMServing
+from dismember_tpu_torch.serving import DRServing, TDMServing
+from dismember_tpu_torch.train.dr import DRTrainer
 from dismember_tpu_torch.train.sampler import TreeSampler
 from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns
 
@@ -159,6 +162,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tree_path, tmp_path, monkeyp
         TDMTrainer(tree=tree, layer_neg_counts=NEG_COUNTS)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TreeSampler.build(tree, NEG_COUNTS)
+    dr_data = DRData(item_to_id={}, id_to_item={}, num_items=30,
+                     train_seqs=np.zeros((4, 8), np.int64), train_targets=np.arange(4),
+                     eval_seqs=np.zeros((0, 8), np.int64), eval_labels=np.zeros((0, 1), np.int64),
+                     eval_users=np.zeros(0, np.int64), user_consumed={})
+    dr_kw = dict(num_nodes=4, embed_size=8, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DRTrainer(dr_data, **dr_kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DRServing.load(str(tmp_path / "dr_model"), str(tmp_path / "dr_mapping"), "data.csv")
+    dr = DRTrainer(dr_data, device="cpu", **dr_kw)
+    assert dr.layer_params["embedding"].device == torch.device("cpu")
+    layer = jax.tree.map(lambda t: t.numpy(), dr.layer_params)
+    rerank = jax.tree.map(lambda t: t.numpy(), dr.rerank_params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dr_params_from_numpy(layer, rerank)
+    assert dr_params_from_numpy(layer, rerank, device="cpu")[0]["heads"][2]["bias"].shape == (4,)
     serv = TDMServing.load(ckpt, tree_path, device="cpu")
     assert serv.device == torch.device("cpu")
     trainer = TDMTrainer(tree=tree, layer_neg_counts=NEG_COUNTS, device="cpu")

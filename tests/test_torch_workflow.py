@@ -115,6 +115,8 @@ def samples_tree(small_csv, tmp_path_factory):
     ("tdm.conf", "init", "TreeInitParams"), ("tdm.conf", "model", "TDMModelParams"),
     ("tdm.conf", "cluster", "ClusterParams"), ("jtm.conf", "init", "TreeInitParams"),
     ("jtm.conf", "model", "TDMModelParams"), ("jtm.conf", "tree", "JTMTreeParams"),
+    ("deep-retrieval.conf", "model", "DRModelParams"),
+    ("deep-retrieval.conf", "cd", "DRCoordinateParams"),
 ])
 def test_conf_params_match_jax(fname, prefix, name):
     path = os.path.join(REPO, "configs", fname)
@@ -201,8 +203,8 @@ def test_cli_needs_cuda_unless_cpu_is_asked(small_csv, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli(["tdm-initialize-tree", "--conf", conf])
-    with pytest.raises(SystemExit):  # the DR commands are not ported
-        cli(["dr-train-deep-model", "--conf", conf, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli(["dr-train-deep-model", "--conf", conf])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli(["otm-train-deep-model", "--conf", conf])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
