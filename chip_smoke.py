@@ -5,8 +5,9 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
-     ptxas's registers and spills (K1 or the one-tile K3 above 64 registers
-     or spilling fails the run), and K3's tensor-core instructions (HMMA) counted in
+     ptxas's registers and spills (K1, the one-tile K3 over f32 or bf16
+     rows, or the row add on an f32 or a bf16 table above 64 registers or
+     spilling fails the run), and K3's tensor-core instructions (HMMA) counted in
      ``cuobjdump -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
@@ -89,6 +90,18 @@ Phases, one JSON line each; any failed check raises and fails the run:
      launches a step, the first step's calls audited), 2 warm-up and 10
      timed steps, the mirror sync, then K2 on that step's three commits
      against its plain version and timed beside ``index_copy_``;
+  tdm_10m: bench.py's 10M-item TDM cell (24 levels): ``train_resident``
+     over ``ResidentWindows`` of synthetic users (auto route pmv, one K2
+     launch a step), 2 chunks of 16 timed steps, chunk 8 against chunk 16
+     bitwise; ``TDMServing`` on the trained model (auto pair-table dtype:
+     bf16), ``recommend_batch(4096)`` timed with its levels on K3 over bf16
+     rows and audited against the plain level; K3 over a bf16 table against
+     K3 over the f32 table of the same bf16-grid embedding on the 1M
+     catalog, bit for bit; K3 on bf16 rows against its plain version at the
+     serving shape, timed; step resume on the card (example catalog, dense
+     and pmv) against an uninterrupted run, bitwise; a bf16 embedding table
+     (example catalog, mv) twice from one seed, bitwise, with every bf16
+     add checked against its plain version and timed beside ``index_add_``;
   6. the ``{"kernels": [...]}`` summary;
   7. last line ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +114,7 @@ Usage: python3 chip_smoke.py   (from the repo root or anywhere; one GPU)
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -108,6 +122,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -158,6 +173,7 @@ from dismember_tpu_torch.ops.packed_level_kernel import (  # noqa: E402
 )
 from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
     PackedTree,
+    beam_search_packed,
     make_packed_beam_fn,
     make_packed_tree,
 )
@@ -174,7 +190,13 @@ from dismember_tpu_torch.train import sparse_adam  # noqa: E402
 from dismember_tpu_torch.train.dr import DRTrainer  # noqa: E402
 from dismember_tpu_torch.train.jtm import TreeLearner  # noqa: E402
 from dismember_tpu_torch.train.otm import OTMTrainer  # noqa: E402
-from dismember_tpu_torch.train.tdm import TDMTrainer, build_model, packed_fns, serving_fns  # noqa: E402
+from dismember_tpu_torch.train.tdm import (  # noqa: E402
+    ResidentWindows,
+    TDMTrainer,
+    build_model,
+    packed_fns,
+    serving_fns,
+)
 
 SEED = 0
 BATCH, BEAM, TOPK, SEQ_LEN, E = 4096, 20, 10, 10, 16  # configs/tdm.conf, bench.py
@@ -259,6 +281,16 @@ DR_AGREE_QUERIES, DR_MIN_AGREEMENT = 256, 0.95
 K3_WIDE = ((1024, 65, SEQ_LEN, False), (BATCH, 110, SEQ_LEN, True),
            (1024, 128, SEQ_LEN, False), (256, 1500, SEQ_LEN, False),
            (1024, BEAM, 17, False), (BATCH, BEAM, 24, True), (1024, BEAM, 40, False))
+# the tdm_10m phase: bench.py's 10M-item catalog (_deep_tree, _deep_trainer);
+# ResidentWindows over synthetic users of RES_STREAM items each, targets at
+# positions [RES_T_LO, RES_STREAM): 3M windows, a 16 MB upload; the timed
+# run's chunks; the example catalog's resume (iterations, snapshot period,
+# the killed run's length) and bf16-table runs
+TDM_10M_ITEMS = 10_000_000
+RES_USERS, RES_STREAM, RES_T_LO = 100_000, 40, 10
+RES_CHUNK, RES_CHUNKS, RES_TWIN_CHUNK = 16, 2, 8
+RESUME_ITERS, RESUME_EVERY, RESUME_KILLED_AT = 40, 10, 25
+BF16_ITERS = 30
 
 
 def emit(obj) -> None:
@@ -357,28 +389,33 @@ def din_folded_flops(b: int, u: int, l: int, e: int) -> int:
             + b * u * (4 * l * e + 6 * l + 2 * e * e + 6 * e + 1))
 
 
-def k3_bound(b: int, beam: int, l: int, e: int) -> tuple[float, str]:
-    """K3's bound on [b, beam] pair rows: of each row the 2E+6 lanes it needs,
-    the alive mask, the sequence tiles and padding, the weights and its f32
-    outputs; its matmuls at the bf16 tensor-core rate (their operands are
-    bf16), the rest at the f32 rate."""
+def k3_bound(b: int, beam: int, l: int, e: int,
+             row_dtype: torch.dtype = torch.float32) -> tuple[float, str]:
+    """K3's bound on [b, beam] pair rows: of each row the lanes it needs
+    (f32 rows: 2E+6 = 38 lanes; bf16 rows: 2E+10 = 42 lanes of 2 bytes),
+    the alive mask, the sequence tiles and padding, the weights, its f32
+    scores and its id digits (2 f32 or 4 bf16 a candidate); its matmuls at
+    the bf16 tensor-core rate (their operands are bf16), the rest at the
+    f32 rate."""
     u = 2 * beam
-    n_floats = (b * beam * (2 * e + 6) + b * beam + b * l * e + b * l
-                + 3 * e * e + 2 * e + 1 + b * u * 3)
+    k = packed_level_kernel.ID_DIGITS[row_dtype]
+    lane = torch.tensor([], dtype=row_dtype).element_size()
+    n_bytes = (lane * (b * beam * (2 * e + 2 + 2 * k) + b * u * k)
+               + 4 * (b * beam + b * l * e + b * l + 3 * e * e + 2 * e + 1 + b * u))
     mm, rest = din_flops(b * u, l, e)
-    return bound(4 * n_floats, f32_flops=rest, mma_flops=mm)
+    return bound(n_bytes, f32_flops=rest, mma_flops=mm)
 
 
 def row_bound(idx: torch.Tensor, n_table_rows: int, width: int,
-              add: bool) -> tuple[int, float, str]:
+              add: bool, elem_bytes: int = 4) -> tuple[int, float, str]:
     """(rows written, bound ms, bound_by) of a row write or add: the indices,
-    one f32 payload row per distinct destination in [0, n_table_rows)
-    (repeats carry equal payloads, dropped rows are never read), each
-    destination written once and, by the add, read once more; the add does
-    one f32 add per lane of each destination."""
+    one payload row per distinct destination in [0, n_table_rows) (repeats
+    carry equal payloads, dropped rows are never read), each destination
+    written once and, by the add, read once more; the add does one f32 add
+    per lane of each destination."""
     kept = idx[(idx >= 0) & (idx < n_table_rows)]
     written = int(torch.unique(kept).numel())
-    row_b = 4 * width
+    row_b = elem_bytes * width
     by, op = bound(nbytes(idx) + written * row_b * (3 if add else 2),
                    f32_flops=written * width if add else 0)
     return written, by, op
@@ -558,18 +595,29 @@ def seq_inputs(g: torch.Generator, b: int, l: int, dev) -> tuple[torch.Tensor, t
     return seq_e.to(dev), pad.to(dev)
 
 
-def k3_rows(g: torch.Generator, b: int, beam: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+def k3_rows(g: torch.Generator, b: int, beam: int, dev,
+            dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
     """[b, beam] 128-lane pair rows (15% missing children, random id
-    digits) and their parents' alive mask (10% dead, row 1 all dead)."""
-    used = 2 * E + 6
+    digits: 2 base-4096 digits a child in f32 rows, 4 base-256 in bf16
+    rows) and their parents' alive mask (10% dead, row 1 all dead)."""
+    k = packed_level_kernel.ID_DIGITS[dtype]
+    base = 4096 if dtype == torch.float32 else 256
     rows = torch.zeros(b, beam, 128)
     rows[..., : 2 * E] = torch.randn(b, beam, 2 * E, generator=g) * EMB_STD
     rows[..., 2 * E : 2 * E + 2] = (torch.rand(b, beam, 2, generator=g) < 0.85).float()
-    rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, beam, 2), generator=g).float()
-    rows[..., 2 * E + 3 : used : 2] = torch.randint(0, 4096, (b, beam, 2), generator=g).float()
+    if k == 2:
+        used = 2 * E + 6
+        rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, beam, 2), generator=g).float()
+        rows[..., 2 * E + 3 : used : 2] = torch.randint(0, base, (b, beam, 2), generator=g).float()
+    else:
+        for side in range(2):
+            lo = 2 * E + 2 + k * side
+            rows[..., lo] = torch.randint(0, 128, (b, beam), generator=g).float()  # top digit
+            rows[..., lo + 1 : lo + k] = torch.randint(0, base, (b, beam, k - 1),
+                                                       generator=g).float()
     alive = torch.rand(b, beam, generator=g) < 0.9
     alive[1] = False
-    return rows.to(dev), alive.to(dev)
+    return rows.to(dtype).to(dev), alive.to(dev)
 
 
 def k3_check(rows, alive, seq_e, pad, weights) -> tuple[torch.Tensor, ...]:
@@ -580,7 +628,7 @@ def k3_check(rows, alive, seq_e, pad, weights) -> tuple[torch.Tensor, ...]:
     ks, kh = packed_level(rows, alive, seq_e, pad, *weights, E)
     ps, ph = packed_level_plain(rows, alive, seq_e, pad, *weights, E)
     torch.cuda.synchronize()
-    check(torch.equal(kh.view(torch.int32), ph.contiguous().view(torch.int32)),
+    check(kh.dtype == rows.dtype and torch.equal(bits(kh), bits(ph)),
           "packed_level: id lanes not bit-exact")
     live = ps > NEG_INF / 2
     check(torch.equal(ks > NEG_INF / 2, live), "packed_level: dead mask differs")
@@ -594,12 +642,14 @@ def k3_times(rows, alive, seq_e, pad, weights, flush) -> dict:
     l = seq_e.shape[1]
     alive_f = alive.float()
     sc = torch.empty(b, 2 * beam, device=rows.device)
-    hl = torch.empty(b, 2 * beam, 2, device=rows.device)
+    hl = torch.empty(b, 2 * beam, packed_level_kernel.ID_DIGITS[rows.dtype], dtype=rows.dtype,
+                     device=rows.device)
     lib, stream = _cuda.library(), _cuda.stream_handle(rows.device)
+    fn = lib.packed_level_bf16_bf16rows if rows.dtype == torch.bfloat16 else lib.packed_level_bf16
     args = [t.data_ptr() for t in (rows, alive_f, seq_e, pad, *weights, sc, hl)]
-    launch = lambda: _cuda.check_launch("packed_level", lib.packed_level_bf16(  # noqa: E731
+    launch = lambda: _cuda.check_launch("packed_level", fn(  # noqa: E731
         *args, b, beam, rw, l, E, stream))
-    by, op = k3_bound(b, beam, l, E)
+    by, op = k3_bound(b, beam, l, E, rows.dtype)
     return dict(**time_ms(launch), **time_ms(launch, "cold_", flush=flush),
                 **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E),
                           "plain_"),
@@ -697,11 +747,11 @@ def audit_classic(model: DIN, tree: ArrayTree, codes, kernel_lists: list) -> dic
 
 def check_lists(lists: list, tree: ArrayTree) -> None:
     """topk distinct real items in every row."""
-    real = set(tree.item_ids.tolist())
     for row in lists:
         check(len(row) == TOPK, f"a row returned {len(row)} items")
         check(len(set(row.tolist())) == len(row), "repeated item in a row")
-        check(set(row.tolist()) <= real, "returned id is not an item")
+    check(bool(np.isin(np.concatenate(lists), tree.item_ids).all()),
+          "returned id is not an item")
 
 
 def example_data():
@@ -752,11 +802,13 @@ def deep_catalog(dev) -> tuple[TDMServing, np.ndarray, dict]:
 
 def zero_launches() -> None:
     din_kernel.launches = packed_level_kernel.launches = 0
-    row_writer.launches.update(write_rows=0, add_rows=0)
+    packed_level_kernel.launches_bf16_rows = 0
+    row_writer.launches.update({k: 0 for k in row_writer.launches})
 
 
 def read_launches() -> dict:
     return {"din_score": din_kernel.launches, "packed_level": packed_level_kernel.launches,
+            "packed_level_bf16_rows": packed_level_kernel.launches_bf16_rows,
             **row_writer.launches}
 
 
@@ -770,11 +822,12 @@ def uncounted():
     finally:
         din_kernel.launches = saved["din_score"]
         packed_level_kernel.launches = saved["packed_level"]
-        row_writer.launches.update(write_rows=saved["write_rows"], add_rows=saved["add_rows"])
+        packed_level_kernel.launches_bf16_rows = saved["packed_level_bf16_rows"]
+        row_writer.launches.update({k: saved[k] for k in row_writer.launches})
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.contiguous().view(torch.int32)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 # ---------------------------------------------------------------- row kernels
@@ -793,14 +846,14 @@ def row_case(name: str, table: torch.Tensor, idx: torch.Tensor, rows: torch.Tens
     torch.cuda.synchronize()
     exact = torch.equal(bits(got), bits(ref))
     check(exact, f"{name}: kernel differs from its plain version at {tuple(table.shape)}")
-    err = (got - ref).abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
     del got, ref
-    fn = getattr(_cuda.library(), f"{name}_f32")
+    fn = getattr(_cuda.library(), f"{name}_{'bf16' if table.dtype == torch.bfloat16 else 'f32'}")
     args = (table.data_ptr(), idx.data_ptr(), rows.data_ptr(), table.shape[0], idx.shape[0],
             table.shape[1], _cuda.stream_handle(table.device))
     keep = (idx >= 0) & (idx < table.shape[0])
     kept, kept_rows = idx[keep], rows[keep]  # the library calls refuse the rest
-    written, by, op = row_bound(idx, table.shape[0], table.shape[1], add)
+    written, by, op = row_bound(idx, table.shape[0], table.shape[1], add, table.element_size())
     library = ((lambda: table.index_add_(0, kept, kept_rows)) if add else
                (lambda: table.index_copy_(0, kept, kept_rows)))
     t = time_ms(lambda: _cuda.check_launch(name, fn(*args)), flush=flush)
@@ -2018,6 +2071,292 @@ def dr_commits(estep) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- tdm_10m
+def deep_tree(n_items: int) -> ArrayTree:
+    """bench.py's ``_deep_tree``: ids 1..n in ``ids % 97`` categories,
+    built in memory."""
+    ids = np.arange(1, n_items + 1)
+    sid, codes = category_sorted_codes(ids, ids % 97)
+    return ArrayTree.from_loaded(build_tree(sid, codes))
+
+
+def deep_trainer(tree: ArrayTree, dev, **kw) -> TDMTrainer:
+    """bench.py's ``_deep_trainer`` (negatives min(i, 2^i - 1) a level)."""
+    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
+    return TDMTrainer(tree=tree, model_type="din", embed_size=E, layer_neg_counts=neg,
+                      topk=TOPK, beam_size=BEAM, seed=SEED, device=dev, **kw)
+
+
+def resident_training(dev, tree: ArrayTree, rng: np.random.Generator) -> tuple[dict, DIN]:
+    """``train_resident`` at the deep catalog: RES_CHUNKS chunks of
+    RES_CHUNK steps timed on the host clock (the trainer and the upload are
+    set-up), then a twin from the same seed in chunks of RES_TWIN_CHUNK,
+    uncounted, bit for bit the same after the mirror sync.  Returns the
+    facts and the trained model."""
+    t0 = time.perf_counter()
+    items = rng.integers(1, tree.num_items + 1, size=(RES_USERS, RES_STREAM))
+    windows = ResidentWindows.from_items(tree, items, SEQ_LEN, RES_T_LO, RES_STREAM)
+    windows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = deep_trainer(tree, dev)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    check(trainer._sparse and trainer._pmv, "10M catalog: the auto route is not pmv")
+    b, unit = trainer.num_targets_per_batch, trainer.sampler.unit
+    steps = RES_CHUNK * RES_CHUNKS
+    k2 = row_writer.launches["write_rows"]
+    # every operation that makes the host wait for the card warns: the
+    # loop's only ones should be its loss reads, one a chunk
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            logs = trainer.train_resident(windows, steps, chunk=RES_CHUNK,
+                                          progress_interval=RES_CHUNK)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == steps, f"10M resident training: {k2} K2 launches in {steps} pmv steps")
+    losses = [lg["train_loss"] for lg in logs]
+    check(len(losses) == RES_CHUNKS and all(np.isfinite(losses)),
+          f"10M resident training losses: {losses}")
+    # the one wait that repeats is the loss read, once a chunk; the rest
+    # (the mode switch, the dataset's and the labels' uploads) happen once,
+    # where a wait in the step would repeat once a step
+    repeated = {site: n for site, n in collections.Counter(syncs).items() if n > 1}
+    check(len(repeated) <= 1 and all(n == RES_CHUNKS for n in repeated.values()),
+          f"10M resident training: host waits {syncs} in {RES_CHUNKS} chunks")
+    with uncounted():  # the twin only checks that the chunk size changes no bit
+        twin = deep_trainer(tree, dev)
+        twin.train_resident(windows, steps, chunk=RES_TWIN_CHUNK, progress_interval=steps)
+        same = (torch.equal(bits(trainer.emb_state["pmv"]), bits(twin.emb_state["pmv"]))
+                and same_params(trainer, twin))
+    check(same, f"10M resident training: chunk {RES_TWIN_CHUNK} differs from chunk {RES_CHUNK}")
+    facts = {"users": RES_USERS, "stream": RES_STREAM, "t_lo": RES_T_LO,
+             "windows": len(windows), "upload_mb": windows.item_codes.nbytes / 1e6,
+             "auto_route": "pmv", "pmv_state_gb": trainer.emb_state["pmv"].numel() * 4 / 1e9,
+             "mirror_gb": trainer.model.embedding.numel() * 4 / 1e9,
+             "unit": unit, "targets_per_step": b, "steps": steps, "chunk": RES_CHUNK,
+             "windows_s": windows_s, "trainer_setup_s": trainer_s, "train_s": train_s,
+             "ms_per_step": train_s / steps * 1e3,
+             "expanded_rows_per_s": steps * b * unit / train_s, "losses": losses,
+             "k2_launches": k2, "host_waits": syncs,
+             "chunk_invariant": {"twin_chunk": RES_TWIN_CHUNK,
+                                                    "bit_equal": same}}
+    model = trainer.model
+    del trainer, twin
+    torch.cuda.empty_cache()
+    return facts, model
+
+
+def bf16_rows_vs_f32_rows(dev, deep: TDMServing, deep_seqs: np.ndarray) -> dict:
+    """K3 over a bf16 pair table against K3 over the f32 table of the same
+    embedding rounded to the bf16 grid, on the 1M catalog: the beam's ids
+    and scores, and the served top-10, bit for bit (uncounted)."""
+    codes = torch.as_tensor(deep.tree.ids_to_codes(deep_seqs), dtype=torch.long, device=dev)
+    emb = deep.params.embedding.detach().to(torch.bfloat16).float()
+    out = {}
+    with uncounted():
+        for dt in (torch.float32, torch.bfloat16):
+            packed = make_packed_tree(deep.tree, emb, BEAM, dtype=dt)
+            ids, scores = beam_search_packed(deep.params, codes, packed, DIN.precompute_seq)
+            out[dt] = (ids, scores, filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), TOPK))
+            del packed
+    (i32, s32, l32), (i16, s16, l16) = out[torch.float32], out[torch.bfloat16]
+    same = torch.equal(i32, i16) and torch.equal(bits(s32), bits(s16))
+    check(same and compare_lists(l16, l32) == 0,
+          "1M catalog: K3 over the bf16 table differs from K3 over the f32 table")
+    return {"items": DEEP_ITEMS, "batch": BATCH, "ids_and_scores_bit_equal": same,
+            "top10_rows_differing": 0}
+
+
+def k3_bf16_rows(dev, weights, flush) -> dict:
+    """K3 on bf16 pair rows at the serving shape, O(1)-scale inputs as in
+    phase 3 (K3's f32 case), against its plain version (uncounted) and
+    against K3 on the same values as f32 lanes (bit for bit: bf16 rows
+    score as f32 rows of the same values); timed warm and cold with the
+    raw launch."""
+    g = torch.Generator().manual_seed(SEED + 12)
+    rows, alive = k3_rows(g, BATCH, BEAM, dev, torch.bfloat16)
+    seq_e, pad = seq_inputs(g, BATCH, SEQ_LEN, dev)
+    f32_rows = torch.zeros(BATCH, BEAM, 128, device=dev)
+    f32_rows[..., : 2 * E + 2] = rows[..., : 2 * E + 2].float()
+    with uncounted():
+        ks, kd, ps, agree = k3_check(rows, alive, seq_e, pad, weights)
+        ks32, _ = packed_level(f32_rows, alive, seq_e, pad, *weights, E)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(ks), bits(ks32))
+    check(same, "K3 on bf16 rows scores differently from K3 on the same values as f32 lanes")
+    return dict(**agree, **k3_times(rows, alive, seq_e, pad, weights, flush),
+                shape=[BATCH, BEAM, rows.shape[2], SEQ_LEN, E], row_dtype="bfloat16",
+                used_lanes=2 * E + 10, scores_equal_k3_f32_rows=same)
+
+
+def tdm_10m_serving(dev, model: DIN, tree: ArrayTree, rng) -> dict:
+    """TDMServing on the trained 10M model: the auto rule's pair-table
+    dtype (bf16), the table build, ``recommend_batch(4096)`` timed (mean
+    of 5 calls after a warm-up) with its K3 launches over bf16 rows
+    counted, and the route audited against the plain level (uncounted)."""
+    pre, app = serving_fns("din")
+    serv = TDMServing(model, DIN.forward, tree, precompute=pre, apply=app,
+                      apply_emb=packed_fns("din")[1], model_type="din", topk=TOPK,
+                      candidate_num=BEAM)
+    dtype = serv.pair_table_dtype()
+    check(dtype == torch.bfloat16, f"10M catalog: the auto rule picked {dtype}, not bf16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serv._beam_fn(BEAM)  # builds the pair table
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    table = serv._pair_table
+    seqs = rng.integers(1, tree.num_items + 1, size=(BATCH, SEQ_LEN))
+    seqs[:, :3] = np.where(rng.random((BATCH, 3)) < 0.3, 0, seqs[:, :3])  # padding
+    serv.recommend_batch(seqs)  # warm-up
+    calls = 5
+    k3 = packed_level_kernel.launches_bf16_rows
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        lists = serv.recommend_batch(seqs)
+    elapsed = time.perf_counter() - t0
+    k3 = packed_level_kernel.launches_bf16_rows - k3
+    cfg = make_config(tree, BEAM)
+    levels = cfg.max_level - cfg.start_level
+    check(k3 == levels * calls, f"10M serving: {k3} K3 launches over bf16 rows in {calls} "
+                                f"batches of {levels} levels")
+    check_lists(lists, tree)
+    codes = torch.as_tensor(tree.ids_to_codes(seqs), dtype=torch.long, device=dev)
+    with uncounted():
+        audit = audit_packed(model, PackedTree(pair_table=table, embed_size=E, cfg=cfg),
+                             codes, lists)
+    facts = {"items": tree.num_items, "max_level": tree.max_level, "levels": levels,
+             "auto_pair_table_dtype": "bfloat16", "pair_table": list(table.shape),
+             "pair_table_gb": table.numel() * table.element_size() / 1e9,
+             "f32_table_would_be_gb": table.shape[0] * 128 * 4 / 1e9,
+             "table_build_s": table_s, "batch": BATCH, "calls": calls,
+             "ms_per_batch": elapsed / calls * 1e3, "qps": BATCH * calls / elapsed,
+             "k3_bf16_row_launches_per_batch": k3 // calls, "vs_plain": audit}
+    del serv, table
+    torch.cuda.empty_cache()
+    return facts
+
+
+def resume_on_card(dev, tree_path: str, samples) -> dict:
+    """Step resume on the card (example catalog, configs/tdm.conf's
+    trainer, dense and pmv): a run killed after its last snapshot and
+    resumed in a fresh trainer equals an uninterrupted one bit for bit."""
+    tree = ArrayTree.from_file(tree_path)
+    out = {}
+    for route, kw in (("dense", {}), ("pmv", dict(sparse_embed_update=True,
+                                                  sparse_format="pmv"))):
+        make = lambda: TDMTrainer(tree=tree, seed=SEED, device=dev, **TDM_CONF, **kw)  # noqa: E731
+        ckpt = OUT / f"resume_{route}"
+        (OUT / f"resume_{route}.npz").unlink(missing_ok=True)
+        data = (samples.train_seqs, samples.train_targets)
+        ref = make()
+        ref.train(*data, RESUME_ITERS, progress_interval=RESUME_ITERS)
+        part = make()
+        part.train(*data, RESUME_KILLED_AT, progress_interval=RESUME_ITERS,
+                   checkpoint_path=str(ckpt), checkpoint_every=RESUME_EVERY)
+        check((OUT / f"resume_{route}.npz").exists(), "no step snapshot was written")
+        del part
+        res = make()
+        res.train(*data, RESUME_ITERS, progress_interval=RESUME_ITERS,
+                  checkpoint_path=str(ckpt), checkpoint_every=RESUME_EVERY)
+        same = same_params(ref, res) and all(
+            torch.equal(bits(ref.adam[k][n]), bits(res.adam[k][n]))
+            for k in ("mu", "nu") for n in ref.adam[k])
+        if route == "pmv":
+            same = same and torch.equal(bits(ref.emb_state["pmv"]), bits(res.emb_state["pmv"]))
+        check(same, f"{route}: the resumed run differs from the uninterrupted one")
+        out[route] = {"iterations": RESUME_ITERS, "snapshot_every": RESUME_EVERY,
+                      "killed_at": RESUME_KILLED_AT,
+                      "snapshot_mb": (OUT / f"resume_{route}.npz").stat().st_size / 1e6,
+                      "bit_equal": same}
+    return out
+
+
+def bf16_tables(dev, tree_path: str, samples, flush) -> dict:
+    """A bf16 embedding table on the example catalog (sparse, auto format:
+    mv), trained twice from one seed: bitwise equal; every bf16 add of the
+    first run checked bit for bit against its plain version on a copy of
+    its table, then the last one timed beside ``index_add_``."""
+    tree = ArrayTree.from_file(tree_path)
+    make = lambda: TDMTrainer(tree=tree, seed=SEED, device=dev,  # noqa: E731
+                              embed_dtype=torch.bfloat16, sparse_embed_update=True, **TDM_CONF)
+    a = make()
+    check(a._sparse and not a._pmv and a.model.embedding.dtype == torch.bfloat16,
+          "bf16 table: the auto format is not mv")
+    seen = {"calls": 0, "max_abs_err": 0.0}
+    kernel = row_writer.add_rows
+
+    def checked(table, idx, rows):
+        before = table.clone()
+        got = kernel(table, idx, rows)
+        check(table.dtype == torch.bfloat16, "the bf16 route added into a non-bf16 table")
+        with uncounted():
+            ref = row_writer.add_rows_plain(before, idx, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(ref)), "bf16 add differs from its plain version")
+        seen["calls"] += 1
+        seen.update(table=table, idx=idx.clone(), rows=rows.clone())
+        return got
+
+    row_writer.add_rows = checked
+    try:
+        t0 = time.perf_counter()
+        logs = a.train(samples.train_seqs, samples.train_targets, BF16_ITERS,
+                       progress_interval=BF16_ITERS // 2)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        row_writer.add_rows = kernel
+    check(seen["calls"] == BF16_ITERS, f"{seen['calls']} bf16 adds in {BF16_ITERS} mv steps")
+    losses = [lg["train_loss"] for lg in logs]
+    check(all(np.isfinite(losses)), f"bf16 losses: {losses}")
+    b = make()
+    b.train(samples.train_seqs, samples.train_targets, BF16_ITERS,
+            progress_interval=BF16_ITERS // 2)
+    same = same_params(a, b) and torch.equal(bits(a.emb_state["mv"]), bits(b.emb_state["mv"]))
+    check(same, "bf16 table: same-seed runs differ")
+    with uncounted():
+        add = row_case("add_rows", seen["table"], seen["idx"], seen["rows"], flush)
+    return {"items": tree.num_items, "route": "mv", "iterations": BF16_ITERS,
+            "ms_per_step": train_s / BF16_ITERS * 1e3, "losses": losses,
+            "adds_checked": seen["calls"], "same_seed_bit_equal": same, "mv_table_add": add}
+
+
+def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, samples,
+            weights) -> dict:
+    """The 10M-item phase; the caller zeroes and reads the launch counts
+    around it.  ``weights``: phase 3's O(1)-scale scorer weights."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    tree = deep_tree(TDM_10M_ITEMS)
+    tree_s = time.perf_counter() - t0
+    training, model = resident_training(dev, tree, rng)
+    serving = tdm_10m_serving(dev, model, tree, rng)
+    del model
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, device=dev)
+    out = {"items": TDM_10M_ITEMS, "max_level": tree.max_level, "tree_build_s": tree_s,
+           "training": training, "serving": serving, "peak_allocated_gb": peak_gb,
+           "k3_bf16_rows": k3_bf16_rows(dev, weights, flush),
+           "k3_bf16_vs_f32_table_1m": bf16_rows_vs_f32_rows(dev, deep, deep_seqs),
+           "resume": resume_on_card(dev, tree_path, samples),
+           "bf16_tables": bf16_tables(dev, tree_path, samples, flush)}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -2044,18 +2383,30 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     k1_usage = ptxas_usage(log, "din_score_kernel")
-    k3_usage = {k: ptxas_usage(log, f"packed_level_kernelILb{k}E") for k in (1, 0)}
+    # template arguments as nvcc mangles them: <kOneTile, Row> and <kAdd, T>
+    k3_usage = {k: ptxas_usage(log, f"packed_level_kernelILb{k}EfE") for k in (1, 0)}
+    k3_bf16_usage = ptxas_usage(log, "packed_level_kernelILb1E13__nv_bfloat16E")
+    add_usage = {dt: ptxas_usage(log, f"write_kernelILb1E{m}E")
+                 for dt, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"))}
     hmma = hmma_counts(lib_path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
-          "k1_ptxas": k1_usage, "k3_ptxas": {"one_tile": k3_usage[1], "tiles": k3_usage[0]},
-          "sass_hmma": hmma})
+          "k1_ptxas": k1_usage, "k3_ptxas": {"one_tile": k3_usage[1], "tiles": k3_usage[0],
+                                             "one_tile_bf16_rows": k3_bf16_usage},
+          "add_ptxas": add_usage, "sass_hmma": hmma})
     check(0 < k1_usage["registers"] <= 64 and k1_usage["spill_bytes"] == 0,
           f"K1 uses more than 64 registers or spills: {k1_usage}")
     # the one-tile K3 (every L <= 16) within 64 registers and no spill, so
     # the serving batch's 1,024 blocks fit the card in one wave
     check(0 < k3_usage[1]["registers"] <= 64 and k3_usage[1]["spill_bytes"] == 0,
           f"K3's one-tile kernel uses more than 64 registers or spills: {k3_usage}")
+    # and so the one-tile K3 over bf16 rows and the add on a bf16 table, as
+    # their f32 instances
+    check(0 < k3_bf16_usage["registers"] <= 64 and k3_bf16_usage["spill_bytes"] == 0,
+          f"K3's one-tile kernel over bf16 rows uses more than 64 registers or spills: "
+          f"{k3_bf16_usage}")
+    check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
+          f"the row add uses more than 64 registers or spills: {add_usage}")
     check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
 
     # ---- 3. kernels against their plain versions
@@ -2230,22 +2581,44 @@ def main() -> int:
         launches[name] += facts_dre["launches"][name] + facts_drd["launches"][name]
     dr_k2 = facts_drd["estep_10m"]["k2_commits"]
 
+    # ---- the 10M-item TDM path: resident training, bf16 pair-table
+    # serving, resume and bf16 tables; launch counts zeroed just before,
+    # read just after
+    zero_launches()
+    facts_10m = tdm_10m(dev, deep, deep_seqs, tree_path, samples, weights)
+    facts_10m["launches"] = read_launches()
+    check(all(facts_10m["launches"][k] > 0
+              for k in ("packed_level_bf16_rows", "add_rows_bf16", "write_rows")),
+          f"tdm_10m: {facts_10m['launches']}")
+    print(f"tdm_10m: torch.cuda.max_memory_allocated {facts_10m['peak_allocated_gb']:.3f} GB",
+          flush=True)
+    emit({"phase": "tdm_10m", **facts_10m})
+    for name in launches:
+        launches[name] += facts_10m["launches"][name]
+
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
            "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
+           "packed_level_bf16_rows": "dismember_tpu_torch/csrc/din_kernels.cu",
            "write_rows": "dismember_tpu_torch/csrc/row_writer.cu",
-           "add_rows": "dismember_tpu_torch/csrc/row_writer.cu"}
+           "add_rows": "dismember_tpu_torch/csrc/row_writer.cu",
+           "add_rows_bf16": "dismember_tpu_torch/csrc/row_writer.cu"}
     replaces = {"din_score": "dismember_tpu/ops/din_kernel.py:34",
                 "packed_level": "dismember_tpu/ops/packed_level_kernel.py:102",
+                "packed_level_bf16_rows": "dismember_tpu/ops/packed_level_kernel.py:102",
                 "write_rows": "dismember_tpu/ops/row_writer.py:41",
-                "add_rows": "scripts/spike_pallas_scatter128.py:70"}
+                "add_rows": "scripts/spike_pallas_scatter128.py:70",
+                "add_rows_bf16": "scripts/spike_pallas_scatter128.py:70"}
     also = {"write_rows": ["scripts/spike_pallas_scatter.py:44",
                            "scripts/spike_pallas_scatter.py:58",
                            "scripts/spike_pallas_scatter128.py:44"]}
-    # each kernel's timed case: K1 and K3 at the serving shapes, K2 at the
-    # pmv step's commit, the add at the mv step's table update
+    # each kernel's timed case: K1 and K3 at the serving shapes (K3 also on
+    # the 10M bf16 table's rows), K2 at the pmv step's commit, the add at
+    # the mv step's table update (f32, and a bf16 table's)
     timed = {**{n: {**kern[n], "library_ms": None} for n in ("din_score", "packed_level")},
-             "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"]}
+             "packed_level_bf16_rows": {**facts_10m["k3_bf16_rows"], "library_ms": None},
+             "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"],
+             "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]}
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
                              kern["din_score"]["wide"]["max_abs_err"],
                              kern["din_score"]["l24"]["max_abs_err"],
@@ -2261,9 +2634,12 @@ def main() -> int:
                                 facts4["heavy_user"]["vs_plain"]["max_abs_err"],
                                 facts_oe["eval"]["k3_vs_plain"]["max_abs_err"],
                                 facts_od["serving"]["k3_vs_plain"]["max_abs_err"]),
+            "packed_level_bf16_rows": max(facts_10m["k3_bf16_rows"]["max_abs_err"],
+                                          facts_10m["serving"]["vs_plain"]["max_abs_err"]),
             "write_rows": max(row_errors(rk, "write"),
                               *(c["max_abs_err"] for c in dr_k2.values())),
-            "add_rows": row_errors(rk, "add")}
+            "add_rows": row_errors(rk, "add"),
+            "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"]}
     summary = []
     for name, k in timed.items():
         check(launches[name] > 0, f"{name} never launched on the main path")

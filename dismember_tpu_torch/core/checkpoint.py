@@ -5,6 +5,11 @@ flattened to ``/``-joined key paths (``embedding``, ``att_linear/weight``,
 ``heads/0/bias``, ...), the key scheme of ``dismember_tpu/core/checkpoint.py``
 (a dict key or a list index per level), plus an optional ``.meta.json``
 sidecar, so a checkpoint saved by either package loads in the other.
+
+A bf16 leaf is stored as the JAX package's ``np.savez`` stores a JAX bf16
+array: its raw 2-byte bits under a ``V2`` descriptor.  :func:`to_tensor`
+reads such a leaf (from a file, or a JAX array's numpy view) back as
+``torch.bfloat16`` bits, so no bf16 numpy dtype package is needed.
 """
 
 from __future__ import annotations
@@ -40,16 +45,35 @@ def flatten(tree, prefix: str = "") -> dict[str, Any]:
     return out
 
 
-def _to_numpy(v) -> np.ndarray:
+_BF16_BITS = np.dtype("V2")
+
+
+def to_numpy(v) -> np.ndarray:
+    """A leaf as numpy; a bf16 tensor as its raw bits under ``V2``."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view(_BF16_BITS)
+        return v.numpy()
     return np.asarray(v)
+
+
+def to_tensor(a, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """A numpy leaf as a tensor (a copy), then cast to ``dtype``: 2-byte
+    void leaves (``V2`` from a checkpoint, or a JAX bf16 array's numpy
+    view) are bf16 bits."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def save_pytree(path: str, tree, meta: dict | None = None) -> None:
     """Save nested dicts and lists of arrays to ``path`` (.npz) with
     optional meta."""
-    arrays = {k: _to_numpy(v) for k, v in flatten(tree).items()}
+    arrays = {k: to_numpy(v) for k, v in flatten(tree).items()}
     npz_path = path if path.endswith(".npz") else path + ".npz"
     with stage_out(npz_path) as local:
         np.savez(local, **arrays)

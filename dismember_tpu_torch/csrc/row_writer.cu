@@ -8,6 +8,9 @@
 //                     piped_write compute the same function at other widths.
 //    add_rows_f32     replaces scripts/spike_pallas_scatter128.py piped_rmw:
 //                     in place table[idx[i]] += rows[i] for unique idx.
+//    add_rows_bf16    the same add on a bf16 table with bf16 rows: the
+//                     JAX package's scatter-add into a bf16 table
+//                     (table.at[idx].add(rows.astype(bf16))).
 //
 // A row copy is a pure memory operation: it is bound by bytes (each row read
 // once, each table row written once, the add also reads the old row).
@@ -16,7 +19,12 @@
 // write_rows_f32 only where they carry equal payloads (the scratch row of
 // the packed Adam states): every writer then stores the same bytes.
 //
-// Both run one kernel, write_kernel<kAdd>.  It is built around what the
+// All run one kernel, write_kernel<kAdd, T> on 16-byte vectors of the
+// table's element type T (4 floats or 8 bf16).  The bf16 add converts the
+// old row and the payload to f32, adds, and rounds each sum once to bf16
+// (nearest even): the correctly rounded bf16 sum, since an f32 sum of two
+// bf16 values rounds innocuously, which is the value of the JAX package's
+// CPU scatter-add.  It is built around what the
 // packed Adam commit hands write_rows_f32: the sorted distinct physical rows
 // a step touches, then a tail of entries that all repeat the scratch row
 // with zero payloads (about a quarter of the rows at the 1M catalog).  A
@@ -41,6 +49,7 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -53,13 +62,39 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPasses = 4;  // 16-byte loads a lane keeps in flight
 constexpr int kBlocksPerSm = 2048 / kThreads;
 
+// 16 bytes of a row of T, and their elementwise sum.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static __device__ __forceinline__ float4 add(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  using type = uint4;  // 8 bf16
+  static __device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+    const __nv_bfloat162 z = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+    return *reinterpret_cast<const unsigned*>(&z);
+  }
+  static __device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
+    return make_uint4(add2(a.x, b.x), add2(a.y, b.y), add2(a.z, b.z), add2(a.w, b.w));
+  }
+};
+
 // kAdd = false: table[idx[i]] = rows[i], adjacent repeats skipped;
-// kAdd = true: table[idx[i]] += rows[i], nothing skipped.
-template <bool kAdd>
+// kAdd = true: table[idx[i]] += rows[i], nothing skipped.  vpr: 16-byte
+// vectors a row.
+template <bool kAdd, typename T>
 __global__ void __launch_bounds__(kThreads)
-    write_kernel(float4* __restrict__ table, const long long* __restrict__ idx,
-                 const float4* __restrict__ rows, long long P, int R, int vpr,
+    write_kernel(typename Vec<T>::type* __restrict__ table, const long long* __restrict__ idx,
+                 const typename Vec<T>::type* __restrict__ rows, long long P, int R, int vpr,
                  int lpr_log2, int passes) {
+  using V = typename Vec<T>::type;
   const int lane = threadIdx.x & 31;
   const int lpr = 1 << lpr_log2;       // lanes a row
   const int rpp = 32 >> lpr_log2;      // rows a pass
@@ -82,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int c0 = 0; c0 < vpr; c0 += lpr) {  // one step for W <= 128
       const int c = c0 + col;
-      float4 v[kPasses], old[kPasses];
+      V v[kPasses], old[kPasses];
       unsigned to[kPasses];
       bool w[kPasses];
 #pragma unroll
@@ -99,19 +134,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kPasses; ++u)
         if (w[u]) {
-          if constexpr (kAdd)
-            v[u] = make_float4(old[u].x + v[u].x, old[u].y + v[u].y, old[u].z + v[u].z,
-                               old[u].w + v[u].w);
+          if constexpr (kAdd) v[u] = Vec<T>::add(old[u], v[u]);
           __stcs(table + to[u], v[u]);
         }
     }
   }
 }
 
-template <bool kAdd>
-int launch_rows(float* table, const long long* idx, const float* rows, long long P, int R,
-                int W, cudaStream_t stream) {
-  const int vpr = W / 4;
+// W: elements of T a row, a whole number of 16-byte vectors.
+template <bool kAdd, typename T>
+int launch_rows(T* table, const long long* idx, const T* rows, long long P, int R, int W,
+                cudaStream_t stream) {
+  using V = typename Vec<T>::type;
+  const int vpr = W * (int)sizeof(T) / 16;
   if ((unsigned long long)P * vpr >= (1ull << 32) || (unsigned long long)R * vpr >= (1ull << 32))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -125,9 +160,9 @@ int launch_rows(float* table, const long long* idx, const float* rows, long long
   const long long want = ((long long)R + (long long)group * kWarps - 1) / (group * kWarps);
   const int blocks = (int)std::min(want, (long long)sms * kBlocksPerSm);
   if ((long long)R + (long long)blocks * kWarps * group > INT_MAX) return cudaErrorInvalidValue;
-  write_kernel<kAdd><<<blocks, kThreads, 0, stream>>>(reinterpret_cast<float4*>(table), idx,
-                                                      reinterpret_cast<const float4*>(rows),
-                                                      P, R, vpr, lpr_log2, passes);
+  write_kernel<kAdd, T><<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<V*>(table), idx, reinterpret_cast<const V*>(rows), P, R, vpr, lpr_log2,
+      passes);
   return cudaGetLastError();
 }
 
@@ -150,6 +185,17 @@ int add_rows_f32(float* table, const long long* idx, const float* rows, long lon
   if (W <= 0 || W % 4 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   return launch_rows<true>(table, idx, rows, P, R, W, static_cast<cudaStream_t>(stream));
+}
+
+// As add_rows_f32 on a bf16 table [P, W] with bf16 rows [R, W], W a
+// multiple of 8 (rows 16-byte aligned): each sum rounded once to bf16.
+int add_rows_bf16(void* table, const long long* idx, const void* rows, long long P, int R,
+                  int W, void* stream) {
+  if (W <= 0 || W % 8 != 0 || R < 0 || P < 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  return launch_rows<true>(static_cast<__nv_bfloat16*>(table), idx,
+                           static_cast<const __nv_bfloat16*>(rows), P, R, W,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core.checkpoint import to_numpy, to_tensor
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.models.embedding import embed_lookup
 from dismember_tpu_torch.ops.din_kernel import din_score, score_chain
@@ -73,7 +74,7 @@ class DIN(nn.Module):
         def conv(node):
             if isinstance(node, dict):
                 return {k: conv(v) for k, v in node.items()}
-            return node.detach().cpu().numpy()
+            return to_numpy(node)
 
         return conv(self.param_tree())
 
@@ -87,7 +88,7 @@ class DIN(nn.Module):
                 for k in dst:
                     copy(dst[k], src[k], f"{path}/{k}" if path else k)
                 return
-            src = torch.tensor(np.asarray(src), dtype=dst.dtype)
+            src = to_tensor(src, dst.dtype)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
                     f"{path}: shape {tuple(src.shape)}, expected {tuple(dst.shape)}"

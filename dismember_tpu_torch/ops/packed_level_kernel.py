@@ -13,11 +13,17 @@ scores both children with the DIN scorer, matmul operands rounded to bf16
 with f32 accumulation (the TPU MXU's default precision), sets -3.4e38 where
 the child is missing or its parent is dead, and copies the id lanes through
 bit-exactly.  Outputs are block-ordered: scores [B, 2*beam] = [left | right]
-and hilo [B, 2*beam, 2].
+and hilo [B, 2*beam, 2].  The rows may also be a bf16 pair table's (the
+JAX package's bf16 layout, ``retrieval/packed_beam.py``): lanes [2E+2,
+2E+10) then hold 4 base-256 id digits a child (42 used lanes), and the
+digit output is [B, 2*beam, 4] bf16.  Since the scorer rounds every
+embedding to bf16 anyway, bf16 rows score as f32 rows holding the same
+values.
 
-:func:`packed_level` launches ``packed_level_bf16`` (``csrc/din_kernels.cu``)
-for CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel
-is built for E=16 and takes any L (in 16-position tiles).  A query row's
+:func:`packed_level` launches ``packed_level_bf16`` (f32 rows) or
+``packed_level_bf16_bf16rows`` (bf16 rows; ``csrc/din_kernels.cu``) for
+CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel is
+built for E=16 and takes any L (in 16-position tiles).  A query row's
 staging area in shared memory grows with the beam; a beam wider than one
 row of a block can hold (``packed_level_max_beam``, ~1,340 parents at L <=
 16 on an H100) is split here into chunks of parents, one launch each, and
@@ -41,8 +47,12 @@ from dismember_tpu_torch.ops.din_kernel import score_chain
 
 NEG_INF = -3.4e38  # score of a missing child or dead parent
 
-# K3 launches on CUDA tensors; chip_smoke.py zeroes and reads it
+# K3 launches on CUDA tensors, over f32 rows and over bf16 rows;
+# chip_smoke.py zeroes and reads them
 launches = 0
+launches_bf16_rows = 0
+# id digits a child, by the pair rows' dtype
+ID_DIGITS = {torch.float32: 2, torch.bfloat16: 4}
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -51,12 +61,14 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
                        embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's plain version: the same six bf16 roundings as the kernel."""
-    e = embed_size
-    item_e = torch.cat([rows[..., :e], rows[..., e : 2 * e]], dim=1)
-    exists = torch.cat([rows[..., 2 * e], rows[..., 2 * e + 1]], dim=1) > 0
+    """K3's plain version: the same six bf16 roundings as the kernel; bf16
+    rows are upcast for the scores and their digits kept as they are."""
+    e, k = embed_size, ID_DIGITS[rows.dtype]
+    f = rows.float()
+    item_e = torch.cat([f[..., :e], f[..., e : 2 * e]], dim=1)
+    exists = torch.cat([f[..., 2 * e], f[..., 2 * e + 1]], dim=1) > 0
     hilo = torch.cat(
-        [rows[..., 2 * e + 2 : 2 * e + 4], rows[..., 2 * e + 4 : 2 * e + 6]], dim=1
+        [rows[..., 2 * e + 2 : 2 * e + 2 + k], rows[..., 2 * e + 2 + k : 2 * e + 2 + 2 * k]], dim=1
     )
     ok = exists & (alive > 0).repeat(1, 2)
     logit = score_chain(item_e, seq_e, pad, att_w, w1, b1, w2, b2, rnd=_bf16)
@@ -64,10 +76,12 @@ def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
 
 
 @functools.cache
-def _kernel_max_beam(l: int, device_index: int) -> int:
+def _kernel_max_beam(l: int, device_index: int, bf16_rows: bool = False) -> int:
     """The widest beam one launch takes at sequence length ``l`` on a card."""
+    lib = _cuda.library()
     with torch.cuda.device(device_index):
-        beam = _cuda.library().packed_level_max_beam(l)
+        beam = (lib.packed_level_max_beam_bf16rows if bf16_rows
+                else lib.packed_level_max_beam)(l)
     if beam < 1:
         raise RuntimeError(f"packed_level: no beam fits a block at L={l}")
     return beam
@@ -90,24 +104,29 @@ def _split_beam(level_fn, max_beam: int, rows, alive, *rest):
 def _launch(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
             embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One K3 launch over the whole beam, on checked CUDA tensors."""
-    global launches
+    global launches, launches_bf16_rows
     dev = rows.device
     b, beam, row = rows.shape
+    bf16_rows = rows.dtype == torch.bfloat16
     scores = torch.empty((b, 2 * beam), dtype=torch.float32, device=dev)
-    hilo = torch.empty((b, 2 * beam, 2), dtype=torch.float32, device=dev)
-    code = _cuda.library().packed_level_bf16(
+    hilo = torch.empty((b, 2 * beam, ID_DIGITS[rows.dtype]), dtype=rows.dtype, device=dev)
+    lib = _cuda.library()
+    code = (lib.packed_level_bf16_bf16rows if bf16_rows else lib.packed_level_bf16)(
         rows.data_ptr(), alive.data_ptr(), seq_e.data_ptr(), pad.data_ptr(),
         att_w.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), scores.data_ptr(), hilo.data_ptr(),
         b, beam, row, seq_e.shape[1], embed_size, _cuda.stream_handle(dev),
     )
     _cuda.check_launch("packed_level", code)
-    launches += 1
+    if bf16_rows:
+        launches_bf16_rows += 1
+    else:
+        launches += 1
     return scores, hilo
 
 
 def packed_level(
-    rows: torch.Tensor,  # [B, beam, ROW] float32 gathered pair rows
+    rows: torch.Tensor,  # [B, beam, ROW] gathered pair rows, float32 or bfloat16
     alive: torch.Tensor,  # [B, beam] bool/float parent-alive mask
     seq_e: torch.Tensor,  # [B, L, E]
     pad: torch.Tensor,  # [B, L] float32, 1.0 where padding
@@ -118,21 +137,24 @@ def packed_level(
     b2: torch.Tensor,  # [1]
     embed_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Block-ordered (scores [B, 2*beam], id hi/lo [B, 2*beam, 2]): the CUDA
-    kernel for CUDA tensors, in chunks of parents through the beam split
-    when the beam is wider than one launch takes; the plain version for CPU
-    tensors."""
+    """Block-ordered (scores [B, 2*beam], id digits [B, 2*beam, 2 or 4] in
+    the rows' dtype): the CUDA kernel for CUDA tensors, in chunks of parents
+    through the beam split when the beam is wider than one launch takes;
+    the plain version for CPU tensors."""
     dev = rows.device
     weights = (att_w, w1, b1, w2, b2)
     if dev.type == "cpu":
         return packed_level_plain(rows, alive, seq_e, pad, *weights, embed_size)
     if dev.type != "cuda":
         raise ValueError(f"packed_level: unsupported device {dev}")
+    if rows.dtype not in ID_DIGITS:
+        raise ValueError(f"packed_level: rows are {rows.dtype}, expected float32 or bfloat16")
     b, beam, _ = rows.shape
     l, e = seq_e.shape[1], embed_size
     alive = alive.to(torch.float32)
     name = "packed_level"
-    _cuda.check_inputs(name, dev, rows=rows, alive=alive, seq_e=seq_e, pad=pad,
+    _cuda.check_inputs(name, dev, rows.dtype, rows=rows)
+    _cuda.check_inputs(name, dev, alive=alive, seq_e=seq_e, pad=pad,
                        att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
     for arg, t, shape in (("alive", alive, (b, beam)), ("seq_e", seq_e, (b, l, e)),
                           ("pad", pad, (b, l)), ("att_w", att_w, (e, e)),
@@ -140,7 +162,7 @@ def packed_level(
                           ("w2", w2, (1, e)), ("b2", b2, (1,))):
         _cuda.check_shape(name, arg, t, shape)
     max_beam = _kernel_max_beam(l, dev.index if dev.index is not None
-                                else torch.cuda.current_device())
+                                else torch.cuda.current_device(), rows.dtype == torch.bfloat16)
     if beam > max_beam:
         return _split_beam(_launch, max_beam, rows, alive, seq_e, pad, *weights, embed_size)
     return _launch(rows, alive, seq_e, pad, *weights, embed_size)

@@ -7,14 +7,22 @@ children of every surviving parent.  Same frontiers and returned items as
 the classic loop, up to K3's bf16 operand rounding and tie order.
 
 ``pair_table[c]`` packs everything the beam needs about both children of
-internal code c into one float32 row:
+internal code c into one row:
 
     [ emb(2c+1) | emb(2c+2) | exists(2c+1), exists(2c+2),
-      idhi(2c+1), idlo(2c+1), idhi(2c+2), idlo(2c+2) | 0-pad to 128k lanes ]
+      id digits(2c+1) | id digits(2c+2) | 0-pad to 128k lanes ]
 
-Ids are stored as exact float digits (id = hi*4096 + lo), never bit-cast.
-The JAX package's hybrid contraction levels and stride-2 subtree rows are
-TPU layout workarounds that give the same results; they are not ported.
+Ids are stored as exact float digits, never bit-cast: in an f32 table 2
+base-4096 digits a child (id = hi*4096 + lo), in a bf16 table 4 base-256
+digits (every digit an exact bf16 integer; ``_ID_LAYOUT``).  A bf16 table
+(``dtype=torch.bfloat16``) halves the memory, 8.6 GB -> 4.3 GB at 10M
+items; its embedding lanes are rounded to bf16, which the DIN scorer does
+to every operand anyway (``train.tdm.MATMUL_FIRST_SCORERS``), so its
+scores are those of the f32 table.  Tables above ``_ONE_SHOT_BUILD_BYTES``
+are filled in row chunks, bit for bit the one-shot build, with the host's
+digit staging bounded by a chunk.  The JAX package's hybrid contraction
+levels and stride-2 subtree rows are TPU layout workarounds that give the
+same results; they are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 
 from dismember_tpu_torch.index.arraytree import ArrayTree
-from dismember_tpu_torch.ops.packed_level_kernel import packed_level
+from dismember_tpu_torch.ops.packed_level_kernel import ID_DIGITS, packed_level
 from dismember_tpu_torch.retrieval.tree_beam import (
     NEG_INF,
     TreeBeamConfig,
@@ -35,12 +43,19 @@ from dismember_tpu_torch.retrieval.tree_beam import (
     start_frontier,
 )
 
-# id lanes of the f32 table: 2 base-4096 digits per id, each an exact f32
-# integer (the top digit <= 2^19 for int32 ids).  The bf16 layout (4
-# base-256 digits) is not ported yet.
-ID_DIGITS, ID_BASE = 2, 4096
-# above this the JAX package serves a bf16 table (serving.py's auto rule)
-MAX_F32_TABLE_BYTES = 4 << 30
+# id lanes per table dtype: (digits per id, base).  Every digit must be an
+# exact integer in the lane dtype: f32 takes 2 base-4096 digits (the top
+# digit <= 2^19 for int32 ids), bf16 (integers up to 256 exact) 4 base-256
+# digits (the top digit <= 127).
+_ID_LAYOUT = {torch.float32: (ID_DIGITS[torch.float32], 4096),
+              torch.bfloat16: (ID_DIGITS[torch.bfloat16], 256)}
+# builds above this many bytes go in row chunks of about this size
+_ONE_SHOT_BUILD_BYTES = 1 << 30
+
+
+def _id_layout(dtype: torch.dtype) -> tuple[int, int]:
+    """(digits per id, base) for a pair-table lane dtype."""
+    return _ID_LAYOUT[dtype]
 
 
 def _encode_id_digits(ids: np.ndarray, k: int, base: int) -> np.ndarray:
@@ -69,9 +84,15 @@ def _decode_id_digits(digits: torch.Tensor, base: int) -> torch.Tensor:
 class PackedTree:
     """Device-side packed pair table + the beam config it serves."""
 
-    pair_table: torch.Tensor  # [n_pairs, row_width] float32
+    pair_table: torch.Tensor  # [n_pairs, row_width] float32 or bfloat16
     embed_size: int
     cfg: TreeBeamConfig
+
+
+def pair_row_width(embed_size: int, dtype=torch.float32) -> int:
+    """Lanes of a pair row: the used lanes rounded up to 128."""
+    used = 2 * embed_size + 2 + 2 * _id_layout(dtype)[0]
+    return (used + 127) // 128 * 128
 
 
 @torch.inference_mode()
@@ -80,48 +101,44 @@ def build_pair_table(
     node_exists: np.ndarray,  # [total_codes] bool
     node_id: np.ndarray,  # [total_codes] int32
     total_codes: int,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """f32 pair table on ``embedding``'s device: n_pairs = (total_codes - 1)
-    // 2 rows, one per internal heap slot, existing or not (dead rows are
-    masked by their exists lanes at query time).  Tables over
-    ``MAX_F32_TABLE_BYTES`` take the JAX package's bf16 layout, which is not
-    ported yet, and raise."""
+    """The pair table in ``dtype`` on ``embedding``'s device: n_pairs =
+    (total_codes - 1) // 2 rows, one per internal heap slot, existing or
+    not (dead rows are masked by their exists lanes at query time).  Any
+    size builds; above ``_ONE_SHOT_BUILD_BYTES`` the rows are filled in
+    equal chunks (the same bits)."""
     n_pairs = (total_codes - 1) // 2
     e = embedding.shape[1]
-    used = 2 * e + 2 + 2 * ID_DIGITS
-    row_width = ((used + 127) // 128) * 128
-    if n_pairs * row_width * 4 > MAX_F32_TABLE_BYTES:
-        raise NotImplementedError(
-            f"a pair table of {n_pairs} rows exceeds {MAX_F32_TABLE_BYTES} bytes "
-            "in f32; the bf16 pair table is not ported yet (ROADMAP queue 1, "
-            "next item c)"
-        )
-    dev = embedding.device
-
-    child_exists = np.asarray(
-        node_exists[1 : 2 * n_pairs + 1], np.float32
-    ).reshape(n_pairs, 2)
-    digits = _encode_id_digits(
-        np.asarray(node_id[1 : 2 * n_pairs + 1], np.int64), ID_DIGITS, ID_BASE
-    )  # [2*n_pairs, k]
-    id_lanes = np.concatenate([digits[0::2], digits[1::2]], axis=1)
-
-    table = torch.zeros((n_pairs, row_width), dtype=torch.float32, device=dev)
-    table[:, : 2 * e] = embedding[1 : 2 * n_pairs + 1].reshape(n_pairs, 2 * e)
-    table[:, 2 * e : 2 * e + 2] = torch.from_numpy(child_exists).to(dev)
-    table[:, 2 * e + 2 : used] = torch.from_numpy(id_lanes).to(dev)
+    k, base = _id_layout(dtype)
+    row_width = pair_row_width(e, dtype)
+    table = torch.zeros((n_pairs, row_width), dtype=dtype, device=embedding.device)
+    out_bytes = n_pairs * row_width * table.element_size()
+    n_chunks = max(1, -(-out_bytes // _ONE_SHOT_BUILD_BYTES))
+    cs = max(1, -(-n_pairs // n_chunks))
+    for start in range(0, n_pairs, cs):
+        stop = min(start + cs, n_pairs)
+        lo, hi = 1 + 2 * start, 1 + 2 * stop  # the chunk's children
+        table[start:stop, : 2 * e] = embedding[lo:hi].reshape(stop - start, 2 * e).to(dtype)
+        exists = np.asarray(node_exists[lo:hi], np.float32).reshape(stop - start, 2)
+        digits = _encode_id_digits(np.asarray(node_id[lo:hi], np.int64), k, base)
+        lanes = np.concatenate([exists, digits[0::2], digits[1::2]], axis=1)
+        table[start:stop, 2 * e : 2 * e + 2 + 2 * k] = torch.from_numpy(lanes).to(
+            table.device).to(dtype)
     return table
 
 
-def make_packed_tree(tree: ArrayTree, embedding: torch.Tensor, beam: int) -> PackedTree:
-    """The f32 pair table of ``tree`` and the beam config it serves."""
+def make_packed_tree(tree: ArrayTree, embedding: torch.Tensor, beam: int,
+                     dtype: torch.dtype = torch.float32) -> PackedTree:
+    """The pair table of ``tree`` in ``dtype`` and the beam config it serves."""
     cfg = make_config(tree, beam)
     if cfg.max_level - cfg.start_level < 1:
         raise ValueError(
             "packed beam needs at least one level below the start level; "
             "use the classic loop for trees this small"
         )
-    table = build_pair_table(embedding, tree.node_exists, tree.node_id, tree.total_codes)
+    table = build_pair_table(embedding, tree.node_exists, tree.node_id, tree.total_codes,
+                             dtype=dtype)
     return PackedTree(pair_table=table, embed_size=int(embedding.shape[1]), cfg=cfg)
 
 
@@ -144,10 +161,11 @@ def beam_search_packed(
     weights = params.scorer_weights()
 
     frontier, scores = start_frontier(cfg, b, seq_codes.device)
-    dead = _encode_id_digits(np.asarray([-1]), ID_DIGITS, ID_BASE)[0]
-    ids_hilo = torch.tensor(dead, device=seq_codes.device).expand(
-        b, 2 * cfg.beam, ID_DIGITS
-    )  # (-1, 4095): a dead slot decodes to -1
+    k, base = _id_layout(table.dtype)
+    dead = _encode_id_digits(np.asarray([-1]), k, base)[0]
+    ids_hilo = torch.tensor(dead, device=seq_codes.device).to(table.dtype).expand(
+        b, 2 * cfg.beam, k
+    )  # (-1, base-1, ...): a dead slot decodes to -1
     for _ in range(cfg.max_level - cfg.start_level):
         top_codes, top_alive = select_top(frontier, scores, cfg.beam)
         rows = table[top_codes.clamp(0, n_pairs - 1)]  # [B, beam, ROW]
@@ -157,7 +175,7 @@ def beam_search_packed(
         # K3's outputs are block-ordered (left children | right children)
         frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)
 
-    ids = _decode_id_digits(ids_hilo, ID_BASE)
+    ids = _decode_id_digits(ids_hilo, base)
     leaf_ok = scores > NEG_INF / 2
     return torch.where(leaf_ok, ids, -1), scores
 

@@ -4,10 +4,12 @@ Port of ``TDMServing`` and ``OTMServing`` from ``dismember_tpu/serving.py``.
 TDM (TDM.scala's ``predict`` = sigmoid scores, ``recommend`` = beam search +
 consumed filter + top-k): trees with ``max_level >= 8`` serve through the
 packed pair-table loop (K3 per level), smaller ones through the classic
-loop (K1 per level); ``predict`` scores through K1.  A pair table over 4 GB
-in f32 (where the JAX facade switches to bf16 lanes) raises
-``NotImplementedError``.  OTM (OTM.scala) serves through its trainer's
-packed loop over the complete tree (K3 per level), in raw item-id space.
+loop (K1 per level); ``predict`` scores through K1.  The pair table is f32,
+or bf16 where the f32 table would pass ``TDMServing._BF16_TABLE_BYTES``
+(4 GB: a 10M-item catalog's 8.6 GB table becomes 4.3 GB) and the scorer is
+matmul-first, the JAX facade's rule; K3 reads either.  OTM (OTM.scala)
+serves through its trainer's packed loop over the complete tree (K3 per
+level), in raw item-id space.
 """
 
 from __future__ import annotations
@@ -27,17 +29,23 @@ from dismember_tpu_torch.retrieval.packed_beam import (
     PackedTree,
     build_pair_table,
     make_packed_beam_fn,
+    pair_row_width,
 )
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn, make_config
 from dismember_tpu_torch.train.dr import DRTrainer
 from dismember_tpu_torch.train.otm import OTMTrainer
-from dismember_tpu_torch.train.tdm import build_model, packed_fns, serving_fns
+from dismember_tpu_torch.train.tdm import (
+    MATMUL_FIRST_SCORERS,
+    build_model,
+    packed_fns,
+    serving_fns,
+)
 
 
 class TDMServing:
     def __init__(self, params, forward, tree: ArrayTree, precompute=None,
                  apply=None, apply_emb=None, packed: bool | None = None,
-                 model_type: str | None = None,
+                 packed_dtype: str | None = None, model_type: str | None = None,
                  topk: int = 10, candidate_num: int = 20):
         self.params = params  # the scorer module (DIN), on its device
         self.forward = forward
@@ -47,6 +55,15 @@ class TDMServing:
         self.apply_emb = apply_emb
         # packed pair-table beam: None = auto (on for deep trees)
         self.packed = packed
+        # pair-table lane dtype: "float32" | "bfloat16" | None = auto (bf16
+        # when the f32 table would pass _BF16_TABLE_BYTES and the scorer is
+        # matmul-first: its scores are the f32 table's)
+        if packed_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"packed_dtype must be None, 'float32' or 'bfloat16', "
+                             f"got {packed_dtype!r}")
+        self.packed_dtype = packed_dtype
+        # the model's name when known; None (direct construction) counts as
+        # matmul-first, as in the JAX facade
         self.model_type = model_type
         self.topk = topk
         self.candidate_num = candidate_num
@@ -55,11 +72,15 @@ class TDMServing:
         self._beam_fns: dict[int, object] = {}
         self._pair_table = None
 
+    _BF16_TABLE_BYTES = 4 << 30  # the auto rule's threshold for the f32 table
+
     @classmethod
     def load(cls, model_path: str, tree_path: str, device="cuda",
              **kwargs) -> "TDMServing":
         """Load a checkpoint (either package's) and a tree file onto
-        ``device``; raises if ``device`` is CUDA and there is none."""
+        ``device``; raises if ``device`` is CUDA and there is none.
+        ``kwargs`` (``packed``, ``packed_dtype``, ``topk``, ...) go to the
+        constructor."""
         dev = resolve_device(device)
         tree = ArrayTree.from_file(tree_path)
         meta = load_meta(model_path)
@@ -95,6 +116,19 @@ class TDMServing:
         cfg = make_config(self.tree, cn)
         return self.tree.max_level >= 8 and cfg.max_level - cfg.start_level >= 1
 
+    def _matmul_first(self) -> bool:
+        return self.model_type is None or self.model_type in MATMUL_FIRST_SCORERS
+
+    def pair_table_dtype(self) -> torch.dtype:
+        """The pair table's lane dtype: ``packed_dtype``, or the auto rule."""
+        if self.packed_dtype is not None:
+            return getattr(torch, self.packed_dtype)
+        n_pairs = (self.tree.total_codes - 1) // 2
+        f32_bytes = n_pairs * pair_row_width(self.params.embed_size) * 4
+        if f32_bytes > self._BF16_TABLE_BYTES and self._matmul_first():
+            return torch.bfloat16
+        return torch.float32
+
     def _beam_fn(self, cn: int):
         if cn not in self._beam_fns:
             if self._use_packed(cn):
@@ -102,6 +136,7 @@ class TDMServing:
                     self._pair_table = build_pair_table(
                         self.params.embedding, self.tree.node_exists,
                         self.tree.node_id, self.tree.total_codes,
+                        dtype=self.pair_table_dtype(),
                     )
                 packed = PackedTree(
                     pair_table=self._pair_table,

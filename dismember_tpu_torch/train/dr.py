@@ -50,7 +50,7 @@ from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.models import dr_models
 from dismember_tpu_torch.models.losses import cross_entropy
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search
-from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train import sparse_adam, step_resume
 from dismember_tpu_torch.train.tdm import _not_ported
 
 logger = logging.getLogger("dismember_tpu_torch.dr")
@@ -403,6 +403,36 @@ class DRTrainer:
         self.layer_params, self.rerank_params = dr_models.dr_params_from_numpy(
             layer, rerank, self.device)
 
+    # -- step-level snapshots (train/step_resume.py) ----------------------
+    _MIRROR_KEYS = ("embedding", "softmax_w", "softmax_b")
+
+    def _step_state(self) -> dict:
+        """The loop state a within-stage snapshot holds.  In pmv mode the
+        packed p|m|v states own the item tables, so the [V, E] mirrors
+        (layer and rerank embeddings, softmax w and b) are left out."""
+        lp, rp = self.layer_params, self.rerank_params
+        if self._pmv:
+            lp = {k: v for k, v in lp.items() if k != "embedding"}
+            rp = {k: v for k, v in rp.items() if k not in self._MIRROR_KEYS}
+        return {"layer_params": lp, "layer_opt_state": self.layer_opt_state,
+                "rerank_params": rp, "rerank_opt_state": self.rerank_opt_state,
+                "gen": step_resume.generator_state(self._gen)}
+
+    def _restore_step_state(self, loaded: dict) -> None:
+        st = step_resume.to_torch(loaded, self._step_state())
+        self.layer_opt_state = st["layer_opt_state"]
+        self.rerank_opt_state = st["rerank_opt_state"]
+        step_resume.set_generator_state(self._gen, st["gen"])
+        if self._pmv:
+            self.layer_params = dict(st["layer_params"],
+                                     embedding=self.layer_params["embedding"])
+            self.rerank_params = dict(st["rerank_params"],
+                                      **{k: self.rerank_params[k] for k in self._MIRROR_KEYS})
+            self._mirrors_stale = True
+            self._record_mirror_ids()
+        else:
+            self.layer_params, self.rerank_params = st["layer_params"], st["rerank_params"]
+
     # ------------------------------------------------------------------
     def train(self, num_epochs: int, progress_interval: int = 0,
               rerank_epochs: int | None = None, checkpoint_path: str | None = None,
@@ -410,9 +440,9 @@ class DRTrainer:
         """``rerank_epochs`` mirrors the reference's ``reRankStoppingEpoch``
         (dr LocalOptimizer.scala:35-38,88-96): rerank training stops after
         that many epochs while the layer model keeps training.
-        ``checkpoint_path`` (step resume, ROADMAP item b) is not ported."""
-        if checkpoint_path or checkpoint_every:
-            raise _not_ported("checkpoint_path", "item b: step_resume")
+
+        ``checkpoint_path``/``checkpoint_every`` (in batches) snapshot the
+        loop state for a bit-exact resume (``train/step_resume.py``)."""
         self._adopt_mirrors()
         d = self.data
         n = len(d.train_seqs)
@@ -422,13 +452,25 @@ class DRTrainer:
         self.train_loss_log: list[dict] = []
         bsz = self.num_targets_per_batch
         rerank_stop = rerank_epochs if rerank_epochs is not None else num_epochs
-        for epoch in range(1, num_epochs + 1):
+        start_epoch, start_s = 1, 0
+        if checkpoint_path:
+            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            if loaded is not None:
+                st, meta = loaded
+                self._restore_step_state(st)
+                step_resume.rng_state_from_json(rng, meta["rng_before_perm"])
+                start_epoch, start_s = int(meta["epoch"]), int(meta["s"]) + bsz
+                logger.info(f"resumed step checkpoint {checkpoint_path} at epoch "
+                            f"{start_epoch} offset {meta['s']}")
+        for epoch in range(start_epoch, num_epochs + 1):
+            rng_before_perm = step_resume.rng_state_to_json(rng)
             perm = rng.permutation(n)
             t0 = time.perf_counter()
             it = 0
             layer_sum = torch.zeros(self.num_layers, device=self.device)
             rerank_sum = torch.zeros((), device=self.device)
-            for s in range(0, n, bsz):
+            s0, start_s = start_s, 0  # a resume lands mid-epoch once
+            for s in range(s0, n, bsz):
                 idx = perm[s : s + bsz]
                 seqs = self._ids(d.train_seqs[idx])
                 targets = d.train_targets[idx]
@@ -442,6 +484,12 @@ class DRTrainer:
                     losses, rloss = self._layer_step(seqs, paths), float("nan")
                 layer_sum += losses
                 it += 1
+                if checkpoint_path and checkpoint_every > 0 and it % checkpoint_every == 0 \
+                        and s + bsz < n:
+                    step_resume.save_step_state(
+                        checkpoint_path, self._step_state(),
+                        {"epoch": epoch, "s": s, "rng_before_perm": rng_before_perm})
+                    logger.info(f"step checkpoint saved at epoch {epoch} offset {s}")
                 if progress_interval > 0 and it % progress_interval == 0:
                     ll = ", ".join(f"{float(x):.4f}" for x in losses)
                     logger.info(f"Epoch {epoch} iter {it}: layer loss [{ll}], "

@@ -48,7 +48,7 @@ from dismember_tpu_torch.retrieval.packed_beam import (
     make_packed_beam_fn,
 )
 from dismember_tpu_torch.retrieval.tree_beam import NEG_INF, TreeBeamConfig
-from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train import sparse_adam, step_resume
 from dismember_tpu_torch.train.row_step import RowStepTrainer
 from dismember_tpu_torch.train.tdm import _not_ported
 
@@ -304,16 +304,27 @@ class OTMTrainer(RowStepTrainer):
     ) -> list[dict]:
         """Epochs over the train windows in ``np.random.default_rng(seed)``
         order; per-epoch logs with the JAX package's keys.  Leaves the pmv
-        mirror synced.  Step-level checkpoints (``checkpoint_path``) are not
-        ported yet."""
-        if checkpoint_path:
-            raise _not_ported("checkpoint_path", "item b: step_resume")
+        mirror synced.  ``checkpoint_path``/``checkpoint_every`` (in
+        batches) snapshot the loop state for a bit-exact resume
+        (``train/step_resume.py``); the epoch a kill lands in resumes mid-
+        epoch, and that epoch's log lacks the skipped batches' losses."""
         d = self.data
         n = len(d.train_seqs)
         rng = np.random.default_rng(self.seed)
         logs: list[dict] = []
         self._adopt_mirrors()
-        for epoch in range(1, num_epochs + 1):
+        start_epoch, start_bi = 1, 0
+        if checkpoint_path:
+            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            if loaded is not None:
+                st, meta = loaded
+                self._restore_step_state(st)
+                step_resume.rng_state_from_json(rng, meta["rng_before_perm"])
+                start_epoch, start_bi = int(meta["epoch"]), int(meta["batch"]) + 1
+                logger.info(f"resumed step checkpoint {checkpoint_path} at epoch "
+                            f"{start_epoch} batch {meta['batch']}")
+        for epoch in range(start_epoch, num_epochs + 1):
+            rng_before_perm = step_resume.rng_state_to_json(rng)
             perm = rng.permutation(n)
             epoch_losses: list[list[float]] = []
             t0 = time.perf_counter()
@@ -325,7 +336,8 @@ class OTMTrainer(RowStepTrainer):
             def drain() -> None:
                 epoch_losses.append(inflight.popleft().cpu().double().tolist())
 
-            for bi in range(num_batches):
+            bi0, start_bi = start_bi, 0  # a resume lands mid-epoch once
+            for bi in range(bi0, num_batches):
                 idx = perm[bi * self.train_batch_size : (bi + 1) * self.train_batch_size]
                 targets_np = d.train_labels[idx]
                 if targets_np.shape[1] > self.label_num:
@@ -338,6 +350,11 @@ class OTMTrainer(RowStepTrainer):
                                                   self._codes(targets_np)))
                 if len(inflight) >= 8:
                     drain()
+                if checkpoint_path and checkpoint_every > 0 \
+                        and (bi + 1) % checkpoint_every == 0 and bi + 1 < num_batches:
+                    step_resume.save_step_state(
+                        checkpoint_path, self._step_state(),
+                        {"epoch": epoch, "batch": bi, "rng_before_perm": rng_before_perm})
                 if progress_interval > 0 and (bi + 1) % progress_interval == 0:
                     if not epoch_losses:
                         drain()

@@ -13,6 +13,11 @@ and weights, and the query sequences [B, L]:
        lazy row-sparse Adam on the touched rows (``train/sparse_adam.py``),
        whose packed formats commit through K2.
 
+A bf16 table (``TDMTrainer(embed_dtype=torch.bfloat16)``) has its rows
+upcast to f32 after the gather; its dense gradient and Adam step, and its
+mv row updates, round as the JAX package's compiled CPU step does
+(``train/sparse_adam.py``); pmv needs an f32 table.
+
 In pmv mode the packed state owns the table and ``model.embedding`` is a
 MIRROR: ``_sync_mirrors`` re-materializes it at eval/train boundaries and
 ``_adopt_mirrors`` pushes an external assignment (detected by the
@@ -29,10 +34,10 @@ import numpy as np
 import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
-from dismember_tpu_torch.core.checkpoint import flatten
+from dismember_tpu_torch.core.checkpoint import flatten, to_tensor
 from dismember_tpu_torch.models.din import DIN
 from dismember_tpu_torch.models.losses import bce_with_logits
-from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train import sparse_adam, step_resume
 
 logger = logging.getLogger("dismember_tpu_torch.train")
 
@@ -58,7 +63,8 @@ class RowStepTrainer:
 
     def _init_optimizer(self, sparse: bool, sparse_format: str) -> None:
         """Dense Adam, or lazy sparse Adam on the embedding in the mv or pmv
-        format ("auto": pmv when the width packs, 3E <= 128)."""
+        format ("auto": pmv when the width packs, 3E <= 128, and the table
+        is f32; mv for a bf16 table)."""
         self._sparse = sparse
         self._pmv = False
         self._mirrors_stale = False
@@ -67,10 +73,13 @@ class RowStepTrainer:
             if sparse_format not in ("auto", "mv", "pmv"):
                 raise ValueError(f"unknown sparse_format {sparse_format!r}")
             packable = sparse_adam.pmv_slots(self.embed_size) > 0
-            self._pmv = packable if sparse_format == "auto" else sparse_format == "pmv"
-            if self._pmv and not packable:
+            f32_table = self.model.embedding.dtype == torch.float32
+            self._pmv = (packable and f32_table if sparse_format == "auto"
+                         else sparse_format == "pmv")
+            if self._pmv and not (packable and f32_table):
                 raise ValueError(
-                    f"pmv needs a packable width (3*E <= 128; E={self.embed_size})")
+                    f"pmv needs a packable width (3*E <= 128; E={self.embed_size}) "
+                    "and an f32 table")
             table = self.model.embedding.detach()
             if self._pmv:
                 self.emb_state = sparse_adam.pmv_init(table)
@@ -89,9 +98,14 @@ class RowStepTrainer:
         return [n for n in self._named_params() if not (self._sparse and n == "embedding")]
 
     def _adam_init(self) -> dict:
+        """optax.adam(mu_dtype=float32)'s state: moments in each parameter's
+        dtype, but a bf16 table's mu in f32 (its nu stays bf16)."""
         p = self._named_params()
-        zeros = lambda: {n: torch.zeros_like(p[n]) for n in self._adam_names()}  # noqa: E731
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
+        names = self._adam_names()
+        mu_dtype = lambda t: torch.float32 if t.dtype == torch.bfloat16 else t.dtype  # noqa: E731
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(p[n], dtype=mu_dtype(p[n])) for n in names},
+                "nu": {n: torch.zeros_like(p[n]) for n in names}}
 
     @property
     def params(self) -> dict:
@@ -125,17 +139,49 @@ class RowStepTrainer:
         if found is None:
             raise ValueError("no Adam state (count, mu, nu) in opt_state")
         count, mu, nu = found
-        named = self._named_params()
-        mu, nu = flatten(mu), flatten(nu)
-        conv = lambda a, n: torch.tensor(  # noqa: E731
-            np.asarray(a), dtype=named[n].dtype, device=self.device).reshape(named[n].shape)
         names = self._adam_names()
+        like = self._adam_init()
+        mu, nu = flatten(mu), flatten(nu)
+        conv = lambda a, t: to_tensor(a, t.dtype, self.device).reshape(t.shape)  # noqa: E731
         self.adam = {"count": int(np.asarray(count)),
-                     "mu": {n: conv(mu[n], n) for n in names},
-                     "nu": {n: conv(nu[n], n) for n in names}}
+                     "mu": {n: conv(mu[n], like["mu"][n]) for n in names},
+                     "nu": {n: conv(nu[n], like["nu"][n]) for n in names}}
         if self._pmv:
             self._mirrors_stale = True
             self._sync_mirrors()
+
+    # -- step-level snapshots (train/step_resume.py) ----------------------
+    def _step_state(self) -> dict:
+        """The loop state a within-stage snapshot holds: the parameters (in
+        pmv mode without the [V, E] mirror, which the packed state owns and
+        which would double a deep catalog's snapshot), the Adam state, the
+        embedding's sparse state and the trainer's generator, if any."""
+        st = {"params": {n: p.detach() for n, p in self._named_params().items()
+                         if not (self._pmv and n == "embedding")},
+              "adam": self.adam}
+        if self.emb_state is not None:
+            st["emb_state"] = self.emb_state
+        if getattr(self, "_gen", None) is not None:
+            st["gen"] = step_resume.generator_state(self._gen)
+        return st
+
+    @torch.no_grad()
+    def _restore_step_state(self, loaded: dict) -> None:
+        """Take a snapshot's state (numpy leaves); in pmv mode the mirror is
+        marked stale and re-read from the packed state at the next sync."""
+        like = {k: v for k, v in self._step_state().items() if k in loaded}
+        st = step_resume.to_torch(loaded, like)
+        named = self._named_params()
+        for n, t in st["params"].items():
+            named[n].copy_(t)
+        self.adam = st["adam"]
+        if "emb_state" in st:
+            self.emb_state = st["emb_state"]
+        if "gen" in st:
+            step_resume.set_generator_state(self._gen, st["gen"])
+        if self._pmv:
+            self._mirrors_stale = True
+            self._record_mirror_id()
 
     def _codes(self, codes: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(codes, dtype=torch.long, device=self.device)
@@ -154,6 +200,8 @@ class RowStepTrainer:
             rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
         else:
             rows = self.model.embedding.detach()[safe]
+            if rows.dtype == torch.bfloat16:
+                rows = rows.float()  # a bf16 table's rows compute in f32
         rows = (rows * valid[:, None].to(rows.dtype)).requires_grad_()
         params = self._named_params()
         rest_names = [n for n in params if n != "embedding"]
@@ -167,7 +215,7 @@ class RowStepTrainer:
         grads = dict(zip(rest_names, g_rest))
         with torch.no_grad():
             if not self._sparse:
-                grads["embedding"] = self._dense_table_grad(flat, g_rows)
+                grads["embedding"] = self._dense_table_grad(flat, g_rows, b * u)
             self._adam_step(params, grads)
             lr = self.learning_rate
             if self._pmv:
@@ -178,19 +226,35 @@ class RowStepTrainer:
                                        flat, g_rows, lr)
         return loss.detach()
 
-    def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
+    def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor,
+                          n_items: int) -> torch.Tensor:
         """The [V, E] table gradient: per-occurrence row gradients summed
-        per code in a fixed order (no float atomics), zeros elsewhere."""
+        per code in a fixed order (no float atomics), zeros elsewhere.  A
+        bf16 table takes the JAX package's bf16 sums: the candidates' and the
+        sequences' gathers each summed serially in bf16, then added."""
+        table = self.model.embedding
+        v_rows = table.shape[0]
+        if table.dtype == torch.bfloat16:
+            parts = [sparse_adam.serial_bf16_sums(flat[sl], g_rows[sl], v_rows)
+                     for sl in (slice(0, n_items), slice(n_items, None))]
+            return sparse_adam._bf16(parts[0] + parts[1])
         codes_u, g_sum, live = sparse_adam.dedup_rows(flat, g_rows)
-        grad = torch.zeros_like(self.model.embedding)
-        grad[codes_u[live]] = g_sum[live]
-        return grad
+        # dead slots go to a sink row past the table: no boolean mask, so
+        # the step never waits for the card
+        grad = torch.zeros(v_rows + 1, table.shape[1], device=table.device, dtype=table.dtype)
+        grad[torch.where(live, codes_u, v_rows)] = g_sum
+        return grad[:v_rows]
 
     def _adam_step(self, params: dict, grads: dict) -> None:
         """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) on ``grads``, in place."""
         st = self.adam
         st["count"] += 1
         for n, g in grads.items():
+            if params[n].dtype == torch.bfloat16:
+                p_new, st["mu"][n], st["nu"][n] = sparse_adam.adam_update_bf16(
+                    params[n], st["mu"][n], st["nu"][n], g, st["count"], self.learning_rate)
+                params[n].copy_(p_new)
+                continue
             st["mu"][n], st["nu"][n], upd = sparse_adam.adam_update(
                 st["mu"][n], st["nu"][n], g, st["count"], self.learning_rate)
             params[n].add_(upd)

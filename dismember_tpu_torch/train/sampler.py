@@ -206,5 +206,12 @@ class TreeSampler:
                 parts_weights.append(ok)
         codes = torch.cat(parts_codes, dim=1)
         weights = torch.cat(parts_weights, dim=1)
-        labels = torch.as_tensor(self.unit_labels, device=dev).expand(b, self.unit)
-        return codes, labels, weights
+        return codes, self._labels(dev).expand(b, self.unit), weights
+
+    def _labels(self, dev: torch.device) -> torch.Tensor:
+        """``unit_labels`` on ``dev``, uploaded once: a copy from pageable
+        host memory each step would make the host wait for the card."""
+        t = self.__dict__.get("_labels_dev")
+        if t is None or t.device != dev:
+            t = self._labels_dev = torch.as_tensor(self.unit_labels, device=dev)
+        return t

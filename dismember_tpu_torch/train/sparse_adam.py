@@ -29,10 +29,18 @@ TPU dot rounds f32 operands to bf16; here slots are selected by indexing a
 through K2 (``ops/row_writer.write_rows_128``) and the table and split
 moments through :func:`~dismember_tpu_torch.ops.row_writer.add_rows`; both
 update in place, so a step returns the same (mutated) buffers it was given.
+
+A bf16 table keeps f32 moments; its rows take their updates rounded to
+bf16 through the add (``add_rows_bf16`` on the card), and its row update
+follows the JAX package's compiled CPU step (:func:`adam_update_xla`), so
+the table's bits equal the JAX package's.  The dense route's bf16 table
+(``train/row_step.py``) sums its gradient with :func:`serial_bf16_sums` and
+steps with :func:`adam_update_bf16`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dismember_tpu_torch.ops import row_writer
@@ -130,6 +138,86 @@ def adam_update(m_rows, v_rows, g, count, lr, b1=0.9, b2=0.999, eps=1e-8):
     return m_new, v_new, (m_hat / (torch.sqrt(v_hat) + eps)) * (-lr)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even), kept as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32: the product of two f32 values is
+    exact in float64, so only the sum rounds before the final rounding."""
+    return (a.double() * float(b) + c.double()).float()
+
+
+def serial_bf16_sums(flat_codes: torch.Tensor, g_rows: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
+    """[n_rows, E] per-code sums of ``g_rows`` (-1 codes dropped) as the JAX
+    package's CPU backend computes the gradient of a bf16 table's gather:
+    each row gradient rounded to bf16, then added into its code's sum in
+    occurrence order, the sum rounded to bf16 after every add.  Returned as
+    float32 holding bf16 values."""
+    keep = flat_codes >= 0
+    codes, g = flat_codes[keep], _bf16(g_rows[keep].float())
+    s, order = torch.sort(codes, stable=True)
+    g = g[order]
+    r = s.shape[0]
+    start = torch.ones(r, dtype=torch.bool, device=s.device)
+    start[1:] = s[1:] != s[:-1]
+    pos = torch.arange(r, device=s.device)
+    first = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = pos - first
+    acc = torch.zeros(n_rows, g_rows.shape[1], device=g_rows.device)
+    for j in range(int(rank.max()) + 1 if r else 0):
+        at = rank == j  # one occurrence of each code: no collisions
+        acc[s[at]] = _bf16(acc[s[at]] + g[at])
+    return acc
+
+
+def adam_update_bf16(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                     count: int, lr: float, b1=0.9, b2=0.999, eps=1e-8):
+    """optax.adam(lr, b1, b2, eps, mu_dtype=float32) on a bf16 parameter
+    ``p`` with an f32 first moment ``m`` and a bf16 second moment ``v``
+    (optax's ``zeros_like(params)``), in the order and roundings of the JAX
+    package's compiled CPU step: the scalars of the bf16 terms are rounded
+    to bf16 (weak typing), every bf16 op rounds, ``b1 * m + bf16(1 - b1) *
+    g`` and ``p + update * -lr`` are fused multiply-adds, ``m_hat / (sqrt +
+    eps)`` is ``m / (bias1 * (sqrt + eps))``, and the bias corrections are
+    float32 powers.  ``g`` holds bf16 values.  Returns (p_new bf16, m_new,
+    v_new bf16)."""
+    f32 = np.float32
+    as_bf16 = lambda x: float(torch.tensor(x, dtype=torch.float64).to(torch.bfloat16))  # noqa: E731
+    g = g.float()
+    m_new = _fma(m, f32(b1), as_bf16(1.0 - b1) * g)
+    v_new = _bf16(_bf16(_bf16(g * g) * as_bf16(1.0 - b2)) + _bf16(as_bf16(b2) * v.float()))
+    bias1 = float(f32(1.0) - f32(b1) ** f32(count))
+    bias2 = as_bf16(float(f32(1.0) - f32(b2) ** f32(count)))
+    root = _bf16(torch.sqrt(_bf16(v_new / bias2)))
+    upd = m_new / (bias1 * (root + as_bf16(eps)))
+    p_new = _fma(upd, f32(-lr), p.float()).to(torch.bfloat16)
+    return p_new, m_new, v_new.to(torch.bfloat16)
+
+
+def adam_update_xla(m_rows, v_rows, g, count, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """:func:`adam_update` in the order and roundings of the JAX package's
+    compiled CPU sparse step, which the bf16 tables' row updates follow bit
+    for bit: the moments' updates are fused multiply-adds, and ``m_hat /
+    (sqrt(v_hat) + eps)`` is ``m / (bias1 * (sqrt(v / bias2) + eps))`` with
+    float32 bias corrections."""
+    f32 = np.float32
+    m_new = _fma(m_rows, f32(b1), g * float(f32(1.0 - b1)))
+    v_new = _fma(v_rows, f32(b2), (g * g) * float(f32(1.0 - b2)))
+    bias1 = float(f32(1.0) - f32(b1) ** f32(count))
+    bias2 = float(f32(1.0) - f32(b2) ** f32(count))
+    upd = (m_new / (bias1 * (torch.sqrt(v_new / bias2) + float(f32(eps))))) * float(f32(-lr))
+    return m_new, v_new, upd
+
+
+def _row_adam(table: torch.Tensor):
+    """The row update a table takes: the JAX package's compiled order for a
+    bf16 table (its bits are pinned), optax's order for an f32 one."""
+    return adam_update_xla if table.dtype == torch.bfloat16 else adam_update
+
+
 def apply_rows(
     table: torch.Tensor,
     state: dict,
@@ -149,7 +237,7 @@ def apply_rows(
     count = state["count"] + 1
     safe = torch.where(live, codes_u, 0)
     m_rows, v_rows = state["m"][safe], state["v"][safe]
-    m_new, v_new, upd = adam_update(m_rows, v_rows, g.float(), count, lr, b1, b2, eps)
+    m_new, v_new, upd = _row_adam(table)(m_rows, v_rows, g.float(), count, lr, b1, b2, eps)
     # delta-form adds, as the JAX package's scatter-adds; dead slots point
     # past the table and are dropped, so the live indices are unique
     dst = torch.where(live, codes_u, table.shape[0])
@@ -200,7 +288,8 @@ def _apply_rows_packed(table, state, flat_codes, g_rows, lr, b1, b2, eps):
     slot = torch.where(live, safe % s_per, 0)
     rows128 = mv[phys]  # [R, 128] one gather covers m and v
     old = rows128.view(r, s_per, 2 * e)[torch.arange(r, device=phys.device), slot]
-    m_new, v_new, upd = adam_update(old[:, :e], old[:, e:], g.float(), count, lr, b1, b2, eps)
+    m_new, v_new, upd = _row_adam(table)(old[:, :e], old[:, e:], g.float(), count, lr, b1, b2,
+                                         eps)
     phys_w, new_rows = _merge_slots(mv, phys, slot, torch.cat([m_new, v_new], 1), rows128)
     row_writer.write_rows_128(mv, phys_w, new_rows)
     row_writer.add_rows(table, torch.where(live, codes_u, table.shape[0]),

@@ -2,12 +2,19 @@
 serving needs.
 
 Port of ``dismember_tpu/train/tdm.py``, DIN only: ``build_model``,
-``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS`` and
-``TDMTrainer``.  A train step samples negatives on the device
-(``train/sampler.py``) and takes one step of ``train/row_step.py`` on the
-sampled codes: the touched rows gathered once, the DIN forward and BCE
-differentiated w.r.t. them, dense or lazy sparse Adam (mv or pmv, whose
-packed formats commit through K2).
+``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS``,
+``ResidentWindows`` and ``TDMTrainer``.  A train step samples negatives on
+the device (``train/sampler.py``) and takes one step of
+``train/row_step.py`` on the sampled codes: the touched rows gathered once,
+the DIN forward and BCE differentiated w.r.t. them, dense or lazy sparse
+Adam (mv or pmv, whose packed formats commit through K2).  Two loops run
+the steps: :meth:`TDMTrainer.train`, a host loop that uploads each batch
+and can snapshot its state for a bit-exact resume
+(``train/step_resume.py``), and :meth:`TDMTrainer.train_resident`, which
+uploads the dataset once and gathers every batch on the device.  The
+embedding table may be stored in bf16 (``embed_dtype``): rows are upcast
+to f32 after every gather, so K1 and the step compute in f32, and the
+updates round to bf16 as the JAX package's do on the CPU.
 
 Batch accounting parity: ``total_batch_size`` counts *expanded* rows, so
 the number of targets per step is ``max(1, total_batch // unit)`` with
@@ -22,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -34,7 +42,7 @@ from dismember_tpu_torch.models.din import DIN
 from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
-from dismember_tpu_torch.train import sparse_adam
+from dismember_tpu_torch.train import sparse_adam, step_resume
 from dismember_tpu_torch.train.row_step import RowStepTrainer
 from dismember_tpu_torch.train.sampler import TreeSampler
 
@@ -88,6 +96,50 @@ def packed_fns(model_type: str):
 MATMUL_FIRST_SCORERS = frozenset({"din"})
 
 
+def _stream_seed(seed: int, stream: int, counter: int) -> int:
+    """A 64-bit generator seed derived from (seed, stream, counter): the
+    resident loop's counter-derived random streams."""
+    return int(np.random.SeedSequence([seed, stream, counter]).generate_state(1, np.uint64)[0])
+
+
+@dataclasses.dataclass
+class ResidentWindows:
+    """Compact sliding-window training set for ``train_resident``: the
+    [U, S] per-user item-code matrix uploads once and every batch's windows
+    are gathered on the device.  Logical row ``r`` of the
+    [U * (t_hi - t_lo)] dataset is user ``r // n_win`` at target position
+    ``t = t_lo + r % n_win``: sequence ``items[u, t-L:t]``, target
+    ``items[u, t]`` (the reference's TreeInit windowing, evaluated lazily)."""
+
+    item_codes: np.ndarray  # [U, S] tree codes (int32)
+    seq_len: int
+    t_lo: int
+    t_hi: int
+
+    @classmethod
+    def from_items(cls, tree: ArrayTree, items: np.ndarray, seq_len: int,
+                   t_lo: int, t_hi: int) -> "ResidentWindows":
+        return cls(item_codes=tree.ids_to_codes(items).astype(np.int32),
+                   seq_len=seq_len, t_lo=t_lo, t_hi=t_hi)
+
+    @property
+    def n_win(self) -> int:
+        return self.t_hi - self.t_lo
+
+    def __len__(self) -> int:
+        return len(self.item_codes) * self.n_win
+
+
+def window_rows(items: torch.Tensor, idx: torch.Tensor, seq_len: int, t_lo: int,
+                n_win: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(target codes [B], sequence codes [B, L]) of logical rows ``idx`` of
+    the on-device [U, S] code matrix, as int64 (ResidentWindows' rows)."""
+    u = idx // n_win
+    t = t_lo + idx % n_win
+    cols = t[:, None] + torch.arange(-seq_len, 0, device=idx.device)[None, :]
+    return items[u, t].long(), items[u[:, None], cols].long()
+
+
 @dataclasses.dataclass
 class TDMTrainer(RowStepTrainer):
     tree: ArrayTree
@@ -105,7 +157,9 @@ class TDMTrainer(RowStepTrainer):
     beam_size: int = 20
     seed: int = 0
     mesh: object = None  # not ported (ROADMAP queue 1 item 13)
-    embed_dtype: object = None  # not ported (ROADMAP queue 1 item 7)
+    embed_dtype: object = None  # torch.bfloat16 stores the table in bf16:
+    # half the memory of a deep catalog's table; compute stays f32 and the
+    # Adam moments are optax's (mu f32; dense nu bf16)
     sparse_embed_update: bool | None = None  # lazy row-sparse Adam on the
     # embedding table (train/sparse_adam.py).  None = auto
     # (sparse_adam.sparse_worthwhile): sparse at deep catalogs, dense
@@ -120,8 +174,8 @@ class TDMTrainer(RowStepTrainer):
     def __post_init__(self):
         if self.mesh is not None:
             raise _not_ported("mesh training", "item 13: multi-device")
-        if self.embed_dtype is not None:
-            raise _not_ported("embed_dtype", "item 7: bf16 embedding tables")
+        if self.embed_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"embed_dtype must be float32 or bfloat16, got {self.embed_dtype!r}")
         self.device = resolve_device(self.device)
         check_kernel_width(self.embed_size, self.device)
         self.sampler = TreeSampler.build(
@@ -141,6 +195,8 @@ class TDMTrainer(RowStepTrainer):
             self.model_type, self.tree.max_level, self.embed_size, self.seq_len,
             generator=torch.Generator().manual_seed(self.seed), device=self.device,
         )
+        if self.embed_dtype == torch.bfloat16:
+            self.model.embedding.data = self.model.embedding.data.to(torch.bfloat16)
         # pmv mode: the embedding is a MIRROR of the packed p|m|v state,
         # re-materialized by _sync_mirrors at eval/train boundaries
         self._init_optimizer(sparse, self.sparse_format)
@@ -178,22 +234,41 @@ class TDMTrainer(RowStepTrainer):
     ) -> list[dict]:
         """Run the training loop; returns per-progress-point logs.  The batch
         order is ``np.random.default_rng(seed).permutation``, as in the JAX
-        package; the sampler's generator restarts from ``seed + 1``."""
-        if checkpoint_path:
-            raise _not_ported("checkpoint_path", "item 7: step_resume")
+        package; the sampler's generator restarts from ``seed + 1``.
+
+        ``checkpoint_path`` + ``checkpoint_every`` snapshot the loop state
+        every N iterations (``train/step_resume.py``): params, Adam and
+        sparse state, the generator, and the numpy permutation stream's
+        state before the current epoch's draw with the position in it.  A
+        restarted call with the same arguments resumes from the snapshot
+        and ends bit for bit where an uninterrupted run ends."""
         self._adopt_mirrors()
         seq_codes_all = self.tree.ids_to_codes(train_seqs)
         target_codes_all = self.tree.ids_to_codes(train_targets)
         n = len(target_codes_all)
         bsz = self.num_targets_per_batch
         rng = np.random.default_rng(self.seed)
+        rng_before_perm = step_resume.rng_state_to_json(rng)
         perm = rng.permutation(n) if shuffle else np.arange(n)
         self._gen.manual_seed(self.seed + 1)
-        pos = 0
+        start_it, pos = 1, 0
+        if checkpoint_path:
+            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            if loaded is not None:
+                st, meta = loaded
+                self._restore_step_state(st)
+                step_resume.rng_state_from_json(rng, meta["rng_before_perm"])
+                rng_before_perm = step_resume.rng_state_to_json(rng)
+                perm = rng.permutation(n) if shuffle else np.arange(n)
+                pos = int(meta["pos"])
+                start_it = int(meta["iteration"]) + 1
+                logger.info(f"resumed step checkpoint {checkpoint_path} at iteration "
+                            f"{meta['iteration']} (pos {pos})")
         logs: list[dict] = []
         t_epoch = time.perf_counter()
-        for it in range(1, iterations + 1):
+        for it in range(start_it, iterations + 1):
             if pos + bsz > n:
+                rng_before_perm = step_resume.rng_state_to_json(rng)
                 perm = rng.permutation(n) if shuffle else np.arange(n)
                 pos = 0
             idx = perm[pos : pos + bsz]
@@ -205,7 +280,7 @@ class TDMTrainer(RowStepTrainer):
                 loss_val = float(loss)
                 iter_time = time.perf_counter() - t0
                 elapsed = time.perf_counter() - t_epoch
-                rows_s = it * bsz * self.sampler.unit / max(elapsed, 1e-9)
+                rows_s = (it - start_it + 1) * bsz * self.sampler.unit / max(elapsed, 1e-9)
                 entry = {"iteration": it, "train_loss": loss_val, "iter_time": iter_time,
                          "elapsed": elapsed, "expanded_rows_per_s": rows_s}
                 msg = (f"Iteration {it} time: {iter_time:.4f}s, "
@@ -218,12 +293,129 @@ class TDMTrainer(RowStepTrainer):
                     msg += f"\n\tMetrics: {ev}"
                 logger.info(msg)
                 logs.append(entry)
+            if checkpoint_path and checkpoint_every > 0 and it % checkpoint_every == 0 \
+                    and it < iterations:
+                step_resume.save_step_state(
+                    checkpoint_path, self._step_state(),
+                    {"iteration": it, "pos": pos, "rng_before_perm": rng_before_perm})
+                logger.info(f"step checkpoint saved at iteration {it}")
         self._sync_mirrors()
         return logs
 
-    def train_resident(self, *args, **kwargs):
-        raise _not_ported("train_resident (ResidentWindows)",
-                          "item 7: the device-resident loop")
+    def train_resident(
+        self,
+        data,  # ResidentWindows | (train_seqs [N, L], train_targets [N]) raw item ids
+        iterations: int,
+        chunk: int = 64,
+        progress_interval: int = 1000,
+        checkpoint_path: str | None = None,
+        checkpoint_every: int = 0,
+    ) -> list[dict]:
+        """Device-resident training loop: the dataset goes to the device
+        once and every step's windows are gathered there; the loop runs in
+        ``chunk``-step chunks whose only host synchronization is one read
+        of the chunk's losses, drained through a FIFO so the device runs
+        chunk i+1 while the host reads chunk i.
+
+        The same step as :meth:`train`, but its random streams are
+        counter-derived: step g's negatives come from the trainer's
+        generator seeded from (seed, g), and epoch k's permutation (of
+        ``steps_per_epoch * batch`` rows) is drawn on the device from a
+        generator seeded from (seed, k).  So the choice of ``chunk`` is bit
+        for bit invariant, the two loops match in distribution and not in
+        bits (as in the JAX package), and a snapshot (``checkpoint_every``
+        steps, at chunk boundaries) needs only params, optimizer state and
+        the global step to resume exactly."""
+        if self.mesh is not None:
+            raise ValueError("train_resident is single-chip; use train()")
+        self._adopt_mirrors()
+        b, dev = self.num_targets_per_batch, self.device
+        if isinstance(data, ResidentWindows):
+            n = len(data)
+            items = torch.as_tensor(data.item_codes, dtype=torch.int32, device=dev)
+            gather = lambda idx: window_rows(  # noqa: E731
+                items, idx, data.seq_len, data.t_lo, data.n_win)
+        else:
+            train_seqs, train_targets = data
+            n = len(train_targets)
+            tc_all = torch.as_tensor(self.tree.ids_to_codes(train_targets), dtype=torch.int32,
+                                     device=dev)
+            sc_all = torch.as_tensor(self.tree.ids_to_codes(train_seqs), dtype=torch.int32,
+                                     device=dev)
+            gather = lambda idx: (tc_all[idx].long(), sc_all[idx].long())  # noqa: E731
+        steps_per_epoch = n // b
+        if steps_per_epoch < 1:
+            raise ValueError(f"dataset ({n} rows) smaller than one batch ({b})")
+        gs = 0
+        if checkpoint_path:
+            loaded = step_resume.load_step_state(checkpoint_path, self._resident_state())
+            if loaded is not None:
+                st, meta = loaded
+                self._restore_step_state(st)
+                gs = int(meta["global_step"])
+                logger.info(f"resumed resident checkpoint {checkpoint_path} at global step {gs}")
+        perm_gen = torch.Generator(device=dev)
+        fifo: deque = deque()
+        logs: list[dict] = []
+        cur_epoch, perm = -1, None
+        next_ckpt = ((gs // checkpoint_every + 1) * checkpoint_every
+                     if checkpoint_path and checkpoint_every > 0 else None)
+        next_log = (gs // progress_interval + 1) * progress_interval
+        t0 = time.perf_counter()
+        gs_start = gs
+
+        def drain() -> None:
+            nonlocal next_log
+            g0, k, losses = fifo.popleft()
+            losses = losses.cpu().numpy()  # the chunk's one host synchronization
+            if g0 + k >= next_log:
+                elapsed = time.perf_counter() - t0
+                rows_s = (g0 + k - gs_start) * b * self.sampler.unit / max(elapsed, 1e-9)
+                entry = {"iteration": g0 + k, "train_loss": float(losses[-1]),
+                         "elapsed": elapsed, "expanded_rows_per_s": rows_s}
+                logger.info(f"Iteration {g0 + k} Train loss: {entry['train_loss']:.4f}, "
+                            f"{rows_s:,.0f} expanded rows/s (resident)")
+                logs.append(entry)
+                next_log = ((g0 + k) // progress_interval + 1) * progress_interval
+
+        while gs < iterations:
+            epoch = gs // steps_per_epoch
+            if epoch != cur_epoch:
+                perm_gen.manual_seed(_stream_seed(self.seed, 3, epoch))
+                perm = torch.randperm(steps_per_epoch * b, generator=perm_gen, device=dev)
+                cur_epoch = epoch
+            pos0 = gs % steps_per_epoch
+            k = min(chunk, steps_per_epoch - pos0, iterations - gs)
+            if next_ckpt is not None:
+                k = min(k, next_ckpt - gs)
+            losses = torch.empty(k, device=dev)
+            for i in range(k):
+                tc, sc = gather(perm[(pos0 + i) * b : (pos0 + i + 1) * b])
+                self._gen.manual_seed(_stream_seed(self.seed, 1, gs + i))
+                losses[i] = self._train_step(tc, sc)
+            gs += k
+            fifo.append((gs - k, k, losses))
+            if len(fifo) >= 4:
+                drain()
+            if next_ckpt is not None and gs == next_ckpt:
+                while fifo:
+                    drain()
+                if gs < iterations:
+                    step_resume.save_step_state(checkpoint_path, self._resident_state(),
+                                                {"global_step": gs})
+                    logger.info(f"resident checkpoint saved at step {gs}")
+                next_ckpt += checkpoint_every
+        while fifo:
+            drain()
+        self._sync_mirrors()
+        return logs
+
+    def _resident_state(self) -> dict:
+        """train_resident's snapshot: its streams are counter-derived, so
+        the generator's state is not part of it."""
+        st = self._step_state()
+        st.pop("gen", None)
+        return st
 
     # ------------------------------------------------------------------
     def evaluate(
@@ -319,7 +511,7 @@ class TDMTrainer(RowStepTrainer):
         rows read from the shared embedding table at each item's leaf code
         (tdm/.../utils/Serialization.scala:15-58)."""
         self._sync_mirrors()
-        table = self.model.embedding.detach().cpu().numpy()
+        table = self.model.embedding.detach().float().cpu().numpy()
         with open_file(path, "w", encoding="utf-8") as f:
             for iid, code in zip(self.tree.item_ids, self.tree.item_codes):
                 f.write(str(int(iid)))

@@ -215,16 +215,19 @@ def main() -> int:
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
                  **{f"k3{k}": cs.ptxas_usage(log, f"packed_level_kernel{k}")
-                    for k in ("", "ILb1E", "ILb0E")}})
+                    for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E")}})
     libs = {label: load(label) for label in sources}
 
     if args.base:
         old, new = sass("base"), sass("new")
         pick = lambda fs, *keys: next(v for n, v in fs.items() if any(k in n for k in keys))  # noqa: E731
-        # the write: the plain kernel of a parent, write_kernel<false> here
-        for name, keys in (("write_kernel", ("write_kernelE", "write_kernelILb0")),
+        # the write: the plain kernel of a parent, write_kernel<false> (f32)
+        # here; K3's one-tile instance over f32 rows
+        for name, keys in (("write_kernel", ("write_kernelE", "write_kernelILb0EEv",
+                                             "write_kernelILb0EfE")),
                            ("packed_level_kernel", ("packed_level_kernelE",
-                                                    "packed_level_kernelILb1E"))):
+                                                    "packed_level_kernelILb1EEv",
+                                                    "packed_level_kernelILb1EfE"))):
             a, b = pick(old, *keys), pick(new, *keys)
             cs.emit({"sass_identical": name, "equal": a == b, "instructions": [len(a), len(b)]})
 

@@ -129,7 +129,8 @@ def test_row_add_runs_through_the_write_kernel():
     src = (CSRC / "row_writer.cu").read_text()
     assert "add_kernel" not in src and "launch_add" not in src
     assert "launch_rows<true>" in src and "launch_rows<false>" in src
-    assert "template <bool kAdd>" in src
+    # one kernel for the write and the add, templated on the table's element type
+    assert "template <bool kAdd, typename T>" in src
 
 
 def test_k1_bound_is_bytes_after_the_fold():

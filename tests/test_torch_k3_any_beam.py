@@ -21,7 +21,6 @@ from dismember_tpu_torch.ops.packed_level_kernel import (
     packed_level,
     packed_level_plain,
 )
-from dismember_tpu_torch.retrieval.packed_beam import build_pair_table
 
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_pallas_din.py's tolerance
 E = 16
@@ -98,8 +97,3 @@ def test_wrapper_takes_long_sequences_and_wide_beams_on_cuda(beam, l):
     rows = torch.zeros(2, beam, 128).as_subclass(_FakeCuda)
     with pytest.raises(ValueError, match="expected cuda"):
         packed_level(rows, torch.ones(2, beam), torch.zeros(2, l, E), torch.ones(2, l), *w, E)
-
-
-def test_bf16_table_pointer_names_item_c():
-    with pytest.raises(NotImplementedError, match="next item c"):
-        build_pair_table(torch.zeros(1, E), np.ones(3, bool), np.arange(3), 1 << 26)

@@ -222,8 +222,6 @@ def test_guards(data):
         OTMTrainer(data, model_type="deepfm", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         OTMTrainer(data, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item b"):
-        OTMTrainer(data, **kw).train(1, checkpoint_path="x")
     with pytest.raises(ValueError, match="f64"):
         OTMTrainer(data, precision="f64", sparse_embed_update=True, **kw)
     with pytest.raises(ValueError, match="packable"):

@@ -191,15 +191,11 @@ def test_auto_route_and_not_ported_options(pipeline):
         assert (t._sparse, t._pmv) == (j._sparse, j._pmv)
         assert t.sampler.unit == j.sampler.unit
         assert t.num_targets_per_batch == j.num_targets_per_batch
-    for bad, item in ((dict(mesh=object()), "item 13"),
-                      (dict(embed_dtype=torch.bfloat16), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            TDMTrainer(tree=tree, device="cpu", **kw, **bad)
-    t = TDMTrainer(tree=tree, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t.train(np.zeros((1, 10)), np.zeros(1), 1, checkpoint_path="x")
-    with pytest.raises(NotImplementedError, match="ResidentWindows"):
-        t.train_resident(None, 1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TDMTrainer(tree=tree, device="cpu", mesh=object(), **kw)
+    # bf16 tables, step checkpoints and the resident loop are ported
+    t = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **kw)
+    assert t.model.embedding.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="pmv needs"):
         TDMTrainer(tree=tree, device="cpu", embed_size=48, layer_neg_counts=NEG_COUNTS,
                    sparse_embed_update=True, sparse_format="pmv")
