@@ -5,10 +5,12 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
-     ptxas's registers and spills (K1, the one-tile K3 over f32 or bf16
-     rows, or the row add on an f32 or a bf16 table above 64 registers or
-     spilling fails the run), and K3's tensor-core instructions (HMMA) counted in
-     ``cuobjdump -sass`` of the library (none fails the run);
+     ptxas's registers and spills of every K1 and K3 instance (E = 8, 16
+     and 32; K3 one-tile and multi-tile over f32 and bf16 rows) against its
+     register cap (REG_CAPS), and of the row add on an f32 or a bf16 table
+     against 64 (past its cap or spilling fails the run), and each K3
+     instance's tensor-core instructions (HMMA) counted in ``cuobjdump
+     -sass`` of the library (none fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
      ``predict``'s one row of every catalog item, at L=24 on the kernel
@@ -19,7 +21,11 @@ Phases, one JSON line each; any failed check raises and fails the run:
      at L = 17, 24 and 40 (K3_WIDE); a control (K1's f32 scorer in K3's
      place) that must fail K3's check; kernel and plain times from CUDA
      events (K1 and K3 both warm in L2, as the serving loop leaves their
-     inputs, and cold; K3 also at beam 110 and L = 24);
+     inputs, and cold; K3 also at beam 110 and L = 24); then K1 and K3 at
+     E = 8 and 32 (``kernels_at_width``: K1 at [4096, 40], [8192, 4],
+     [8192, 2] and predict's row, K3 at [4096, 20] on f32 and bf16 rows
+     with the control at each width, at E = 32 also beam 110, beam 1,000
+     past one launch and L = 24), timed as at E = 16;
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -102,7 +108,27 @@ Phases, one JSON line each; any failed check raises and fails the run:
      and pmv) against an uninterrupted run, bitwise; a bf16 embedding table
      (example catalog, mv) twice from one seed, bitwise, with every bf16
      add checked against its plain version and timed beside ``index_add_``;
-  6. the ``{"kernels": [...]}`` summary;
+  widths: DIN at E = 32 on the 1M catalog (``recommend_batch(4096)`` on
+     the packed route from an f32 and a bf16 pair table, equal lists, every
+     K3 level of the f32 route audited, ``predict`` over the catalog; then
+     bench.py's trainer at E = 32, pmv, a K2 launch a step) and at E = 8 on
+     the example catalog (200 dense steps, ``evaluate`` and ``recommend``
+     with every K1 call audited, the same serving as at E = 32);
+  deepfm: configs/tdm.conf and jtm.conf with ``model.deep_model DeepFM``
+     through the CLI (iterations cut as in workflow): init -> train ->
+     cluster -> retrain -> jtm-tree-learning (adds audited), then
+     ``TDMServing.load`` on the packed and the classic route, lists equal
+     up to near ties; configs/otm.conf with DeepFM (epoch cut as in
+     otm_example): train -> construct -> retrain -> ``OTMServing``; DeepFM
+     at 1M items (pmv, every K2 commit of the audited steps bit for bit,
+     the packed route on the f32 table, timed); no K1 or K3 launch;
+  reference_recall: ROADMAP item 5's check, scripts/sparse_quality_check.py's
+     protocol (tdm.conf's trainer, 2000 dense iterations, E = 16, category
+     tree, the whole eval split) for DIN and DeepFM at seeds 0-2: each
+     model's mean recall@10 within RECALL_BAND of the JAX package's
+     (JAX_RECALL, measured on the CPU);
+  6. the ``{"kernels": [...]}`` summary: every instance, E = 8 and 32 among
+     them;
   7. last line ``{"ok": true, "device": {...}}``.
 
 Times are medians (with p10/p90, min/max) of one pair of CUDA events
@@ -118,6 +144,7 @@ import collections
 import contextlib
 import json
 import logging
+import re
 import shutil
 import subprocess
 import sys
@@ -165,7 +192,11 @@ from dismember_tpu_torch.models import dr_models  # noqa: E402
 from dismember_tpu_torch.models.dr_models import rerank_user_vector  # noqa: E402
 from dismember_tpu_torch.models.embedding import embed_lookup  # noqa: E402
 from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel, row_writer  # noqa: E402
-from dismember_tpu_torch.ops.din_kernel import din_score, din_score_plain  # noqa: E402
+from dismember_tpu_torch.ops.din_kernel import (  # noqa: E402
+    KERNEL_WIDTHS,
+    din_score,
+    din_score_plain,
+)
 from dismember_tpu_torch.ops.packed_level_kernel import (  # noqa: E402
     NEG_INF,
     packed_level,
@@ -209,14 +240,17 @@ EMB_STD, W_STD = 1.0, 0.5
 # throughout and differs from its plain version only in summation order.  K3
 # rounds the same operands to bf16 as its plain version; a last-bit
 # difference before one of its rounding points moves that operand by one
-# bf16 ulp on a few candidates, and at most FLIP_SHARE of K3's candidates
+# bf16 ulp on a few candidates, and at most FLIP_SHARE[E] of K3's candidates
 # may lie beyond K1's tolerance.  On an H100 (NVIDIA H100 80GB HBM3, 700 W)
-# K3's largest error over ~3.5M audited candidates was 0.044 and its share
-# beyond K1's tolerance at most 6.7e-5; K3's bound is about twice that error.
-# K1's f32 scorer in K3's place puts 97.6% of candidates beyond K1's
-# tolerance (phase 3's control), so it fails.
+# K3's largest error over ~3.5M audited candidates at E = 16 was 0.044 and
+# its share beyond K1's tolerance at most 6.7e-5; K3's bound is about twice
+# that error.  E = 32 rounds twice as many operands a candidate (K = 32 and
+# 64 products): its share reached 8.6e-4 at L = 24 (E = 8: 1.3e-4) on the
+# same H100, so its share is held to 5e-3.  K1's
+# f32 scorer in K3's place puts 96-97% of candidates beyond K1's tolerance at
+# every width (phase 3's controls), so it fails.
 TOL = {"din_score": (1e-5, 2e-4), "packed_level": (1e-1, 1e-2)}
-FLIP_SHARE = 1e-3
+FLIP_SHARE = {8: 1e-3, 16: 1e-3, 32: 5e-3}
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -291,6 +325,31 @@ RES_USERS, RES_STREAM, RES_T_LO = 100_000, 40, 10
 RES_CHUNK, RES_CHUNKS, RES_TWIN_CHUNK = 16, 2, 8
 RESUME_ITERS, RESUME_EVERY, RESUME_KILLED_AT = 40, 10, 25
 BF16_ITERS = 30
+# the widths K1 and K3 are built for beside E (8: the JAX package's kernel
+# and beam tests; 32: scripts/quality_1m.py's), and the registers a thread
+# of each instance may use (their launch bounds): K1 and the one-tile K3 64
+# at E = 8 and 16, 128 at E = 32; the multi-tile K3 255, the hardware's
+WIDTHS = (8, 32)
+REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
+            ("one-tile", 8): 64, ("one-tile", 16): 64, ("one-tile", 32): 128,
+            ("tiles", 8): 255, ("tiles", 16): 255, ("tiles", 32): 255}
+# K3 at E = 32 past the serving shape: (batch, beam, L, timed): the example
+# catalog's widest recommend (beam 110); a beam past one launch at E = 32
+# (~746 f32 parents at L <= 16 on an H100; 1,000 goes in two launches); two
+# sequence tiles
+K3_WIDE_E32 = ((BATCH, 110, SEQ_LEN, True), (256, 1000, SEQ_LEN, False), (BATCH, BEAM, 24, True))
+WIDTH_STEPS = 10  # the E = 32 trainer's timed pmv steps at 1M items
+# the deepfm phase's 1M trainer: timed pmv steps, then steps whose every K2
+# commit is audited; the relative score gap a near tie between DeepFM's
+# routes may have (both score in f32 plain ops, in another candidate order)
+DEEPFM_STEPS, DEEPFM_AUDITED_STEPS, DEEPFM_NEAR_TIE = 20, 5, 1e-5
+# ROADMAP item 5's check (scripts/sparse_quality_check.py's protocol): the
+# JAX package's mean recall@10 over seeds 0, 1 and 2 on the CPU (its
+# TDMTrainer, dense, 2000 iterations, E = 16, the whole eval split: DIN
+# 0.008608, 0.009702, 0.016661; DeepFM 0.014503, 0.015472, 0.015484; from
+# scripts/jax_reference_recall.py), and the seed band of BASELINE.md:151
+JAX_RECALL = {"din": 0.011657156652161813, "deepfm": 0.015153125451413693}
+RECALL_BAND, RECALL_SEEDS, RECALL_ITERS = 0.003, (0, 1, 2), 2000
 
 
 def emit(obj) -> None:
@@ -302,19 +361,21 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def seed_params(num_index: int, rng: np.random.Generator) -> dict:
-    """DIN params pytree from numpy at O(1) scale (EMB_STD, W_STD)."""
+def seed_params(num_index: int, rng: np.random.Generator, e: int = E) -> dict:
+    """DIN params pytree of width ``e`` from numpy at O(1) scale (EMB_STD,
+    W_STD)."""
     f = lambda std, *s: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
     return {
-        "embedding": f(EMB_STD, num_index, E),
-        "att_linear": {"weight": f(W_STD, E, E)},
-        "mlp1": {"weight": f(W_STD, E, 2 * E), "bias": f(W_STD, E)},
-        "mlp2": {"weight": f(W_STD, 1, E), "bias": f(W_STD, 1)},
+        "embedding": f(EMB_STD, num_index, e),
+        "att_linear": {"weight": f(W_STD, e, e)},
+        "mlp1": {"weight": f(W_STD, e, 2 * e), "bias": f(W_STD, e)},
+        "mlp2": {"weight": f(W_STD, 1, e), "bias": f(W_STD, 1)},
     }
 
 
-def agreement(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
-    """``name``'s check of kernel outputs ``got`` against plain ``ref``."""
+def agreement(name: str, got: torch.Tensor, ref: torch.Tensor, e: int = E) -> dict:
+    """``name``'s check of kernel outputs ``got`` against plain ``ref`` at
+    embedding width ``e``."""
     atol, rtol = TOL[name]
     err = (got - ref).abs()
     ok = bool((err <= atol + rtol * ref.abs()).all())
@@ -322,13 +383,13 @@ def agreement(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     if name == "packed_level":
         f32_atol, f32_rtol = TOL["din_score"]
         share = (err > f32_atol + f32_rtol * ref.abs()).float().mean().item()
-        ok = ok and share <= FLIP_SHARE
+        ok = ok and share <= FLIP_SHARE[e]
         out["share_beyond_f32_tol"] = share
     return {"ok": ok, **out}
 
 
-def within(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
-    a = agreement(name, got, ref)
+def within(name: str, got: torch.Tensor, ref: torch.Tensor, e: int = E) -> dict:
+    a = agreement(name, got, ref, e)
     check(a["ok"], f"{name}: kernel against plain version out of tolerance: {a}")
     return a
 
@@ -437,17 +498,56 @@ def ptxas_usage(log: str, kernel: str) -> dict:
     return out
 
 
+def instance_name(mangled: str) -> str | None:
+    """The K1 or K3 instance a mangled kernel name belongs to: "K1 E=16"
+    (every L of a width together), "K3 E=32 bf16 one-tile", ...; None for
+    other kernels."""
+    m = re.search(r"din_score_kernelILi(\d+)ELi\d+EE", mangled)
+    if m:
+        return f"K1 E={m[1]}"
+    m = re.search(r"packed_level_kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
+    if m:
+        return (f"K3 E={m[3]} {'f32' if m[2] == 'f' else 'bf16'} "
+                f"{'one-tile' if m[1] == '1' else 'tiles'}")
+    return None
+
+
+def instance_usage(log: str) -> dict:
+    """Registers (the most) and spill bytes (summed) that ``nvcc
+    -Xptxas=-v`` reported for each K1 and K3 instance (instance_name)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = instance_name(ln)
+            if name:
+                out.setdefault(name, {"registers": 0, "spill_bytes": 0})
+        elif name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["spill_bytes"] += nums[1] + nums[2]  # stack, stores, loads
+        elif name and "registers" in ln:
+            regs = int(ln.split("Used ")[1].split()[0])
+            out[name]["registers"] = max(out[name]["registers"], regs)
+    return out
+
+
+def reg_cap(instance: str) -> int:
+    """REG_CAPS of an instance_name."""
+    parts = instance.split()
+    return REG_CAPS[parts[0] if parts[0] == "K1" else parts[-1], int(parts[1][2:])]
+
+
 def hmma_counts(lib_path: Path) -> dict:
     """Tensor-core instructions (HMMA) in each kernel's SASS in the built
-    library, from ``cuobjdump -sass``, keyed by the kernel's plain name."""
+    library, from ``cuobjdump -sass``, keyed by K1's and K3's instance
+    names and the other kernels' plain names."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
         mangled, body = part.split("\n", 1)
-        name = next((k for k in ("din_score_kernel", "packed_level_kernel", "write_kernel")
-                     if k in mangled), mangled.strip())
+        name = instance_name(mangled) or next(
+            (k for k in ("write_kernel",) if k in mangled), mangled.strip())
         out[name] = out.get(name, 0) + body.count("HMMA")
     return out
 
@@ -465,9 +565,6 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     pad[0] = 1.0  # an all-padding row
     seq_e[pad > 0] = 0.0
     seq_e, pad = seq_e.to(dev), pad.to(dev)
-    lib = _cuda.library()
-    stream = _cuda.stream_handle(dev)
-    wptrs = [t.data_ptr() for t in weights]
     results = {}
 
     # K1: 4096 rows of 40 candidates; 128 // 40 = 3 rows a block, so the
@@ -497,23 +594,14 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     agree24 = within("din_score", din_score(item_e, seq24, pad24, *weights),
                      din_score_plain(item_e, seq24, pad24, *weights))
     del seq24, pad24
-    # the raw launch, timed without the wrapper's checks; warm: the inputs
-    # lie in L2 as on the serving path, whose gather has just written them;
-    # cold: after a 256 MB flush
-    out = torch.empty_like(k1)
-    launch1 = lambda *p: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
-        *p, *wptrs, out.data_ptr(), b, u, l, E, stream))
-    ptrs = [t.data_ptr() for t in (item_e, seq_e, pad)]
-    k1_bytes = nbytes(item_e, seq_e, pad, *weights, k1)
-    by, op = bound(k1_bytes, din_folded_flops(b, u, l, E))
+    # warm: the inputs lie in L2 as on the serving path, whose gather has
+    # just written them; cold: after a 256 MB flush
     flush = torch.empty(64 << 20, device=dev)
     results["din_score"] = dict(
-        **agree1, **time_ms(lambda: launch1(*ptrs)),
-        **time_ms(lambda: launch1(*ptrs), "cold_", flush=flush),
-        **time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights), "plain_"),
-        bound_ms=by, bound_by=op,
+        **agree1, **k1_times(item_e, seq_e, pad, weights, flush),
         # the direct formula's operations, K1's bound before the fold
-        bound_direct_ms=bound(k1_bytes, sum(din_flops(b * u, l, E)))[0],
+        bound_direct_ms=bound(nbytes(item_e, seq_e, pad, *weights, k1),
+                              sum(din_flops(b * u, l, E)))[0],
         shape=[b, u, l, E],
         wide={**agree_wide, "shape": list(wide.shape)},
         l24={**agree24, "shape": [b, u, 24, E]},
@@ -528,15 +616,8 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     s_seq, s_pad = s_seq.to(dev), s_pad.to(dev)
     agree_s = within("din_score", din_score(s_item, s_seq, s_pad, *weights),
                      din_score_plain(s_item, s_seq, s_pad, *weights))
-    s_out = torch.empty(sb, su, device=dev)
-    launch_s = lambda: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
-        s_item.data_ptr(), s_seq.data_ptr(), s_pad.data_ptr(), *wptrs, s_out.data_ptr(),
-        sb, su, l, E, stream))
-    by, op = bound(nbytes(s_item, s_seq, s_pad, *weights, s_out), din_folded_flops(sb, su, l, E))
     results["din_score"]["sweep"] = dict(
-        **agree_s, **time_ms(launch_s), **time_ms(launch_s, "cold_", flush=flush),
-        **time_ms(lambda: din_score_plain(s_item, s_seq, s_pad, *weights), "plain_"),
-        bound_ms=by, bound_by=op, shape=[sb, su, l, E])
+        **agree_s, **k1_times(s_item, s_seq, s_pad, weights, flush), shape=[sb, su, l, E])
     # the sweep's step of one chain level (an odd max_level): 2 candidates a
     # row, another block plan; checked, not timed
     s2 = s_item[:, :2].contiguous()
@@ -544,7 +625,7 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
         **within("din_score", din_score(s2, s_seq, s_pad, *weights),
                  din_score_plain(s2, s_seq, s_pad, *weights)),
         shape=[sb, 2, l, E])
-    del s_item, s_seq, s_pad, s_out, s2
+    del s_item, s_seq, s_pad, s2
 
     # K3: 4096 rows x 20 parents of 128-lane pair rows; 15% missing
     # children, 10% dead parents and one row with every parent dead
@@ -585,33 +666,34 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
     return results
 
 
-def seq_inputs(g: torch.Generator, b: int, l: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """[b, l, E] sequence embeddings with 30% padding (zero rows) and one
+def seq_inputs(g: torch.Generator, b: int, l: int, dev,
+               e: int = E) -> tuple[torch.Tensor, torch.Tensor]:
+    """[b, l, e] sequence embeddings with 30% padding (zero rows) and one
     all-padding row, and the padding mask."""
-    seq_e = torch.randn(b, l, E, generator=g) * EMB_STD
+    seq_e = torch.randn(b, l, e, generator=g) * EMB_STD
     pad = (torch.rand(b, l, generator=g) < 0.3).float()
     pad[0] = 1.0
     seq_e[pad > 0] = 0.0
     return seq_e.to(dev), pad.to(dev)
 
 
-def k3_rows(g: torch.Generator, b: int, beam: int, dev,
-            dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
-    """[b, beam] 128-lane pair rows (15% missing children, random id
-    digits: 2 base-4096 digits a child in f32 rows, 4 base-256 in bf16
-    rows) and their parents' alive mask (10% dead, row 1 all dead)."""
+def k3_rows(g: torch.Generator, b: int, beam: int, dev, dtype: torch.dtype = torch.float32,
+            e: int = E) -> tuple[torch.Tensor, torch.Tensor]:
+    """[b, beam] 128-lane pair rows of width ``e`` (15% missing children,
+    random id digits: 2 base-4096 digits a child in f32 rows, 4 base-256 in
+    bf16 rows) and their parents' alive mask (10% dead, row 1 all dead)."""
     k = packed_level_kernel.ID_DIGITS[dtype]
     base = 4096 if dtype == torch.float32 else 256
     rows = torch.zeros(b, beam, 128)
-    rows[..., : 2 * E] = torch.randn(b, beam, 2 * E, generator=g) * EMB_STD
-    rows[..., 2 * E : 2 * E + 2] = (torch.rand(b, beam, 2, generator=g) < 0.85).float()
+    rows[..., : 2 * e] = torch.randn(b, beam, 2 * e, generator=g) * EMB_STD
+    rows[..., 2 * e : 2 * e + 2] = (torch.rand(b, beam, 2, generator=g) < 0.85).float()
     if k == 2:
-        used = 2 * E + 6
-        rows[..., 2 * E + 2 : used : 2] = torch.randint(0, 256, (b, beam, 2), generator=g).float()
-        rows[..., 2 * E + 3 : used : 2] = torch.randint(0, base, (b, beam, 2), generator=g).float()
+        used = 2 * e + 6
+        rows[..., 2 * e + 2 : used : 2] = torch.randint(0, 256, (b, beam, 2), generator=g).float()
+        rows[..., 2 * e + 3 : used : 2] = torch.randint(0, base, (b, beam, 2), generator=g).float()
     else:
         for side in range(2):
-            lo = 2 * E + 2 + k * side
+            lo = 2 * e + 2 + k * side
             rows[..., lo] = torch.randint(0, 128, (b, beam), generator=g).float()  # top digit
             rows[..., lo + 1 : lo + k] = torch.randint(0, base, (b, beam, k - 1),
                                                        generator=g).float()
@@ -620,24 +702,41 @@ def k3_rows(g: torch.Generator, b: int, beam: int, dev,
     return rows.to(dtype).to(dev), alive.to(dev)
 
 
-def k3_check(rows, alive, seq_e, pad, weights) -> tuple[torch.Tensor, ...]:
-    """K3 through its wrapper against its plain version: id lanes bit for
-    bit, the dead mask and dead scores equal, live scores within K3's
-    tolerance.  Returns (kernel scores, kernel ids, plain scores,
-    agreement)."""
-    ks, kh = packed_level(rows, alive, seq_e, pad, *weights, E)
-    ps, ph = packed_level_plain(rows, alive, seq_e, pad, *weights, E)
+def k3_check(rows, alive, seq_e, pad, weights, e: int = E) -> tuple[torch.Tensor, ...]:
+    """K3 through its wrapper against its plain version at width ``e``: id
+    lanes bit for bit, the dead mask and dead scores equal, live scores
+    within K3's tolerance.  Returns (kernel scores, kernel ids, plain
+    scores, agreement)."""
+    ks, kh = packed_level(rows, alive, seq_e, pad, *weights, e)
+    ps, ph = packed_level_plain(rows, alive, seq_e, pad, *weights, e)
     torch.cuda.synchronize()
     check(kh.dtype == rows.dtype and torch.equal(bits(kh), bits(ph)),
           "packed_level: id lanes not bit-exact")
     live = ps > NEG_INF / 2
     check(torch.equal(ks > NEG_INF / 2, live), "packed_level: dead mask differs")
     check(bool((ks[~live] == ps[~live]).all()), "packed_level: dead scores differ")
-    return ks, kh, ps, within("packed_level", ks[live], ps[live])
+    return ks, kh, ps, within("packed_level", ks[live], ps[live], e)
 
 
-def k3_times(rows, alive, seq_e, pad, weights, flush) -> dict:
-    """The raw K3 launch warm and cold, the plain version, and the bound."""
+def k1_times(item_e, seq_e, pad, weights, flush) -> dict:
+    """The raw K1 launch warm and cold, its plain version, and the bound
+    (K1's folded operations), at the inputs' width."""
+    b, u, e = item_e.shape
+    l = seq_e.shape[1]
+    out = torch.empty(b, u, device=item_e.device)
+    lib, stream = _cuda.library(), _cuda.stream_handle(item_e.device)
+    args = [t.data_ptr() for t in (item_e, seq_e, pad, *weights, out)]
+    launch = lambda: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
+        *args, b, u, l, e, stream))
+    by, op = bound(nbytes(item_e, seq_e, pad, *weights, out), din_folded_flops(b, u, l, e))
+    return dict(**time_ms(launch), **time_ms(launch, "cold_", flush=flush),
+                **time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights), "plain_"),
+                bound_ms=by, bound_by=op)
+
+
+def k3_times(rows, alive, seq_e, pad, weights, flush, e: int = E) -> dict:
+    """The raw K3 launch warm and cold, the plain version, and the bound, at
+    width ``e``."""
     b, beam, rw = rows.shape
     l = seq_e.shape[1]
     alive_f = alive.float()
@@ -648,10 +747,10 @@ def k3_times(rows, alive, seq_e, pad, weights, flush) -> dict:
     fn = lib.packed_level_bf16_bf16rows if rows.dtype == torch.bfloat16 else lib.packed_level_bf16
     args = [t.data_ptr() for t in (rows, alive_f, seq_e, pad, *weights, sc, hl)]
     launch = lambda: _cuda.check_launch("packed_level", fn(  # noqa: E731
-        *args, b, beam, rw, l, E, stream))
-    by, op = k3_bound(b, beam, l, E, rows.dtype)
+        *args, b, beam, rw, l, e, stream))
+    by, op = k3_bound(b, beam, l, e, rows.dtype)
     return dict(**time_ms(launch), **time_ms(launch, "cold_", flush=flush),
-                **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, E),
+                **time_ms(lambda: packed_level_plain(rows, alive, seq_e, pad, *weights, e),
                           "plain_"),
                 bound_ms=by, bound_by=op)
 
@@ -664,13 +763,13 @@ class NearTieAudit:
     differently (the next level's top-beam, the final top-k), the plain
     scores of the two choices differ by at most twice that: a near tie."""
 
-    def __init__(self, name: str, n_levels: int, beam: int = BEAM):
-        self.name, self.n_levels, self.beam = name, n_levels, beam
+    def __init__(self, name: str, n_levels: int, beam: int = BEAM, e: int = E):
+        self.name, self.n_levels, self.beam, self.e = name, n_levels, beam, e
         self.level, self.max_err, self.max_share = 0, 0.0, 0.0
         self.max_gap, self.near_ties = 0.0, 0
 
     def record(self, ks: torch.Tensor, ps: torch.Tensor, live: torch.Tensor) -> None:
-        a = within(self.name, ks[live], ps[live])
+        a = within(self.name, ks[live], ps[live], self.e)
         self.max_err = max(self.max_err, a["max_abs_err"])
         self.max_share = max(self.max_share, a.get("share_beyond_f32_tol", 0.0))
         self.level += 1
@@ -708,7 +807,7 @@ def audit_packed(model: DIN, packed: PackedTree, codes, kernel_lists: list) -> d
     plain = topk_lists(make_packed_beam_fn(packed, DIN.precompute_seq, packed_level_plain),
                        model, codes)
     audit = NearTieAudit("packed_level", packed.cfg.max_level - packed.cfg.start_level,
-                         packed.cfg.beam)
+                         packed.cfg.beam, packed.embed_size)
 
     def audited_level(rows, alive, seq_e, pad, *w):
         ks, kh = packed_level(rows, alive, seq_e, pad, *w)
@@ -800,30 +899,47 @@ def deep_catalog(dev) -> tuple[TDMServing, np.ndarray, dict]:
                         "setup_s": time.perf_counter() - t0}
 
 
+# K3's per-width counters by row dtype, under their instance names
+K3_ROWS = {torch.float32: "packed_level", torch.bfloat16: "packed_level_bf16_rows"}
+
+
 def zero_launches() -> None:
     din_kernel.launches = packed_level_kernel.launches = 0
     packed_level_kernel.launches_bf16_rows = 0
+    din_kernel.launches_by_width.update(dict.fromkeys(din_kernel.launches_by_width, 0))
+    packed_level_kernel.launches_by_width.update(
+        dict.fromkeys(packed_level_kernel.launches_by_width, 0))
     row_writer.launches.update({k: 0 for k in row_writer.launches})
 
 
 def read_launches() -> dict:
-    return {"din_score": din_kernel.launches, "packed_level": packed_level_kernel.launches,
-            "packed_level_bf16_rows": packed_level_kernel.launches_bf16_rows,
-            **row_writer.launches}
+    """Each kernel instance's count: K1 and K3 at E = 16 under their names
+    ("din_score", "packed_level", "packed_level_bf16_rows"), at the other
+    widths with the width appended ("din_score_e8", ...), and the row
+    kernels'."""
+    out = {f"din_score{'' if e == E else f'_e{e}'}": n
+           for e, n in din_kernel.launches_by_width.items()}
+    out.update({f"{K3_ROWS[dt]}{'' if e == E else f'_e{e}'}": n
+                for (e, dt), n in packed_level_kernel.launches_by_width.items()})
+    return {**out, **row_writer.launches}
 
 
 @contextlib.contextmanager
 def uncounted():
     """Within the block, kernel launches leave the counts as they were: for
     the calls made only to compare a kernel with its plain version."""
-    saved = read_launches()
+    totals = (din_kernel.launches, packed_level_kernel.launches,
+              packed_level_kernel.launches_bf16_rows)
+    widths = (dict(din_kernel.launches_by_width), dict(packed_level_kernel.launches_by_width))
+    rows = dict(row_writer.launches)
     try:
         yield
     finally:
-        din_kernel.launches = saved["din_score"]
-        packed_level_kernel.launches = saved["packed_level"]
-        packed_level_kernel.launches_bf16_rows = saved["packed_level_bf16_rows"]
-        row_writer.launches.update({k: saved[k] for k in row_writer.launches})
+        (din_kernel.launches, packed_level_kernel.launches,
+         packed_level_kernel.launches_bf16_rows) = totals
+        din_kernel.launches_by_width.update(widths[0])
+        packed_level_kernel.launches_by_width.update(widths[1])
+        row_writer.launches.update(rows)
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -1197,20 +1313,29 @@ def plain_versions():
         din_model.din_score, row_writer.add_rows = din_score, saved
 
 
-def workflow_dir() -> Path:
+def with_model(lines: list[str], model: str) -> list[str]:
+    """A conf's lines with ``model.deep_model`` and ``tree.deep_model`` set
+    to ``model`` (the files name DIN)."""
+    out = [ln.replace("DIN", model) if ln.startswith(("model.deep_model", "tree.deep_model"))
+           else ln for ln in lines]
+    check(model == "DIN" or out != lines, f"no deep_model to set to {model}")
+    return out
+
+
+def workflow_dir(name: str = "workflow", model: str = "DIN") -> Path:
     """A fresh working directory holding configs/tdm.conf and configs/jtm.conf
-    (``model.iteration_number`` cut to WORKFLOW_ITERS) and the example data
-    at the confs' ``data/`` paths."""
-    wd = OUT / "workflow"
+    (``model.iteration_number`` cut to WORKFLOW_ITERS; the deep model
+    ``model``) and the example data at the confs' ``data/`` paths."""
+    wd = OUT / name
     shutil.rmtree(wd, ignore_errors=True)
     (wd / "data").mkdir(parents=True)
     shutil.copy(ROOT / "data" / "example_data.csv", wd / "data")
-    for name in ("tdm.conf", "jtm.conf"):
-        lines = (ROOT / "configs" / name).read_text().splitlines(keepends=True)
+    for conf in ("tdm.conf", "jtm.conf"):
+        lines = (ROOT / "configs" / conf).read_text().splitlines(keepends=True)
         cut = [f"model.iteration_number          {WORKFLOW_ITERS}\n"
                if ln.startswith("model.iteration_number") else ln for ln in lines]
-        check(cut != lines, f"{name}: no model.iteration_number to cut")
-        (wd / name).write_text("".join(cut))
+        check(cut != lines, f"{conf}: no model.iteration_number to cut")
+        (wd / conf).write_text("".join(with_model(cut, model)))
     return wd
 
 
@@ -1397,10 +1522,11 @@ def jtm_deep(dev, tree: ArrayTree, model: DIN) -> dict:
 
 
 # ---------------------------------------------------------------- OTM
-def otm_dir() -> Path:
+def otm_dir(name: str = "otm", model: str = "DIN") -> Path:
     """A fresh working directory holding configs/otm.conf (``model.epoch_num``
-    cut to OTM_EPOCHS) and the example data at the conf's ``data/`` paths."""
-    wd = OUT / "otm"
+    cut to OTM_EPOCHS; the deep model ``model``) and the example data at the
+    conf's ``data/`` paths."""
+    wd = OUT / name
     shutil.rmtree(wd, ignore_errors=True)
     (wd / "data").mkdir(parents=True)
     shutil.copy(ROOT / "data" / "example_data.csv", wd / "data")
@@ -1408,7 +1534,7 @@ def otm_dir() -> Path:
     cut = [f"model.epoch_num                 {OTM_EPOCHS}\n"
            if ln.startswith("model.epoch_num") else ln for ln in lines]
     check(cut != lines, "otm.conf: no model.epoch_num to cut")
-    (wd / "otm.conf").write_text("".join(cut))
+    (wd / "otm.conf").write_text("".join(with_model(cut, model)))
     return wd
 
 
@@ -1423,7 +1549,7 @@ def k3_audited():
     saved = otm_train.make_packed_beam_fn
 
     def level(rows, alive, seq_e, pad, *w):
-        ks, kh, _, a = k3_check(rows, alive, seq_e, pad, w[:-1])
+        ks, kh, _, a = k3_check(rows, alive, seq_e, pad, w[:-1], w[-1])
         seen["calls"] += 1
         seen["max_abs_err"] = max(seen["max_abs_err"], a["max_abs_err"])
         seen["max_share_beyond_f32_tol"] = max(seen["max_share_beyond_f32_tol"],
@@ -2357,6 +2483,419 @@ def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, sample
     return out
 
 
+# ---------------------------------------------------------------- widths
+def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
+    """K1 and K3 at width ``e`` against their plain versions on the card,
+    with O(1)-scale inputs (padding, an all-padding row, zero candidates,
+    dead parents, missing children): K1 at the serving shape [4096, 40],
+    the sweep's [8192, 4] and [8192, 2] and predict's one row of every
+    catalog item; K3 at [4096, 20] on f32 and bf16 rows, each with the
+    f32-scorer control, which must fail K3's check; at E = 32 also
+    K3_WIDE_E32.  The serving and sweep shapes are timed warm and cold,
+    beside the plain version and the bound."""
+    g = torch.Generator().manual_seed(SEED + 40 + e)
+    weights = tuple(t.detach() for t in params_from_numpy(
+        seed_params(7, np.random.default_rng(SEED + 40 + e), e), device=dev).scorer_weights())
+    b, u, l = BATCH, 2 * BEAM, SEQ_LEN
+    seq_e, pad = seq_inputs(g, b, l, dev, e)
+    k1 = {}
+    for case, (bb, uu) in (("serving", (b, u)), ("sweep", (SWEEP_ROWS, SWEEP_U)),
+                           ("sweep_u2", (SWEEP_ROWS, 2)), ("predict", (1, n_items))):
+        item_e = torch.randn(bb, uu, e, generator=g) * EMB_STD
+        item_e[torch.rand(bb, uu, generator=g) < 0.1] = 0.0
+        item_e = item_e.to(dev)
+        s_e, s_pad = ((seq_e[2:3].contiguous(), pad[2:3].contiguous()) if case == "predict"
+                      else seq_inputs(g, bb, l, dev, e))
+        got = din_score(item_e, s_e, s_pad, *weights)
+        k1[case] = dict(**within("din_score", got, din_score_plain(item_e, s_e, s_pad, *weights)),
+                        shape=[bb, uu, l, e])
+        check(bool(torch.isfinite(got).all()), f"din_score at E={e}: non-finite output")
+        if case in ("serving", "sweep"):
+            k1[case].update(k1_times(item_e, s_e, s_pad, weights, flush))
+    k3 = {}
+    for dt, name in K3_ROWS.items():
+        rows, alive = k3_rows(g, b, BEAM, dev, dt, e)
+        _, _, ps, agree = k3_check(rows, alive, seq_e, pad, weights, e)
+        live = ps > NEG_INF / 2
+        blk = torch.cat([rows[..., :e], rows[..., e : 2 * e]], dim=1).float().contiguous()
+        control = agreement("packed_level", din_score(blk, seq_e, pad, *weights)[live], ps[live], e)
+        check(not control["ok"], f"control at E={e}: an f32 scorer passes K3's check: {control}")
+        k3[name] = dict(**agree, **k3_times(rows, alive, seq_e, pad, weights, flush, e),
+                        shape=[b, BEAM, rows.shape[2], l, e], control_f32_scorer=control)
+        del rows, alive, blk
+    if e == 32:
+        wide = {}
+        for bb, beam, ll, timed in K3_WIDE_E32:
+            rows, alive = k3_rows(g, bb, beam, dev, e=e)
+            s_e, s_pad = seq_inputs(g, bb, ll, dev, e)
+            n0 = packed_level_kernel.launches_by_width[e, torch.float32]
+            agree = k3_check(rows, alive, s_e, s_pad, weights, e)[3]
+            wide[f"beam{beam}_l{ll}"] = dict(
+                **agree, shape=[bb, beam, rows.shape[2], ll, e],
+                launches=packed_level_kernel.launches_by_width[e, torch.float32] - n0,
+                **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
+            del rows, alive, s_e, s_pad
+        limit = _cuda.library().packed_level_max_beam(SEQ_LEN, e)
+        check(wide["beam1000_l10"]["launches"] == -(-1000 // limit) >= 2,
+              f"beam 1000 at E=32 is not split at the width's limit ({limit}): {wide}")
+        k3["packed_level"]["wide"] = wide
+        k3["packed_level"]["max_beam_l10"] = limit
+    torch.cuda.synchronize()
+    return {"din_score": k1, **k3}
+
+
+def example_width_8(dev, tree_path: str, samples, seqs: np.ndarray) -> dict:
+    """DIN at E = 8 on the example catalog: configs/tdm.conf's trainer at
+    that width (auto route dense), TRAIN_ITERS steps; ``evaluate`` on 512
+    eval windows and ``recommend`` with every K1 call held against its plain
+    version; then the trained model served through TDMServing on the packed
+    route from an f32 and a bf16 pair table (equal lists), the f32 table's
+    every K3 level audited."""
+    e = 8
+    tree = ArrayTree.from_file(tree_path)
+    trainer = TDMTrainer(tree=tree, seed=SEED, device=dev, **{**TDM_CONF, "embed_size": e})
+    check(not trainer._sparse, "E=8 example catalog: the auto route is not dense")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(samples.train_seqs, samples.train_targets, TRAIN_ITERS,
+                         progress_interval=100)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [lg["train_loss"] for lg in logs]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"E=8: loss did not fall: {losses}")
+    windows = (samples.eval_seqs[:512], samples.eval_labels[:512], samples.eval_users[:512])
+    consumed = samples.user_consumed[int(samples.eval_users[0])]
+    with k1_audited() as k1_audit:
+        ev = trainer.evaluate(windows, samples.user_consumed)
+        rec = trainer.recommend(samples.eval_seqs[0], consumed=consumed)
+    check(k1_audit["calls"] > 0, "E=8: evaluate and recommend made no K1 call")
+    metrics = {k: getattr(ev, k) / ev.count for k in ("loss", "precision", "recall", "ndcg")}
+    check(all(0.0 <= metrics[k] <= 1.0 for k in ("precision", "recall", "ndcg"))
+          and np.isfinite(metrics["loss"]), f"E=8 evaluate: {metrics}")
+    check_lists([rec], tree)
+    serving = width_serving(dev, trainer.model, tree, seqs, packed=True)
+    return {"items": tree.num_items, "iterations": TRAIN_ITERS, "train_s": train_s,
+            "ms_per_step": train_s / TRAIN_ITERS * 1e3, "losses": losses, "eval_windows": 512,
+            "eval": metrics, "k1_vs_plain": k1_audit, "serving": serving}
+
+
+def width_serving(dev, model: DIN, tree: ArrayTree, seqs: np.ndarray, **kw) -> dict:
+    """``recommend_batch`` of the windows on the packed route through
+    TDMServing from an f32 and then a bf16 pair table (``packed_dtype``; K3
+    rounds f32 lanes to the bf16 values, so the lists are equal), a warm-up
+    call and 3 timed ones each; the f32 table's every K3 level audited."""
+    pre, app = serving_fns("din")
+    _, app_emb = packed_fns("din")
+    codes = torch.as_tensor(tree.ids_to_codes(seqs), dtype=torch.long, device=dev)
+    out, lists = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        serv = TDMServing(model, DIN.forward, tree, precompute=pre, apply=app, apply_emb=app_emb,
+                          model_type="din", topk=TOPK, candidate_num=BEAM, packed_dtype=dtype,
+                          **kw)
+        check(serv._use_packed(BEAM), "the width's serving is not on the packed route")
+        t0 = time.perf_counter()
+        serv.recommend_batch(seqs)  # builds the pair table
+        first_s = time.perf_counter() - t0
+        calls = 3
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            lists[dtype] = serv.recommend_batch(seqs)
+        elapsed = time.perf_counter() - t0
+        check_lists(lists[dtype], tree)
+        out[dtype] = {"windows": len(seqs), "first_call_s": first_s, "calls": calls,
+                      "ms_per_batch": elapsed / calls * 1e3, "qps": len(seqs) * calls / elapsed,
+                      "pair_table_gb": serv._pair_table.numel()
+                      * serv._pair_table.element_size() / 1e9}
+        if dtype == "float32":
+            # predict (K1) over every catalog item for the first window
+            items = tree.item_ids.astype(np.int64)
+            pred = serv.predict(seqs[0], items)
+            with uncounted(), torch.inference_mode():
+                out[dtype]["vs_plain"] = audit_packed(model, PackedTree(
+                    serv._pair_table, model.embed_size, make_config(tree, BEAM)), codes,
+                    lists[dtype])
+                item_codes = serv._codes(items[None])
+                logits = model(item_codes, codes[:1])[0]
+                check(np.array_equal(torch.sigmoid(logits).cpu().numpy(), pred),
+                      "predict is not the sigmoid of K1's logits")
+                out[dtype]["predict_vs_plain"] = within(
+                    "din_score", logits, plain_apply(model, item_codes,
+                                                     model.precompute_seq(codes[:1]))[0])
+            out[dtype]["predict_items"] = len(items)
+        del serv
+    check(compare_lists(lists["bfloat16"], lists["float32"]) == 0,
+          f"E={model.embed_size}: the bf16 pair table serves other lists than the f32 one")
+    return out
+
+
+def deep_width_32(dev, tree: ArrayTree, seqs: np.ndarray) -> dict:
+    """DIN at E = 32 (scripts/quality_1m.py's width) on the 1M catalog:
+    ``recommend_batch(4096)`` on the packed route from seeded O(1)-scale
+    weights (width_serving), then bench.py's trainer at E = 32 (auto route
+    pmv, one K2 launch a step): a warm-up step and WIDTH_STEPS timed."""
+    e = 32
+    t0 = time.perf_counter()
+    num_index = (1 << (tree.max_level + 1)) - 1
+    model = params_from_numpy(seed_params(num_index, np.random.default_rng(SEED + 50), e),
+                              device=dev)
+    setup_s = time.perf_counter() - t0
+    serving = width_serving(dev, model, tree, seqs)
+    del model
+    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
+    trainer = TDMTrainer(tree=tree, embed_size=e, layer_neg_counts=neg, topk=TOPK,
+                         beam_size=BEAM, seed=SEED, device=dev)
+    check(trainer._pmv, "E=32 at 1M: the auto route is not pmv")
+    b = trainer.num_targets_per_batch
+    rng = np.random.default_rng(SEED + 51)
+    targets = rng.integers(1, DEEP_ITEMS + 1, size=b * WIDTH_STEPS)
+    train_seqs = rng.integers(1, DEEP_ITEMS + 1, size=(b * WIDTH_STEPS, SEQ_LEN))
+    k2 = row_writer.launches["write_rows"]
+    trainer.train(train_seqs, targets, 1, progress_interval=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(train_seqs, targets, WIDTH_STEPS, progress_interval=WIDTH_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == WIDTH_STEPS + 1, f"E=32 at 1M: {k2} K2 launches in {WIDTH_STEPS + 1} pmv steps")
+    check(np.isfinite(logs[-1]["train_loss"]), "E=32 at 1M: the loss is not finite")
+    return {"items": DEEP_ITEMS, "max_level": tree.max_level, "embed_size": e,
+            "setup_s": setup_s, "serving": serving,
+            "training": {"auto_route": "pmv", "pmv_state": list(trainer.emb_state["pmv"].shape),
+                         "steps_run": WIDTH_STEPS + 1, "timed_steps": WIDTH_STEPS,
+                         "k2_launches": k2, "ms_per_step": elapsed / WIDTH_STEPS * 1e3,
+                         "final_loss": logs[-1]["train_loss"]}}
+
+
+# ---------------------------------------------------------------- DeepFM
+def route_lists(serv: TDMServing, packed: bool, seqs: np.ndarray) -> dict:
+    """One route's raw beam output (ids, scores [B, 2*beam] on the host) and
+    top-10 lists for ``seqs``, with the ms of the call (a warm-up first)."""
+    serv.packed = packed
+    fn = serv._beam_fn(BEAM)
+    codes = serv._codes(seqs)
+    fn(serv.params, codes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = fn(serv.params, codes)
+    ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    serv._beam_fns.clear()
+    return {"ids": ids, "scores": scores, "lists": filter_topk(ids, scores, TOPK), "ms": ms}
+
+
+def lists_up_to_near_ties(a: dict, b: dict, tol: float) -> dict:
+    """Two routes' top-10 lists agree but for near ties: in a row that
+    differs, every item on one list and not the other scores, in the route
+    that lists it, within tol * (1 + |s|) of that route's 10th score s, and
+    lists holding the same items have the same scores within that
+    tolerance."""
+    rows, worst = 0, 0.0
+    for i, (x, y) in enumerate(zip(a["lists"], b["lists"])):
+        if np.array_equal(x, y):
+            continue
+        rows += 1
+        for r, lst in ((a, x), (b, y)):
+            score = dict(zip(r["ids"][i].tolist(), r["scores"][i].tolist()))
+            kth = score[int(lst[-1])]
+            for item in set(x.tolist()) ^ set(y.tolist()):
+                if item in lst:
+                    gap = abs(score[item] - kth) / (1 + abs(kth))
+                    worst = max(worst, gap)
+                    check(gap <= tol, f"row {i}: item {item} differs beyond a near tie ({gap:.3e})")
+        if set(x.tolist()) == set(y.tolist()):
+            sx = sorted(dict(zip(a["ids"][i].tolist(), a["scores"][i].tolist()))[k] for k in x)
+            sy = sorted(dict(zip(b["ids"][i].tolist(), b["scores"][i].tolist()))[k] for k in y)
+            check(np.allclose(sx, sy, rtol=tol, atol=tol), f"row {i}: tied lists score apart")
+    return {"rows": len(a["lists"]), "rows_differing": rows, "max_relative_gap": worst}
+
+
+def deepfm_workflow(dev, seqs: np.ndarray) -> dict:
+    """configs/tdm.conf and configs/jtm.conf with ``model.deep_model DeepFM``
+    through the port's CLI (``model.iteration_number`` cut to
+    WORKFLOW_ITERS, as in ``workflow``): init -> train -> cluster -> retrain
+    -> jtm-tree-learning (every add audited); then ``TDMServing.load``
+    serves the windows on the packed and the classic route, whose lists
+    agree up to near ties."""
+    wd = workflow_dir("workflow_deepfm", "DeepFM")
+    stages: dict[str, float] = {}
+    with contextlib.chdir(wd):
+        for stage, command, conf in (
+                ("tdm-initialize-tree", "tdm-initialize-tree", "tdm.conf"),
+                ("tdm-train-deep-model", "tdm-train-deep-model", "tdm.conf"),
+                ("tdm-cluster-tree", "tdm-cluster-tree", "tdm.conf"),
+                ("tdm-train-deep-model (clustered tree)", "tdm-train-deep-model", "tdm.conf")):
+            stages[stage] = cli_stage(command, conf)
+        check(load_meta("data/tdm_model.bin")["model"] == "deepfm", "the checkpoint is no DeepFM")
+        for src, dst in (("tdm_model.bin.npz", "jtm_model.bin.npz"),
+                         ("tdm_model.bin.meta.json", "jtm_model.bin.meta.json"),
+                         ("tdm_tree.bin", "jtm_tree.bin")):
+            shutil.copy(Path("data") / src, Path("data") / dst)
+        with adds_audited() as add_audit:
+            stages["jtm-tree-learning"] = cli_stage("jtm-tree-learning", "jtm.conf")
+        learned = ArrayTree.from_file("data/jtm_tree.bin")
+        check_projection(dict(zip(learned.item_ids.tolist(), learned.item_codes.tolist())),
+                         learned)
+        check(add_audit["calls"] > 0, "the DeepFM sweep made no add call")
+        t0 = time.perf_counter()
+        serv = TDMServing.load("data/jtm_model.bin", "data/jtm_tree.bin", device=dev, topk=TOPK,
+                               candidate_num=BEAM)
+        stages["TDMServing.load"] = time.perf_counter() - t0
+    check(serv.model_type == "deepfm" and serv._use_packed(BEAM)
+          and serv.pair_table_dtype() == torch.float32,
+          "DeepFM serving: not on the packed route over an f32 table")
+    packed, classic = route_lists(serv, True, seqs), route_lists(serv, False, seqs)
+    for lists in (packed["lists"], classic["lists"]):
+        check_lists(lists, learned)
+    return {"cut": f"model.iteration_number {WORKFLOW_ITERS} in tdm.conf and jtm.conf, "
+                   "model.deep_model and tree.deep_model DeepFM; nothing else changed",
+            "stage_seconds": stages, "total_seconds": sum(stages.values()),
+            "sweep_adds_bit_exact": add_audit["calls"],
+            "serving": {"windows": len(seqs), "packed_ms": packed["ms"],
+                        "classic_ms": classic["ms"],
+                        "packed_vs_classic": lists_up_to_near_ties(packed, classic,
+                                                                   DEEPFM_NEAR_TIE)}}
+
+
+def deepfm_otm(dev) -> dict:
+    """configs/otm.conf with ``model.deep_model DeepFM`` through the port's
+    CLI (``model.epoch_num`` cut to OTM_EPOCHS, as in ``otm_example``):
+    otm-train-deep-model -> otm-construct-tree (every add audited) ->
+    otm-train-deep-model under the learned mapping -> OTMServing.load and
+    ``recommend_batch`` of 4096 windows."""
+    wd = otm_dir("otm_deepfm", "DeepFM")
+    stages: dict[str, float] = {}
+    with contextlib.chdir(wd):
+        stages["otm-train-deep-model"] = cli_stage("otm-train-deep-model", "otm.conf")
+        check(load_meta("data/otm_model.bin")["model"] == "deepfm", "the checkpoint is no DeepFM")
+        with adds_audited() as add_audit:
+            stages["otm-construct-tree"] = cli_stage("otm-construct-tree", "otm.conf")
+        learned = load_mapping("data/otm_mapping.txt")[0]
+        conf = Path("otm.conf").read_text()
+        Path("otm.conf").write_text(conf.replace("model.initialize_mapping        true",
+                                                 "model.initialize_mapping        false"))
+        stages["otm-train-deep-model (learned mapping)"] = cli_stage("otm-train-deep-model",
+                                                                     "otm.conf")
+        check(load_mapping("data/otm_mapping.txt")[0] == learned, "the retrain moved the mapping")
+        serv = OTMServing.load("data/otm_model.bin", "data/otm_mapping.txt",
+                               "data/example_data.csv", device=dev)
+    tr = serv._trainer
+    check(tr.model.model_type == "deepfm" and add_audit["calls"] > 0,
+          f"DeepFM OTM: model {tr.model.model_type}, {add_audit['calls']} adds")
+    windows = np.concatenate([tr.data.eval_seqs, tr.data.train_seqs])[:BATCH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lists = tr.recommend_batch(windows)
+    stages["recommend_batch(4096)"] = time.perf_counter() - t0
+    check(all(len(r) == TOPK and len(np.unique(r)) == TOPK and np.isin(r, list(learned)).all()
+              for r in lists), "DeepFM OTM: a list is short, repeats or holds a non-item")
+    return {"cut": f"model.epoch_num {OTM_EPOCHS} in otm.conf, model.deep_model and "
+                   "tree.deep_model DeepFM; nothing else changed",
+            "items": tr.data.num_items, "n_levels": tr.n_levels, "stage_seconds": stages,
+            "total_seconds": sum(stages.values()), "construction_adds_bit_exact": add_audit["calls"],
+            "serving_windows": len(windows)}
+
+
+def deepfm_deep(dev, tree: ArrayTree, seqs: np.ndarray) -> dict:
+    """DeepFM on the 1M catalog: bench.py's trainer with model_type deepfm
+    (auto route pmv, one K2 launch a step), a warm-up and DEEPFM_STEPS timed
+    steps, then DEEPFM_AUDITED_STEPS more with every K2 commit held bit for
+    bit against its plain version; the trained model served through
+    TDMServing on the packed route (its levels in plain ops) from an f32
+    pair table, timed."""
+    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
+    trainer = TDMTrainer(tree=tree, model_type="deepfm", embed_size=E, layer_neg_counts=neg,
+                         topk=TOPK, beam_size=BEAM, seed=SEED, device=dev)
+    check(trainer._pmv, "DeepFM at 1M: the auto route is not pmv")
+    b = trainer.num_targets_per_batch
+    n = b * (DEEPFM_STEPS + DEEPFM_AUDITED_STEPS)
+    rng = np.random.default_rng(SEED + 60)
+    targets = rng.integers(1, DEEP_ITEMS + 1, size=n)
+    train_seqs = rng.integers(1, DEEP_ITEMS + 1, size=(n, SEQ_LEN))
+    k2 = row_writer.launches["write_rows"]
+    trainer.train(train_seqs, targets, 1, progress_interval=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(train_seqs, targets, DEEPFM_STEPS, progress_interval=DEEPFM_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    with writes_audited() as commits:
+        trainer.train(train_seqs, targets, DEEPFM_AUDITED_STEPS, progress_interval=1)
+    k2 = row_writer.launches["write_rows"] - k2
+    steps = 1 + DEEPFM_STEPS + DEEPFM_AUDITED_STEPS
+    check(k2 == steps and len(commits) == DEEPFM_AUDITED_STEPS,
+          f"DeepFM at 1M: {k2} K2 launches in {steps} pmv steps, {len(commits)} audited")
+    check(np.isfinite(logs[-1]["train_loss"]), "DeepFM at 1M: the loss is not finite")
+    pre, app = serving_fns("deepfm")
+    serv = TDMServing(trainer.model, type(trainer.model).forward, tree, precompute=pre,
+                      apply=app, apply_emb=packed_fns("deepfm")[1], model_type="deepfm",
+                      topk=TOPK, candidate_num=BEAM)
+    check(serv._use_packed(BEAM) and serv.pair_table_dtype() == torch.float32,
+          "DeepFM at 1M: not on the packed route over an f32 table")
+    t1 = time.perf_counter()
+    serv.recommend_batch(seqs)  # builds the pair table
+    first_s = time.perf_counter() - t1
+    calls = 3
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        lists = serv.recommend_batch(seqs)
+    search_s = time.perf_counter() - t1
+    check_lists(lists, tree)
+    return {"items": DEEP_ITEMS, "auto_route": "pmv", "unit": trainer.sampler.unit,
+            "targets_per_step": b, "timed_steps": DEEPFM_STEPS,
+            "ms_per_step": elapsed / DEEPFM_STEPS * 1e3, "k2_launches": k2,
+            "k2_commits_bit_exact": len(commits), "final_loss": logs[-1]["train_loss"],
+            "serving": {"windows": len(seqs), "pair_table": "float32", "first_call_s": first_s,
+                        "calls": calls, "ms_per_batch": search_s / calls * 1e3,
+                        "qps": len(seqs) * calls / search_s}}
+
+
+def cli_stage(command: str, conf: str) -> float:
+    """Seconds of one CLI command in process, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(cli_main([command, "--conf", conf]) == 0, f"{command} failed")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------- reference recall
+def reference_recall(dev, tree_path: str, samples) -> dict:
+    """ROADMAP item 5's check: scripts/sparse_quality_check.py's protocol
+    (configs/tdm.conf's trainer, RECALL_ITERS dense steps, E = 16, the
+    category tree, ``evaluate`` on the whole eval split) for DIN and DeepFM
+    at RECALL_SEEDS; each model's mean recall@10 within RECALL_BAND of the
+    JAX package's mean (JAX_RECALL)."""
+    tree = ArrayTree.from_file(tree_path)
+    eval_data = (samples.eval_seqs, samples.eval_labels, samples.eval_users)
+    out = {}
+    for model_type in ("din", "deepfm"):
+        runs = []
+        for seed in RECALL_SEEDS:
+            tr = TDMTrainer(tree=tree, model_type=model_type, seed=seed, device=dev,
+                            sparse_embed_update=False, **TDM_CONF)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(samples.train_seqs, samples.train_targets, RECALL_ITERS,
+                     progress_interval=RECALL_ITERS)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev = tr.evaluate(eval_data, samples.user_consumed)
+            runs.append({"seed": seed, "train_s": t1 - t0, "eval_s": time.perf_counter() - t1,
+                         **{k: getattr(ev, k) / ev.count
+                            for k in ("recall", "precision", "ndcg", "loss")}})
+            del tr
+        mean = float(np.mean([r["recall"] for r in runs]))
+        out[model_type] = {"runs": runs, "mean_recall": mean,
+                           "jax_cpu_mean_recall": JAX_RECALL[model_type],
+                           "gap": mean - JAX_RECALL[model_type],
+                           "within_band": abs(mean - JAX_RECALL[model_type]) <= RECALL_BAND}
+    out.update(protocol=f"configs/tdm.conf's trainer, {RECALL_ITERS} dense iterations, E={E}, "
+                        f"category tree, evaluate on {len(samples.eval_seqs)} eval windows",
+               band=RECALL_BAND, seeds=list(RECALL_SEEDS))
+    return out
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -2382,39 +2921,40 @@ def main() -> int:
     log = lib_path.with_suffix(".log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    k1_usage = ptxas_usage(log, "din_score_kernel")
-    # template arguments as nvcc mangles them: <kOneTile, Row> and <kAdd, T>
-    k3_usage = {k: ptxas_usage(log, f"packed_level_kernelILb{k}EfE") for k in (1, 0)}
-    k3_bf16_usage = ptxas_usage(log, "packed_level_kernelILb1E13__nv_bfloat16E")
+    usage = instance_usage(log)
+    # template arguments as nvcc mangles them: <kAdd, T>
     add_usage = {dt: ptxas_usage(log, f"write_kernelILb1E{m}E")
                  for dt, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"))}
     hmma = hmma_counts(lib_path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
-          "k1_ptxas": k1_usage, "k3_ptxas": {"one_tile": k3_usage[1], "tiles": k3_usage[0],
-                                             "one_tile_bf16_rows": k3_bf16_usage},
+          "instances": {n: {**u, "register_cap": reg_cap(n)} for n, u in sorted(usage.items())},
           "add_ptxas": add_usage, "sass_hmma": hmma})
-    check(0 < k1_usage["registers"] <= 64 and k1_usage["spill_bytes"] == 0,
-          f"K1 uses more than 64 registers or spills: {k1_usage}")
-    # the one-tile K3 (every L <= 16) within 64 registers and no spill, so
-    # the serving batch's 1,024 blocks fit the card in one wave
-    check(0 < k3_usage[1]["registers"] <= 64 and k3_usage[1]["spill_bytes"] == 0,
-          f"K3's one-tile kernel uses more than 64 registers or spills: {k3_usage}")
-    # and so the one-tile K3 over bf16 rows and the add on a bf16 table, as
-    # their f32 instances
-    check(0 < k3_bf16_usage["registers"] <= 64 and k3_bf16_usage["spill_bytes"] == 0,
-          f"K3's one-tile kernel over bf16 rows uses more than 64 registers or spills: "
-          f"{k3_bf16_usage}")
+    # every K1 and K3 instance within its register cap (K1 and the one-tile
+    # K3 at E <= 16: 64, so the serving batch's blocks fit the card in one
+    # wave) and no spill; every K3 instance on the tensor cores
+    expected = {f"K1 E={e}" for e in KERNEL_WIDTHS} | {
+        f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
+        for t in ("one-tile", "tiles")}
+    check(set(usage) == expected, f"the build's K1/K3 instances: {sorted(usage)}")
+    over = {n: u for n, u in usage.items()
+            if not 0 < u["registers"] <= reg_cap(n) or u["spill_bytes"]}
+    check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
-    check(hmma.get("packed_level_kernel", 0) > 0, f"K3's SASS has no HMMA: {hmma}")
+    no_mma = [n for n in expected if n.startswith("K3") and not hmma.get(n)]
+    check(not no_mma, f"K3 instances whose SASS has no HMMA: {no_mma}")
 
     # ---- 3. kernels against their plain versions
     tree_path, ckpt, seqs, facts4, samples, heavy = example_data()  # set-up of the main path
     weights = tuple(t.detach() for t in params_from_numpy(
         seed_params(7, np.random.default_rng(SEED + 4)), device=dev).scorer_weights())
     kern = kernels_vs_plain(dev, weights, facts4["catalog_items"])
-    emit({"phase": "kernels", "tolerance": TOL, "flip_share": FLIP_SHARE, **kern})
+    flush = torch.empty(64 << 20, device=dev)
+    kern_w = {e: kernels_at_width(dev, e, facts4["catalog_items"], flush) for e in WIDTHS}
+    del flush
+    emit({"phase": "kernels", "tolerance": TOL, "flip_share": FLIP_SHARE, **kern,
+          **{f"e{e}": k for e, k in kern_w.items()}})
 
     deep, deep_seqs, facts5 = deep_catalog(dev)  # set-up of the main path
 
@@ -2596,6 +3136,38 @@ def main() -> int:
     for name in launches:
         launches[name] += facts_10m["launches"][name]
 
+    # ---- DIN at E = 8 and 32, DeepFM on every path, and item 5's recall
+    # check: launch counts zeroed just before each, read just after
+    zero_launches()
+    facts_w = {"e32_1m": deep_width_32(dev, deep.tree, deep_seqs),
+               "e8_example": example_width_8(dev, tree_path, samples, seqs)}
+    facts_w["launches"] = read_launches()
+    check(all(facts_w["launches"][f"{k}_e{e}"] > 0 for e in WIDTHS
+              for k in ("din_score", "packed_level", "packed_level_bf16_rows")),
+          f"widths: {facts_w['launches']}")
+    emit({"phase": "widths", **facts_w})
+    zero_launches()
+    facts_fm = {"workflow": deepfm_workflow(dev, seqs), "otm": deepfm_otm(dev),
+                "deep_1m": deepfm_deep(dev, deep.tree, deep_seqs)}
+    facts_fm["launches"] = read_launches()
+    check(facts_fm["launches"]["add_rows"] > 0 and facts_fm["launches"]["write_rows"]
+          == facts_fm["deep_1m"]["k2_launches"], f"deepfm: {facts_fm['launches']}")
+    check(not any(n for k, n in facts_fm["launches"].items()
+                  if k.startswith(("din_score", "packed_level"))),
+          f"deepfm: a DIN kernel launched: {facts_fm['launches']}")
+    emit({"phase": "deepfm", **facts_fm})
+    zero_launches()
+    facts_rr = reference_recall(dev, tree_path, samples)
+    facts_rr["launches"] = read_launches()
+    emit({"phase": "reference_recall", **facts_rr})
+    for model_type in ("din", "deepfm"):
+        check(facts_rr[model_type]["within_band"],
+              f"reference_recall: {model_type}'s mean recall@10 is not within {RECALL_BAND} "
+              f"of the JAX package's: {facts_rr[model_type]}")
+    for name in launches:
+        launches[name] += (facts_w["launches"][name] + facts_fm["launches"][name]
+                           + facts_rr["launches"][name])
+
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
            "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
@@ -2640,6 +3212,27 @@ def main() -> int:
                               *(c["max_abs_err"] for c in dr_k2.values())),
             "add_rows": row_errors(rk, "add"),
             "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"]}
+    # the instances at E = 8 and 32: K1 at the serving shape (also the
+    # sweep's), K3 at [4096, 20] on f32 and bf16 rows (at E = 32 also beam
+    # 110 and L = 24); their errors over the kernels phase and every audit
+    # of the widths phase
+    for e in WIDTHS:
+        kw, fw = kern_w[e], facts_w["e32_1m" if e == 32 else "e8_example"]
+        k1 = kw["din_score"]
+        timed[f"din_score_e{e}"] = {**k1["serving"], "sweep": k1["sweep"], "library_ms": None}
+        timed[f"packed_level_e{e}"] = {**kw["packed_level"], "library_ms": None}
+        timed[f"packed_level_bf16_rows_e{e}"] = {**kw["packed_level_bf16_rows"],
+                                                 "library_ms": None}
+        errs[f"din_score_e{e}"] = max(
+            [c["max_abs_err"] for c in k1.values()]
+            + [fw["serving"]["float32"]["predict_vs_plain"]["max_abs_err"]]
+            + ([fw["k1_vs_plain"]["max_abs_err"]] if "k1_vs_plain" in fw else []))
+        errs[f"packed_level_e{e}"] = max(
+            [kw["packed_level"]["max_abs_err"], fw["serving"]["float32"]["vs_plain"]["max_abs_err"]]
+            + [c["max_abs_err"] for c in kw["packed_level"].get("wide", {}).values()])
+        errs[f"packed_level_bf16_rows_e{e}"] = kw["packed_level_bf16_rows"]["max_abs_err"]
+        for k in ("din_score", "packed_level", "packed_level_bf16_rows"):
+            src[f"{k}_e{e}"], replaces[f"{k}_e{e}"] = src[k], replaces[k]
     summary = []
     for name, k in timed.items():
         check(launches[name] > 0, f"{name} never launched on the main path")
@@ -2655,7 +3248,7 @@ def main() -> int:
             **({"sweep_ms": k["sweep"]["ms"], "sweep_cold_ms": k["sweep"]["cold_ms"],
                 "sweep_plain_ms": k["sweep"]["plain_ms"],
                 "sweep_bound_ms": k["sweep"]["bound_ms"], "sweep_shape": k["sweep"]["shape"]}
-               if name == "din_score" else {}),
+               if name.startswith("din_score") else {}),
             # K2 also at the 10M DR E-step's three commits
             **({"dr_estep_10m_commits": {
                 n: {key: c[key] for key in ("table", "rows", "rows_written", "ms", "plain_ms",
@@ -2665,7 +3258,7 @@ def main() -> int:
             # and at L = 24 (two sequence tiles)
             **({f"{case}_{key}": k["wide"][case][key] for case in ("beam110_l10", "beam20_l24")
                 for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "shape")}
-               if name == "packed_level" else {}),
+               if name in ("packed_level", "packed_level_e32") else {}),
         })
     emit({"kernels": summary})
 

@@ -27,15 +27,15 @@ import torch
 from torch import nn
 
 from dismember_tpu_torch.constants import PADDING_IDX
-from dismember_tpu_torch.core.checkpoint import to_numpy, to_tensor
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.models.embedding import embed_lookup
+from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.ops.din_kernel import din_score, score_chain
 
-_INIT_STD = 0.05
 
+class DIN(TreeScorer):
+    model_type = "din"
 
-class DIN(nn.Module):
     def __init__(self, num_index: int, embed_size: int, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -47,17 +47,9 @@ class DIN(nn.Module):
         self.mlp2 = nn.Linear(e, 1, device=dev)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        for w in (self.embedding, self.att_linear.weight, self.mlp1.weight,
-                  self.mlp2.weight):
-            w.copy_(torch.randn(w.shape, generator=generator) * _INIT_STD)
-        self.mlp1.bias.zero_()
-        self.mlp2.bias.zero_()
-
-    @property
-    def embed_size(self) -> int:
-        return self.embedding.shape[1]
+        self._init_normal((self.embedding, self.att_linear.weight, self.mlp1.weight,
+                           self.mlp2.weight), (self.mlp1.bias, self.mlp2.bias), generator)
 
     def param_tree(self) -> dict:
         """Parameters keyed as the JAX package's params pytree."""
@@ -68,54 +60,16 @@ class DIN(nn.Module):
             "mlp2": {"weight": self.mlp2.weight, "bias": self.mlp2.bias},
         }
 
-    def params_numpy(self) -> dict:
-        """The params pytree as numpy arrays (loads into the JAX package)."""
-
-        def conv(node):
-            if isinstance(node, dict):
-                return {k: conv(v) for k, v in node.items()}
-            return to_numpy(node)
-
-        return conv(self.param_tree())
-
-    @torch.no_grad()
-    def load_numpy(self, params: dict) -> None:
-        """Copy a params pytree of arrays in, each at its parameter's dtype;
-        shapes must match."""
-
-        def copy(dst, src, path):
-            if isinstance(dst, dict):
-                for k in dst:
-                    copy(dst[k], src[k], f"{path}/{k}" if path else k)
-                return
-            src = to_tensor(src, dst.dtype)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(
-                    f"{path}: shape {tuple(src.shape)}, expected {tuple(dst.shape)}"
-                )
-            dst.copy_(src)
-
-        copy(self.param_tree(), params, "")
-
     def scorer_weights(self) -> tuple[torch.Tensor, ...]:
         """(att_w, w1, b1, w2, b2) as the kernels take them."""
         return (self.att_linear.weight, self.mlp1.weight, self.mlp1.bias,
                 self.mlp2.weight, self.mlp2.bias)
-
-    def forward(self, items: torch.Tensor, seqs: torch.Tensor) -> torch.Tensor:
-        """Grouped forward: items [B, U] codes (-1 invalid), seqs [B, L] codes
-        (-1 padding) -> logits [B, U] (pre-sigmoid)."""
-        return self.apply_with_ctx(items, self.precompute_seq(seqs))
 
     def precompute_seq(self, seqs: torch.Tensor):
         """Per-query context, computed once for all beam levels:
         (sequence embeddings [B, L, E], padding mask [B, L] float32)."""
         seq_e = embed_lookup(self.embedding, seqs)
         return seq_e, (seqs == PADDING_IDX).to(torch.float32)
-
-    def apply_with_ctx(self, items: torch.Tensor, ctx) -> torch.Tensor:
-        """forward() with the sequence side from :meth:`precompute_seq`."""
-        return self.apply_from_emb(embed_lookup(self.embedding, items), ctx)
 
     def apply_from_emb(self, item_e: torch.Tensor, ctx) -> torch.Tensor:
         """Score candidates whose embeddings [B, U, E] are already gathered."""

@@ -16,9 +16,10 @@ linearity), so one thread scores one candidate with ~1.3 kFLOP in registers:
 L scores with padding as a multiply-add, the softmax with one reciprocal of
 its sum, and h from ctx.  The sum runs in another order than
 :func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
-E=16 only.  Forward only: on CUDA it raises when grad mode is on and an
-input requires grad (the trainers score through the plain version under
-autograd, ``DIN.train_apply_from_emb``).
+E = 8, 16 and 32 (``KERNEL_WIDTHS``; E = 32 at up to 128 registers a
+thread, the others at 64).  Forward only: on CUDA it raises when grad mode
+is on and an input requires grad (the trainers score through the plain
+version under autograd, ``DIN.train_apply_from_emb``).
 """
 
 from __future__ import annotations
@@ -36,23 +37,26 @@ from dismember_tpu_torch.ops import _cuda
 # the float32 range, which torch.where refuses
 _MASK_F32 = float(np.float32(MASK_VALUE))
 
-# K1 launches on CUDA tensors; chip_smoke.py zeroes and reads it
+# the embedding widths K1 and K3 are built for (csrc/din_kernels.cu)
+KERNEL_WIDTHS = (8, 16, 32)
+
+# K1 launches on CUDA tensors, in all and by width; chip_smoke.py zeroes
+# and reads them
 launches = 0
-
-# the one embedding width K1 and K3 are built for (csrc/din_kernels.cu)
-KERNEL_WIDTH = 16
+launches_by_width = dict.fromkeys(KERNEL_WIDTHS, 0)
 
 
-def check_kernel_width(embed_size: int, device: torch.device) -> None:
-    """Raise when a scorer of width ``embed_size`` would run on CUDA, where K1
-    and K3 take E = 16 only; the CPU scores any width through the plain
-    versions.  Called where a trainer, a server or a tree learner is built,
-    so a run fails before it trains, not at its first evaluation."""
-    if device.type == "cuda" and embed_size != KERNEL_WIDTH:
+def check_kernel_width(model_type: str, embed_size: int, device: torch.device) -> None:
+    """Raise when a DIN scorer of width ``embed_size`` would run on CUDA at
+    a width K1 and K3 are not built for; the CPU scores any width through the
+    plain versions, and DeepFM, which launches neither kernel, runs at any
+    width.  Called where a trainer, a server or a tree learner is built, so
+    a run fails before it trains, not at its first evaluation."""
+    if model_type == "din" and device.type == "cuda" and embed_size not in KERNEL_WIDTHS:
         raise ValueError(
             f"embed_size={embed_size}: the CUDA kernels K1 and K3 are built for "
-            f"E={KERNEL_WIDTH} only (ROADMAP queue 1, next g: K1/K3 at the other "
-            "widths the JAX package serves); use E=16, or device='cpu'"
+            f"E in {list(KERNEL_WIDTHS)} only (ROADMAP queue 1, g's remainder: "
+            "E = 64, 96 and 128); use a built width, or device='cpu'"
         )
 
 
@@ -133,4 +137,5 @@ def din_score(
     )
     _cuda.check_launch(name, code)
     launches += 1
+    launches_by_width[e] += 1
     return out

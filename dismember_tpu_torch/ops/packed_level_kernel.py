@@ -23,17 +23,20 @@ values.
 :func:`packed_level` launches ``packed_level_bf16`` (f32 rows) or
 ``packed_level_bf16_bf16rows`` (bf16 rows; ``csrc/din_kernels.cu``) for
 CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel is
-built for E=16 and takes any L (in 16-position tiles).  A query row's
-staging area in shared memory grows with the beam; a beam wider than one
-row of a block can hold (``packed_level_max_beam``, ~1,340 parents at L <=
-16 on an H100) is split here into chunks of parents, one launch each, and
-the chunks' outputs are put back into block order.  Each parent's two
+built for E = 8, 16 and 32 (E = 32 with its weight fragments in shared
+memory, at up to 128 registers a thread; E = 8 pads its products' depth
+to 16 with zeros) and takes any L (in 16-position tiles).  A query row's
+staging area in shared memory grows with the beam and with E; a beam wider
+than one row of a block can hold (``packed_level_max_beam(L, E)``, ~1,340
+parents at E = 16 and L <= 16 on an H100, fewer at E = 32) is split here
+into chunks of parents, one launch each, and the chunks' outputs are put
+back into block order.  Each parent's two
 children are scored independently of the other parents, so the split
 changes no score.  The kernel runs its products on the tensor cores (bf16
 operands are the contract), so on the H100 at the serving shapes (B=4096,
-beam=20) it is bound by bytes: of each 128-lane row it needs the 2E+6 = 38
-used lanes (~12.5 MB a level, ~17.5 MB with the sequence tiles and
-outputs).  The row gather stays outside it.
+beam=20, E=16) it is bound by bytes: of each 128-lane row it needs the
+2E+6 = 38 used lanes (~12.5 MB a level, ~17.5 MB with the sequence tiles
+and outputs).  The row gather stays outside it.
 """
 
 from __future__ import annotations
@@ -43,26 +46,36 @@ import functools
 import torch
 
 from dismember_tpu_torch.ops import _cuda
-from dismember_tpu_torch.ops.din_kernel import score_chain
+from dismember_tpu_torch.ops.din_kernel import KERNEL_WIDTHS, score_chain
 
 NEG_INF = -3.4e38  # score of a missing child or dead parent
 
-# K3 launches on CUDA tensors, over f32 rows and over bf16 rows;
-# chip_smoke.py zeroes and reads them
-launches = 0
-launches_bf16_rows = 0
 # id digits a child, by the pair rows' dtype
 ID_DIGITS = {torch.float32: 2, torch.bfloat16: 4}
+
+# K3 launches on CUDA tensors, over f32 rows and over bf16 rows, and by
+# (width, row dtype); chip_smoke.py zeroes and reads them
+launches = 0
+launches_bf16_rows = 0
+launches_by_width = {(e, dt): 0 for e in KERNEL_WIDTHS for dt in ID_DIGITS}
+
+
+def pair_row_width(embed_size: int, dtype=torch.float32) -> int:
+    """Lanes of a pair row: the used lanes (2E + 2 + 2 id digit groups)
+    rounded up to 128."""
+    used = 2 * embed_size + 2 + 2 * ID_DIGITS[dtype]
+    return (used + 127) // 128 * 128
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
-                       embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's plain version: the same six bf16 roundings as the kernel; bf16
-    rows are upcast for the scores and their digits kept as they are."""
+def score_pair_rows(score, rows, alive, embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A packed level in plain ops, as K3 reads its rows: the children's
+    embeddings [B, 2*beam, E] in block order (left | right), upcast to f32,
+    scored by ``score``; -3.4e38 where the child is missing or its parent
+    dead; the id digits copied as they are."""
     e, k = embed_size, ID_DIGITS[rows.dtype]
     f = rows.float()
     item_e = torch.cat([f[..., :e], f[..., e : 2 * e]], dim=1)
@@ -71,19 +84,28 @@ def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
         [rows[..., 2 * e + 2 : 2 * e + 2 + k], rows[..., 2 * e + 2 + k : 2 * e + 2 + 2 * k]], dim=1
     )
     ok = exists & (alive > 0).repeat(1, 2)
-    logit = score_chain(item_e, seq_e, pad, att_w, w1, b1, w2, b2, rnd=_bf16)
-    return torch.where(ok, logit, NEG_INF), hilo
+    return torch.where(ok, score(item_e), NEG_INF), hilo
+
+
+def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
+                       embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain version: the same six bf16 roundings as the kernel; bf16
+    rows are upcast for the scores and their digits kept as they are."""
+    return score_pair_rows(
+        lambda item_e: score_chain(item_e, seq_e, pad, att_w, w1, b1, w2, b2, rnd=_bf16),
+        rows, alive, embed_size)
 
 
 @functools.cache
-def _kernel_max_beam(l: int, device_index: int, bf16_rows: bool = False) -> int:
-    """The widest beam one launch takes at sequence length ``l`` on a card."""
+def _kernel_max_beam(l: int, e: int, device_index: int, bf16_rows: bool = False) -> int:
+    """The widest beam one launch takes at sequence length ``l`` and width
+    ``e`` on a card."""
     lib = _cuda.library()
     with torch.cuda.device(device_index):
         beam = (lib.packed_level_max_beam_bf16rows if bf16_rows
-                else lib.packed_level_max_beam)(l)
+                else lib.packed_level_max_beam)(l, e)
     if beam < 1:
-        raise RuntimeError(f"packed_level: no beam fits a block at L={l}")
+        raise RuntimeError(f"packed_level: no beam fits a block at L={l}, E={e}")
     return beam
 
 
@@ -122,6 +144,7 @@ def _launch(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
         launches_bf16_rows += 1
     else:
         launches += 1
+    launches_by_width[embed_size, rows.dtype] += 1
     return scores, hilo
 
 
@@ -153,6 +176,9 @@ def packed_level(
     l, e = seq_e.shape[1], embed_size
     alive = alive.to(torch.float32)
     name = "packed_level"
+    if e not in KERNEL_WIDTHS:
+        raise ValueError(f"{name}: E={e}; the kernel is built for E in {list(KERNEL_WIDTHS)}")
+    _cuda.check_shape(name, "rows", rows, (b, beam, pair_row_width(e, rows.dtype)))
     _cuda.check_inputs(name, dev, rows.dtype, rows=rows)
     _cuda.check_inputs(name, dev, alive=alive, seq_e=seq_e, pad=pad,
                        att_w=att_w, w1=w1, b1=b1, w2=w2, b2=b2)
@@ -161,7 +187,7 @@ def packed_level(
                           ("w1", w1, (e, 2 * e)), ("b1", b1, (e,)),
                           ("w2", w2, (1, e)), ("b2", b2, (1,))):
         _cuda.check_shape(name, arg, t, shape)
-    max_beam = _kernel_max_beam(l, dev.index if dev.index is not None
+    max_beam = _kernel_max_beam(l, e, dev.index if dev.index is not None
                                 else torch.cuda.current_device(), rows.dtype == torch.bfloat16)
     if beam > max_beam:
         return _split_beam(_launch, max_beam, rows, alive, seq_e, pad, *weights, embed_size)

@@ -4,7 +4,11 @@ Port of ``dismember_tpu/retrieval/packed_beam.py``, built like its
 ``make_packed_beam_fn_pallas``: per level one row gather out of the pair
 table (outside the kernel), then K3 (``ops/packed_level_kernel``) scores both
 children of every surviving parent.  Same frontiers and returned items as
-the classic loop, up to K3's bf16 operand rounding and tie order.
+the classic loop, up to K3's bf16 operand rounding and tie order.  A DeepFM
+scorer, which has no kernel, scores its levels with its own
+``apply_from_emb`` on the same rows in plain ops (``score_pair_rows``), with
+K3's block order and masks: the JAX facade's packed route without
+contraction levels.
 
 ``pair_table[c]`` packs everything the beam needs about both children of
 internal code c into one row:
@@ -34,7 +38,12 @@ import numpy as np
 import torch
 
 from dismember_tpu_torch.index.arraytree import ArrayTree
-from dismember_tpu_torch.ops.packed_level_kernel import ID_DIGITS, packed_level
+from dismember_tpu_torch.ops.packed_level_kernel import (
+    ID_DIGITS,
+    packed_level,
+    pair_row_width,
+    score_pair_rows,
+)
 from dismember_tpu_torch.retrieval.tree_beam import (
     NEG_INF,
     TreeBeamConfig,
@@ -89,12 +98,6 @@ class PackedTree:
     cfg: TreeBeamConfig
 
 
-def pair_row_width(embed_size: int, dtype=torch.float32) -> int:
-    """Lanes of a pair row: the used lanes rounded up to 128."""
-    used = 2 * embed_size + 2 + 2 * _id_layout(dtype)[0]
-    return (used + 127) // 128 * 128
-
-
 @torch.inference_mode()
 def build_pair_table(
     embedding: torch.Tensor,  # [total_codes(+), E] node-code embedding table
@@ -144,21 +147,28 @@ def make_packed_tree(tree: ArrayTree, embedding: torch.Tensor, beam: int,
 
 @torch.inference_mode()
 def beam_search_packed(
-    params,  # DIN
+    params,  # the scorer: DIN or DeepFM
     seq_codes: torch.Tensor,  # [B, L] long
     packed: PackedTree,
     precompute: Callable,
     level_fn: Callable = packed_level,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (leaf item ids [B, 2*beam], scores [B, 2*beam]), block-ordered
-    children; non-existent leaves carry id -1 and score NEG_INF.
-    ``level_fn`` is K3 (:func:`packed_level`) or its plain version."""
+    children; non-existent leaves carry id -1 and score NEG_INF.  A DIN's
+    levels go to ``level_fn``, K3 (:func:`packed_level`) or its plain
+    version; any other scorer's to its ``apply_from_emb``."""
     cfg = packed.cfg
     table = packed.pair_table
     b = seq_codes.shape[0]
     n_pairs = table.shape[0]
-    seq_e, pad = precompute(params, seq_codes)
-    weights = params.scorer_weights()
+    ctx = precompute(params, seq_codes)
+    if params.model_type == "din":
+        weights = params.scorer_weights()
+        level = lambda rows, alive: level_fn(  # noqa: E731
+            rows, alive, *ctx, *weights, packed.embed_size)
+    else:
+        level = lambda rows, alive: score_pair_rows(  # noqa: E731
+            lambda item_e: params.apply_from_emb(item_e, ctx), rows, alive, packed.embed_size)
 
     frontier, scores = start_frontier(cfg, b, seq_codes.device)
     k, base = _id_layout(table.dtype)
@@ -169,9 +179,7 @@ def beam_search_packed(
     for _ in range(cfg.max_level - cfg.start_level):
         top_codes, top_alive = select_top(frontier, scores, cfg.beam)
         rows = table[top_codes.clamp(0, n_pairs - 1)]  # [B, beam, ROW]
-        scores, ids_hilo = level_fn(
-            rows, top_alive, seq_e, pad, *weights, packed.embed_size
-        )
+        scores, ids_hilo = level(rows, top_alive)
         # K3's outputs are block-ordered (left children | right children)
         frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)
 
@@ -186,7 +194,7 @@ def make_packed_beam_fn(
     level_fn: Callable = packed_level,
 ) -> Callable:
     """``(params, seq_codes) -> (item_ids, scores)`` closure over the pair
-    table (DIN scorer)."""
+    table."""
 
     def run(params, seq_codes):
         return beam_search_packed(params, seq_codes, packed, precompute, level_fn)

@@ -4,12 +4,14 @@ Port of ``TDMServing`` and ``OTMServing`` from ``dismember_tpu/serving.py``.
 TDM (TDM.scala's ``predict`` = sigmoid scores, ``recommend`` = beam search +
 consumed filter + top-k): trees with ``max_level >= 8`` serve through the
 packed pair-table loop (K3 per level), smaller ones through the classic
-loop (K1 per level); ``predict`` scores through K1.  The pair table is f32,
-or bf16 where the f32 table would pass ``TDMServing._BF16_TABLE_BYTES``
-(4 GB: a 10M-item catalog's 8.6 GB table becomes 4.3 GB) and the scorer is
-matmul-first, the JAX facade's rule; K3 reads either.  OTM (OTM.scala)
-serves through its trainer's packed loop over the complete tree (K3 per
-level), in raw item-id space.
+loop (K1 per level); ``predict`` scores through K1.  A DeepFM checkpoint
+serves on the same routes with its levels scored in plain ops (it has no
+kernel).  The pair table is f32, or bf16 where the f32 table would pass
+``TDMServing._BF16_TABLE_BYTES`` (4 GB: a 10M-item catalog's 8.6 GB table
+becomes 4.3 GB) and the scorer is matmul-first (DIN), the JAX facade's
+rule; K3 reads either.  OTM (OTM.scala) serves through its trainer's
+packed loop over the complete tree (K3 per level for DIN), in raw item-id
+space.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class TDMServing:
                  apply=None, apply_emb=None, packed: bool | None = None,
                  packed_dtype: str | None = None, model_type: str | None = None,
                  topk: int = 10, candidate_num: int = 20):
-        self.params = params  # the scorer module (DIN), on its device
+        self.params = params  # the scorer module (DIN or DeepFM), on its device
         self.forward = forward
         self.tree = tree
         self.precompute = precompute
@@ -68,7 +70,7 @@ class TDMServing:
         self.topk = topk
         self.candidate_num = candidate_num
         self.device = params.embedding.device
-        check_kernel_width(params.embed_size, self.device)
+        check_kernel_width(params.model_type, params.embed_size, self.device)
         self._beam_fns: dict[int, object] = {}
         self._pair_table = None
 

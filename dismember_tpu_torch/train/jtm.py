@@ -11,8 +11,9 @@ level) per node, old assignment preferred to stay) fixes overflows
 (reBalance:217-265).  The final sweep lands every item on a distinct leaf.
 
 Scoring: every (training row, candidate, chain level) score of a sweep step
-is one grouped DIN forward [b, 2^d] per batch of ``score_batch_rows`` rows,
-``DIN.forward`` under inference mode, so K1 on CUDA.  Accumulation
+is one grouped scorer forward [b, 2^d] per batch of ``score_batch_rows``
+rows, the model's ``forward`` under inference mode: K1 on CUDA for DIN,
+plain ops for DeepFM.  Accumulation
 (``weights_mode="device"``, the default): the rows live on the
 device for the whole sweep, sorted by item position (``build_item_sequence_map``
 already groups them by target), so within a batch the rows of one item form
@@ -41,7 +42,7 @@ import torch
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.tree_io import write_tree
-from dismember_tpu_torch.models.din import DIN
+from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.ops import row_writer
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 
@@ -103,9 +104,10 @@ class GenericTreeLearner:
     Subclasses/factories supply: ``items`` (ids), ``item_old_codes`` (current
     leaf code per item, for the stay-preference), ``rows_codes`` [R, L]
     sequence codes per training row, ``row_item_pos`` [R] item position per
-    row.  ``model`` is the scorer (the port's ``DIN``) on ``device``."""
+    row.  ``model`` is the scorer (the port's ``DIN`` or ``DeepFM``) on
+    ``device``."""
 
-    model: DIN
+    model: TreeScorer
     max_level: int
     items: np.ndarray  # [N] item ids
     item_old_codes: np.ndarray  # [N] current leaf codes
@@ -124,7 +126,7 @@ class GenericTreeLearner:
             raise ValueError(
                 "weights_mode='host' is the CPU parity twin; on CUDA the sweep "
                 "accumulates on the card through the add kernel (weights_mode='device')")
-        check_kernel_width(self.model.embed_size, dev)
+        check_kernel_width(self.model.model_type, self.model.embed_size, dev)
         if self.model.embedding.device.type != dev.type:
             raise ValueError(f"the model lies on {self.model.embedding.device}, not on {dev}")
         self.device = self.model.embedding.device
@@ -150,7 +152,8 @@ class GenericTreeLearner:
 
     @torch.inference_mode()
     def _scores(self, chain: torch.Tensor, seqs: torch.Tensor) -> torch.Tensor:
-        """chain codes [R, C], seqs [R, L] -> logits [R, C] (K1 on CUDA)."""
+        """chain codes [R, C], seqs [R, L] -> logits [R, C] (K1 on CUDA for
+        DIN)."""
         return self.model(chain, seqs)
 
     # ------------------------------------------------------------------
@@ -436,7 +439,7 @@ class TreeLearner(GenericTreeLearner):
     def __init__(
         self,
         tree: ArrayTree,
-        model: DIN,
+        model: TreeScorer,
         train_seqs: np.ndarray,  # [R, L] raw item ids
         train_targets: np.ndarray,  # [R] raw item ids
         gap: int = 2,
@@ -485,7 +488,7 @@ class TreeLearner(GenericTreeLearner):
 
 
 def otm_tree_learner(
-    model: DIN,
+    model: TreeScorer,
     item_to_code: dict[int, int],
     train_seqs_codes: np.ndarray,  # [N, L] mapped codes (-1 pad)
     train_labels_codes: np.ndarray,  # [N, label_num] mapped codes (-1 pad)

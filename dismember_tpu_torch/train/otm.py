@@ -1,7 +1,8 @@
 """OTM training: beam-search-aware optimal pseudo-targets, per-level BCE.
 
-Port of ``dismember_tpu/train/otm.py``, DIN only (otm/.../optim/
-LocalOptimizer.scala:18-274, tree/OTMTree.scala in the reference).  Per
+Port of ``dismember_tpu/train/otm.py`` for the DIN and DeepFM scorers
+(otm/.../optim/LocalOptimizer.scala:18-274, tree/OTMTree.scala in the
+reference).  Per
 batch, with *frozen* parameters, compute (a) the per-level target node sets,
 either bottom-up optimal pseudo-targets (Algorithm 1 of arXiv 2006.15408) or
 plain ancestor targets, and (b) the per-level beam-search trajectories;
@@ -17,12 +18,13 @@ workaround); ``torch.topk`` orders equal scores differently from
 ``lax.top_k``, so trajectories agree as sets per row and level.
 
 Kernels on this path: every frozen forward (trajectory, pseudo targets)
-scores under ``torch.no_grad()`` through ``DIN.apply_from_emb``, so K1 on
-CUDA; in the pmv format each level commits its rows through K2 (n_levels
-launches a batch); serving and evaluation run the packed pair-table loop
-over the complete tree, K3 per level.  The level steps differentiate the
-plain scorer (``DIN.train_apply_from_emb``), as the JAX package
-differentiates outside its kernel.
+scores under ``torch.no_grad()`` through the scorer's ``apply_from_emb``,
+so K1 on CUDA for DIN (DeepFM scores in plain ops); in the pmv format each
+level commits its rows through K2 (n_levels launches a batch); serving and
+evaluation run the packed pair-table loop over the complete tree, K3 per
+level for DIN.  The level steps differentiate the plain scorer
+(``train_apply_from_emb``), as the JAX package differentiates outside its
+kernel.
 """
 
 from __future__ import annotations
@@ -40,8 +42,7 @@ from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.metrics import compute_metrics_batch
 from dismember_tpu_torch.data.otm_dataset import OTMData, lower_log2, upper_log2
-from dismember_tpu_torch.models.din import DIN
-from dismember_tpu_torch.ops.din_kernel import check_kernel_width, score_chain
+from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.packed_beam import (
     PackedTree,
     build_pair_table,
@@ -50,7 +51,7 @@ from dismember_tpu_torch.retrieval.packed_beam import (
 from dismember_tpu_torch.retrieval.tree_beam import NEG_INF, TreeBeamConfig
 from dismember_tpu_torch.train import sparse_adam, step_resume
 from dismember_tpu_torch.train.row_step import RowStepTrainer
-from dismember_tpu_torch.train.tdm import _not_ported
+from dismember_tpu_torch.train.tdm import _not_ported, build_model
 
 logger = logging.getLogger("dismember_tpu_torch.otm")
 
@@ -140,15 +141,11 @@ class OTMTrainer(RowStepTrainer):
 
         Initial weights come from ``torch.Generator().manual_seed(seed)``,
         not from JAX's draws (``load_numpy`` carries a JAX trainer's
-        params and state).  ``mesh`` (ROADMAP item 13) and
-        ``model_type="deepfm"`` (item d) are not ported and raise; on CUDA
-        a width other than the kernels' E = 16 is refused here."""
+        params and state).  ``mesh`` (ROADMAP item 13) is not ported and
+        raises; on CUDA a DIN at a width K1 and K3 are not built for is
+        refused here."""
         if precision not in ("f32", "f64"):
             raise ValueError(f"precision must be f32 or f64, got {precision!r}")
-        if model_type == "deepfm":
-            raise _not_ported("the DeepFM scorer", "item d: models/deepfm.py")
-        if model_type != "din":
-            raise ValueError(f"unknown deep model: {model_type}")
         if mesh is not None:
             raise _not_ported("mesh training", "item 13: multi-device")
         if sparse_format not in ("auto", "mv", "pmv"):
@@ -156,7 +153,7 @@ class OTMTrainer(RowStepTrainer):
         self._x64 = precision == "f64"
         self.dtype = torch.float64 if self._x64 else torch.float32
         self.device = resolve_device(device)
-        check_kernel_width(embed_size, self.device)
+        check_kernel_width(model_type, embed_size, self.device)
         self.data = data
         self.model_type = model_type
         self.embed_size = embed_size
@@ -175,8 +172,9 @@ class OTMTrainer(RowStepTrainer):
 
         num_index = data.num_tree_nodes
         # drawn in f32 and upcast, so f32 and f64 start from the same weights
-        self.model = DIN(num_index, embed_size, device=self.device,
-                         generator=torch.Generator().manual_seed(seed)).to(self.dtype)
+        self.model = build_model(model_type, data.leaf_level, embed_size, seq_len,
+                                 generator=torch.Generator().manual_seed(seed),
+                                 device=self.device).to(self.dtype)
         if sparse_embed_update and self._x64:
             raise ValueError(
                 "sparse_embed_update keeps f32 moments; it is not available "
@@ -206,13 +204,13 @@ class OTMTrainer(RowStepTrainer):
 
     def _frozen_scorer(self, seqs: torch.Tensor):
         """``logits_fn(nodes [B, W], -1 pads) -> logits [B, W]`` with the
-        current parameters and ``seqs``' context computed once: K1 in f32
-        (on CUDA), float64 plain ops in the f64 mode."""
-        ctx = (self._frozen_rows(seqs), (seqs == PADDING_IDX).to(torch.float32))
-        if self._x64:
-            weights = [w.detach() for w in self.model.scorer_weights()]
-            return lambda nodes: score_chain(self._frozen_rows(nodes), *ctx, *weights)
-        return lambda nodes: self.model.apply_from_emb(self._frozen_rows(nodes), ctx)
+        current parameters and ``seqs``' context computed once: the scorer's
+        ``apply_from_emb`` (K1 for DIN on CUDA), or in the f64 mode its
+        plain twin ``train_apply_from_emb`` in float64 (K1 is f32)."""
+        m = self.model
+        ctx = m.ctx_from_seq_emb(self._frozen_rows(seqs), (seqs == PADDING_IDX).to(torch.float32))
+        score = m.train_apply_from_emb if self._x64 else m.apply_from_emb
+        return lambda nodes: score(self._frozen_rows(nodes), ctx)
 
     # ------------------------------------------------------------------
     def _beam_trajectory_from(self, logits_fn, b: int):
@@ -386,8 +384,9 @@ class OTMTrainer(RowStepTrainer):
 
     # ------------------------------------------------------------------
     def _packed_search(self):
-        """The packed pair-table loop (K3 per level) over the OTM complete
-        tree: every heap slot exists and the id lanes carry the leaf code
+        """The packed pair-table loop (K3 per level for DIN) over the OTM
+        complete tree, on an f32 table: every heap slot exists and the id
+        lanes carry the leaf code
         itself; validity and consumed filtering stay in recommend_batch.
         Rebuilt when the embedding's identity or in-place version changes.
         The JAX package's contraction levels (ROADMAP item f) give the same
@@ -405,7 +404,7 @@ class OTMTrainer(RowStepTrainer):
         table = build_pair_table(emb.detach(), np.ones(total, dtype=bool),
                                  np.arange(total, dtype=np.int64), total)
         fn = make_packed_beam_fn(PackedTree(pair_table=table, embed_size=self.embed_size,
-                                            cfg=cfg), DIN.precompute_seq)
+                                            cfg=cfg), type(self.model).precompute_seq)
         self._packed_cache = (key, fn)
         return fn
 

@@ -5,7 +5,8 @@ A step takes a batch of candidate codes [B, U] (-1 invalid) with BCE labels
 and weights, and the query sequences [B, L]:
 
     gather the touched embedding rows once (table, or packed p|m|v state)
-    -> DIN forward [B, U] through ``DIN.train_apply_from_emb`` and
+    -> the scorer's forward [B, U] through its ``train_apply_from_emb``
+       (DIN or DeepFM, the sequence side from its ``ctx_from_seq_emb``) and
        BCE-with-logits, differentiated w.r.t. the gathered rows and the
        scorer weights
     -> Adam: dense over the whole table (duplicate-row gradients summed by
@@ -35,8 +36,8 @@ import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core.checkpoint import flatten, to_tensor
-from dismember_tpu_torch.models.din import DIN
 from dismember_tpu_torch.models.losses import bce_with_logits
+from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.train import sparse_adam, step_resume
 
 logger = logging.getLogger("dismember_tpu_torch.train")
@@ -56,10 +57,11 @@ def _find_adam(state):
 
 
 class RowStepTrainer:
-    """Mixin of the trainers: needs ``model`` (DIN), ``learning_rate``,
-    ``embed_size`` and ``device``; :meth:`_init_optimizer` sets the rest."""
+    """Mixin of the trainers: needs ``model`` (DIN or DeepFM),
+    ``learning_rate``, ``embed_size`` and ``device``;
+    :meth:`_init_optimizer` sets the rest."""
 
-    model: DIN
+    model: TreeScorer
 
     def _init_optimizer(self, sparse: bool, sparse_format: str) -> None:
         """Dense Adam, or lazy sparse Adam on the embedding in the mv or pmv
@@ -206,8 +208,8 @@ class RowStepTrainer:
         params = self._named_params()
         rest_names = [n for n in params if n != "embedding"]
         with torch.enable_grad():
-            ctx = DIN.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
-                                       (seq_codes == PADDING_IDX).float())
+            ctx = self.model.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
+                                              (seq_codes == PADDING_IDX).float())
             logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
             loss = bce_with_logits(logits, labels, weights)
             g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])

@@ -1,20 +1,20 @@
 """TDM training: level-sampled BCE over the tree, and the scorer functions
 serving needs.
 
-Port of ``dismember_tpu/train/tdm.py``, DIN only: ``build_model``,
-``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS``,
+Port of ``dismember_tpu/train/tdm.py``, for the DIN and DeepFM scorers:
+``build_model``, ``serving_fns``, ``packed_fns``, ``MATMUL_FIRST_SCORERS``,
 ``ResidentWindows`` and ``TDMTrainer``.  A train step samples negatives on
 the device (``train/sampler.py``) and takes one step of
 ``train/row_step.py`` on the sampled codes: the touched rows gathered once,
-the DIN forward and BCE differentiated w.r.t. them, dense or lazy sparse
+the scorer's forward and BCE differentiated w.r.t. them, dense or lazy sparse
 Adam (mv or pmv, whose packed formats commit through K2).  Two loops run
 the steps: :meth:`TDMTrainer.train`, a host loop that uploads each batch
 and can snapshot its state for a bit-exact resume
 (``train/step_resume.py``), and :meth:`TDMTrainer.train_resident`, which
 uploads the dataset once and gathers every batch on the device.  The
-embedding table may be stored in bf16 (``embed_dtype``): rows are upcast
-to f32 after every gather, so K1 and the step compute in f32, and the
-updates round to bf16 as the JAX package's do on the CPU.
+embedding table of a DIN may be stored in bf16 (``embed_dtype``): rows are
+upcast to f32 after every gather, so K1 and the step compute in f32, and
+the updates round to bf16 as the JAX package's do on the CPU.
 
 Batch accounting parity: ``total_batch_size`` counts *expanded* rows, so
 the number of targets per step is ``max(1, total_batch // unit)`` with
@@ -38,8 +38,10 @@ from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.core.metrics import EvalResult, compute_metrics_batch
 from dismember_tpu_torch.index.arraytree import ArrayTree
+from dismember_tpu_torch.models.deepfm import DeepFM
 from dismember_tpu_torch.models.din import DIN
 from dismember_tpu_torch.models.losses import bce_with_logits
+from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
 from dismember_tpu_torch.train import sparse_adam, step_resume
@@ -48,51 +50,45 @@ from dismember_tpu_torch.train.sampler import TreeSampler
 
 logger = logging.getLogger("dismember_tpu_torch.tdm")
 
-_DEEPFM_TODO = (
-    "the DeepFM scorer is not ported yet (ROADMAP queue 1 item 9: "
-    "models/deepfm.py)"
-)
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 {item})")
 
 
+def scorer_class(model_type: str) -> type[TreeScorer]:
+    """The scorer module of a ``model.deep_model`` name ("din", "deepfm")."""
+    scorers = {"din": DIN, "deepfm": DeepFM}
+    if model_type not in scorers:
+        raise ValueError(f"unknown deep model: {model_type}")
+    return scorers[model_type]
+
+
 def build_model(model_type: str, tree_max_level: int, embed_size: int,
                 seq_len: int, generator: torch.Generator | None = None,
-                device="cuda") -> DIN:
+                device="cuda") -> TreeScorer:
     """The scorer over tree-node codes, num_index = 2^(max_level+1) - 1
-    (DIN.buildModel).  ``seq_len`` sizes DeepFM, which is not ported."""
+    (DIN.buildModel); ``seq_len`` sizes DeepFM's DNN."""
     num_index = (1 << (tree_max_level + 1)) - 1
-    if model_type == "din":
-        return DIN(num_index, embed_size, device=device, generator=generator)
     if model_type == "deepfm":
-        raise NotImplementedError(_DEEPFM_TODO)
-    raise ValueError(f"unknown deep model: {model_type}")
-
-
-def _din_only(model_type: str) -> None:
-    if model_type == "deepfm":
-        raise NotImplementedError(_DEEPFM_TODO)
-    if model_type != "din":
-        raise ValueError(f"unknown deep model: {model_type}")
+        return DeepFM(num_index, embed_size, seq_len, device=device, generator=generator)
+    return scorer_class(model_type)(num_index, embed_size, device=device, generator=generator)
 
 
 def serving_fns(model_type: str):
     """(precompute, apply) pair with the level-invariant sequence side hoisted
     out of the beam-search level loop."""
-    _din_only(model_type)
-    return DIN.precompute_seq, DIN.apply_with_ctx
+    cls = scorer_class(model_type)
+    return cls.precompute_seq, cls.apply_with_ctx
 
 
 def packed_fns(model_type: str):
     """(precompute, apply_from_emb) pair for the packed pair-table loop."""
-    _din_only(model_type)
-    return DIN.precompute_seq, DIN.apply_from_emb
+    cls = scorer_class(model_type)
+    return cls.precompute_seq, cls.apply_from_emb
 
 
 # Scorers whose every use of the candidate embedding flows through a matmul,
-# so bf16 pair-table lanes cannot change their scores.
+# so bf16 pair-table lanes cannot change their scores.  DeepFM's FM term is
+# elementwise f32 math on the embedding, so its pair table stays f32.
 MATMUL_FIRST_SCORERS = frozenset({"din"})
 
 
@@ -157,9 +153,9 @@ class TDMTrainer(RowStepTrainer):
     beam_size: int = 20
     seed: int = 0
     mesh: object = None  # not ported (ROADMAP queue 1 item 13)
-    embed_dtype: object = None  # torch.bfloat16 stores the table in bf16:
-    # half the memory of a deep catalog's table; compute stays f32 and the
-    # Adam moments are optax's (mu f32; dense nu bf16)
+    embed_dtype: object = None  # torch.bfloat16 stores the table in bf16
+    # (DIN only): half the memory of a deep catalog's table; compute stays
+    # f32 and the Adam moments are optax's (mu f32; dense nu bf16)
     sparse_embed_update: bool | None = None  # lazy row-sparse Adam on the
     # embedding table (train/sparse_adam.py).  None = auto
     # (sparse_adam.sparse_worthwhile): sparse at deep catalogs, dense
@@ -176,8 +172,11 @@ class TDMTrainer(RowStepTrainer):
             raise _not_ported("mesh training", "item 13: multi-device")
         if self.embed_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"embed_dtype must be float32 or bfloat16, got {self.embed_dtype!r}")
+        if self.embed_dtype == torch.bfloat16 and self.model_type == "deepfm":
+            raise _not_ported("DeepFM with a bf16 embedding table",
+                              "label i: its bf16 step pinned to the JAX package's HLO")
         self.device = resolve_device(self.device)
-        check_kernel_width(self.embed_size, self.device)
+        check_kernel_width(self.model_type, self.embed_size, self.device)
         self.sampler = TreeSampler.build(
             self.tree, self.layer_neg_counts, start_level=self.start_sample_level,
             with_prob=self.sample_with_prob, tolerance=self.sample_tolerance,
@@ -475,8 +474,8 @@ class TDMTrainer(RowStepTrainer):
         k = topk or self.topk
         if self._beam_fn is None or self._beam_fn_width != cn:
             pre, app = serving_fns(self.model_type)
-            self._beam_fn = make_beam_fn(DIN.forward, self.tree, cn, precompute=pre,
-                                         apply=app, device=self.device)
+            self._beam_fn = make_beam_fn(type(self.model).forward, self.tree, cn,
+                                         precompute=pre, apply=app, device=self.device)
             self._beam_fn_width = cn
         seq_codes = self.tree.ids_to_codes(seqs)
         out: list[np.ndarray] = []

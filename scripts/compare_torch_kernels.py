@@ -85,26 +85,26 @@ PROBES = {
     "k1_no_ctx": [("      s_ctx[r * tl.ctx_stride + i * tl.lp + l] = dot<E>(x, w.m + i * RM);",
                    "      s_ctx[r * tl.ctx_stride + i * tl.lp + l] = x[0];")],
     "k1_stage_only": [(K1_SHORT, K1_TRIVIAL)],
-    "k1_regs48": [("kMinBlocks = 65536 / (64 * kMaxThreads)",
-                   "kMinBlocks = 65536 / (48 * kMaxThreads)")],
+    "k1_regs48": [("constexpr int kK1Regs = E <= 16 ? 64 : 128;",
+                   "constexpr int kK1Regs = E <= 16 ? 48 : 128;")],
     "k1_head_unroll2": [("#pragma unroll 1\n  for (const float* c = ctx;",
                          "#pragma unroll 2\n  for (const float* c = ctx;")],
     "k1_fast_exp": [("    x[l] = expf(x[l] - mx);", "    x[l] = __expf(x[l] - mx);")],
-    "empty": [("  extern __shared__ float4 smem4[];\n  const int lane",
-               "  extern __shared__ float4 smem4[];\n  if (B > 0) return;\n  const int lane")],
+    "empty": [("  extern __shared__ float4 smem4[];\n  float* smem",
+               "  extern __shared__ float4 smem4[];\n  if (B > 0) return;\n  float* smem")],
     "stage_only": [("for (int m0 = 0; m0 < U; m0 += 16) {",
                     "for (int m0 = 0; m0 < 0; m0 += 16) {")],
     "no_softmax": [("#pragma unroll\n      for (int h = 0; h < 2; ++h) {\n        float mx",
                     "#pragma unroll\n      for (int h = 0; h < 0; ++h) {\n        float mx")],
-    "no_exp": [("            s = expf(s - mx);", "            s = s - mx;")],
+    "no_exp": [("            x = expf(x - mx);", "            x = x - mx;")],
     "no_cvt": [("  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
                 "  return *reinterpret_cast<const uint32_t*>(&v);",
                 "  return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);"),
                ("  return __bfloat162float(__float2bfloat16_rn(x));",
                 "  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);")],
     "div": [("const float inv = rcp(quad_sum(sum));", "const float sum_q = quad_sum(sum);"),
-            ("for (int i = 0; i < 2; ++i) acc[j][2 * h + i] *= inv;",
-             "for (int i = 0; i < 2; ++i) acc[j][2 * h + i] /= sum_q;")],
+            ("for (int i = 0; i < 2; ++i) s[j][2 * h + i] *= inv;",
+             "for (int i = 0; i < 2; ++i) s[j][2 * h + i] /= sum_q;")],
 }
 
 
@@ -215,7 +215,8 @@ def main() -> int:
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
                  **{f"k3{k}": cs.ptxas_usage(log, f"packed_level_kernel{k}")
-                    for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E")}})
+                    for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E",
+                              "ILb1EfLi16EE", "ILb1E13__nv_bfloat16Li16EE")}})
     libs = {label: load(label) for label in sources}
 
     if args.base:
@@ -227,7 +228,8 @@ def main() -> int:
                                              "write_kernelILb0EfE")),
                            ("packed_level_kernel", ("packed_level_kernelE",
                                                     "packed_level_kernelILb1EEv",
-                                                    "packed_level_kernelILb1EfE"))):
+                                                    "packed_level_kernelILb1EfE",
+                                                    "packed_level_kernelILb1EfLi16EE"))):
             a, b = pick(old, *keys), pick(new, *keys)
             cs.emit({"sass_identical": name, "equal": a == b, "instructions": [len(a), len(b)]})
 

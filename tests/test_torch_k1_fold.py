@@ -122,7 +122,7 @@ def test_k1_source_takes_one_reciprocal_a_candidate():
     k1 = re.sub(r"//.*", "", k1)  # the code, without its comments
     assert "rcp(sum)" in k1
     assert "/ sum" not in k1 and not re.search(r"\bs_p\b", k1)
-    assert "__launch_bounds__(kMaxThreads, kMinBlocks)" in k1
+    assert "__launch_bounds__(kMaxThreads, kK1MinBlocks<E>)" in k1
 
 
 def test_row_add_runs_through_the_write_kernel():

@@ -35,7 +35,8 @@ def _jax(params):
     return jnp.asarray(params)
 
 
-@pytest.mark.parametrize("b,u,l,e", [(5, 8, 4, 16), (16, 40, 10, 16), (3, 6, 6, 8)])
+@pytest.mark.parametrize("b,u,l,e", [(5, 8, 4, 16), (16, 40, 10, 16), (3, 6, 6, 8),
+                                     (4, 40, 10, 32)])
 def test_k1_plain_matches_pallas_and_forward(b, u, l, e):
     rng = np.random.default_rng(b * 100 + u)
     num_index = 127
@@ -82,7 +83,8 @@ def _level_inputs(rng, b, beam, e, l, row=128):
     return rows, alive, seq_e, pad
 
 
-@pytest.mark.parametrize("b,beam,e,l", [(6, 8, 16, 10), (5, 4, 16, 6), (3, 20, 8, 10)])
+@pytest.mark.parametrize("b,beam,e,l", [(6, 8, 16, 10), (5, 4, 16, 6), (3, 20, 8, 10),
+                                         (3, 20, 32, 10)])
 def test_k3_plain_matches_pallas(b, beam, e, l):
     rng = np.random.default_rng(b + beam + e)
     p = _params(rng, 31, e)

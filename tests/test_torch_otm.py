@@ -218,8 +218,9 @@ def test_serving_loads_a_checkpoint_on_the_cpu_only_when_asked(data, small_csv, 
 
 def test_guards(data):
     kw = dict(embed_size=E, beam_size=BEAM, device="cpu")
-    with pytest.raises(NotImplementedError, match="DeepFM.*item d"):
-        OTMTrainer(data, model_type="deepfm", **kw)
+    assert OTMTrainer(data, model_type="deepfm", **kw).model.model_type == "deepfm"
+    with pytest.raises(ValueError, match="unknown deep model"):
+        OTMTrainer(data, model_type="dssm", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         OTMTrainer(data, mesh=object(), **kw)
     with pytest.raises(ValueError, match="f64"):

@@ -52,7 +52,8 @@ def setup(tmp_path_factory):
 
 def _trainer(tree, **kw):
     kw.setdefault("sparse_embed_update", False)
-    return TDMTrainer(tree=tree, model_type="din", embed_size=8, learning_rate=3e-3,
+    kw.setdefault("model_type", "din")
+    return TDMTrainer(tree=tree, embed_size=8, learning_rate=3e-3,
                       total_batch_size=1024, seq_len=SEQ_LEN,
                       layer_neg_counts="0,1,2,3,4,5,6,7,8,9", seed=5, device="cpu", **kw)
 
@@ -95,7 +96,8 @@ def test_window_gather_matches_jax_formula(setup):
 @pytest.mark.parametrize("sparse_kw", [
     {"sparse_embed_update": False},
     {"sparse_embed_update": True, "sparse_format": "pmv"},
-], ids=["dense", "pmv"])
+    {"sparse_embed_update": True, "sparse_format": "pmv", "model_type": "deepfm"},
+], ids=["dense", "pmv", "deepfm_pmv"])
 def test_chunk_size_bit_invariant(setup, sparse_kw):
     tree, _, _, seqs, targets, _ = setup
     a = _trainer(tree, **sparse_kw)

@@ -182,8 +182,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tree_path, tmp_path, monkeyp
     assert serv.device == torch.device("cpu")
     trainer = TDMTrainer(tree=tree, layer_neg_counts=NEG_COUNTS, device="cpu")
     assert trainer.device == trainer.sampler.exists_rows.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="DeepFM"):
-        build_model("deepfm", tree.max_level, 16, 8, device="cpu")
+    deepfm = build_model("deepfm", tree.max_level, 16, 8, device="cpu")
+    assert deepfm.model_type == "deepfm" and deepfm.mlp1.weight.shape == (9, 9 * 16)
+    with pytest.raises(ValueError, match="unknown deep model"):
+        build_model("dssm", tree.max_level, 16, 8, device="cpu")
     # the bf16 pair table is ported: it builds on the CPU when the CPU is asked
     assert build_pair_table(torch.zeros(tree.total_codes, 16), tree.node_exists, tree.node_id,
                             tree.total_codes, dtype=torch.bfloat16).dtype == torch.bfloat16

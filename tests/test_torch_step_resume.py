@@ -112,7 +112,8 @@ def tdm_setup(small_csv, tmp_path_factory):
 
 
 def _tdm(tree, **kw):
-    return TDMTrainer(tree=tree, model_type="din", embed_size=8, learning_rate=3e-3,
+    kw.setdefault("model_type", "din")
+    return TDMTrainer(tree=tree, embed_size=8, learning_rate=3e-3,
                       total_batch_size=2048, layer_neg_counts=NEG_COUNTS, seed=11,
                       device="cpu", **kw)
 
@@ -121,7 +122,8 @@ def _tdm(tree, **kw):
     {"sparse_embed_update": False},
     {"sparse_embed_update": True, "sparse_format": "pmv"},
     {"sparse_embed_update": True, "embed_dtype": torch.bfloat16},
-], ids=["dense", "pmv", "bf16_mv"])
+    {"sparse_embed_update": True, "sparse_format": "mv", "model_type": "deepfm"},
+], ids=["dense", "pmv", "bf16_mv", "deepfm_mv"])
 def test_tdm_resume_bit_compatible(tdm_setup, tmp_path, sparse_kw):
     tree, seqs, targets = tdm_setup
     ckpt = str(tmp_path / "tdm_step")

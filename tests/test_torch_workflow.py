@@ -26,7 +26,7 @@ from dismember_tpu_torch.core import config as cfg
 from dismember_tpu_torch.core.checkpoint import flatten, load_pytree
 from dismember_tpu_torch.core.io import read_bytes
 from dismember_tpu_torch.index.arraytree import ArrayTree
-from dismember_tpu_torch.ops.din_kernel import KERNEL_WIDTH, check_kernel_width
+from dismember_tpu_torch.ops.din_kernel import KERNEL_WIDTHS, check_kernel_width
 from dismember_tpu_torch.train.pipeline import (
     StageState,
     run_jtm_alternation,
@@ -275,21 +275,26 @@ def test_state_left_by_the_jax_driver_resumes(samples_tree, tmp_path):
 
 
 # ---------------------------------------------------------------- repairs
-@pytest.mark.parametrize("e", [8, 32])
+@pytest.mark.parametrize("e", [24, 64])
 def test_kernel_width_check_refuses_other_widths_on_cuda(e):
-    with pytest.raises(ValueError, match=f"E={KERNEL_WIDTH} only.*next g"):
-        check_kernel_width(e, torch.device("cuda"))
+    with pytest.raises(ValueError, match=r"E in \[8, 16, 32\] only.*g's remainder"):
+        check_kernel_width("din", e, torch.device("cuda"))
 
 
 @pytest.mark.parametrize("e", [8, 16, 32])
 def test_kernel_width_check_passes_e16_and_the_cpu(e):
-    check_kernel_width(e, torch.device("cpu"))
-    check_kernel_width(KERNEL_WIDTH, torch.device("cuda"))
+    """The built widths pass on CUDA, any width on the CPU, and DeepFM
+    (no kernel) at any width."""
+    assert e in KERNEL_WIDTHS
+    check_kernel_width("din", e, torch.device("cpu"))
+    check_kernel_width("din", e + 8, torch.device("cpu"))
+    check_kernel_width("din", e, torch.device("cuda"))
+    check_kernel_width("deepfm", e + 8, torch.device("cuda"))
 
 
 def test_width_check_runs_where_trainers_servers_and_learners_are_built(samples_tree,
                                                                        monkeypatch):
-    """Construction on CUDA with E=8 raises from the check, before anything
+    """Construction on CUDA with E=24 raises from the check, before anything
     is allocated there (CUDA faked as present)."""
     import types
 
@@ -301,13 +306,13 @@ def test_width_check_runs_where_trainers_servers_and_learners_are_built(samples_
     samples, tree_path = samples_tree
     tree = ArrayTree.from_file(tree_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="next g"):
-        TDMTrainer(tree=tree, embed_size=8, layer_neg_counts=NEG, device="cuda")
-    with pytest.raises(ValueError, match="next g"):
-        TreeLearner(tree=tree, model=DIN(tree.total_codes, 8, device="cpu"),
+    with pytest.raises(ValueError, match="g's remainder"):
+        TDMTrainer(tree=tree, embed_size=24, layer_neg_counts=NEG, device="cuda")
+    with pytest.raises(ValueError, match="g's remainder"):
+        TreeLearner(tree=tree, model=DIN(tree.total_codes, 24, device="cpu"),
                     train_seqs=samples.train_seqs[:4], train_targets=samples.train_targets[:4],
                     device="cuda")
     on_cuda = types.SimpleNamespace(embedding=types.SimpleNamespace(device=torch.device("cuda")),
-                                    embed_size=8)
-    with pytest.raises(ValueError, match="next g"):
+                                    embed_size=24, model_type="din")
+    with pytest.raises(ValueError, match="g's remainder"):
         TDMServing(on_cuda, DIN.forward, tree)
