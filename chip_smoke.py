@@ -127,6 +127,28 @@ Phases, one JSON line each; any failed check raises and fails the run:
      tree, the whole eval split) for DIN and DeepFM at seeds 0-2: each
      model's mean recall@10 within RECALL_BAND of the JAX package's
      (JAX_RECALL, measured on the CPU);
+  mesh: the multi-device paths (``core/mesh.py``, ``train/spmd*.py``).
+     (a) In this process, world size 1 over nccl, mesh (1, 1): bench.py's
+     1M trainer with ``mesh=`` (the sharded mv route; its model keeps no
+     table beside the shard) against the single-device mv route from the
+     same weights on the same negatives, bit for bit (the first step's K2
+     commit and add audited), then a
+     warm-up and MESH_STEPS timed steps of each; ``make_sharded_tree_
+     serving_fn`` on 4096 windows over the 1M catalog's f32 pair table
+     (16 K3 levels, timed), lists equal to ``TDMServing``'s packed route,
+     one batch again with every K3 level audited.  (b) Two ranks spawned
+     on the one card over gloo (nccl refuses two ranks on one card; gloo
+     stages CUDA buffers through host memory), meshes (1, 2) and (2, 1):
+     the sharded mv step on the example catalog against the single-device
+     mv route on the shards' own negatives (bit for bit at (1, 2), within
+     the dense tolerances at (2, 1); the first step's K2 commit and add
+     audited on each rank), sharded packed serving on the 1M catalog
+     (lists equal to ``TDMServing``'s), a mesh JTM sweep on the example
+     catalog (every K1 call on the rank's score rows and every add
+     audited; projection equal to the single-device sweep's) and,
+     at (1, 2), ``DRTrainer(mesh=)``'s E-step bit for bit against the
+     single-device pmv E-step with its three K2 commits audited.  Each
+     rank's launches, ms a step and a serving batch, the transport;
   6. the ``{"kernels": [...]}`` summary: every instance, E = 8 and 32 among
      them;
   7. last line ``{"ok": true, "device": {...}}``.
@@ -142,6 +164,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import logging
 import re
@@ -154,6 +177,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -165,7 +189,8 @@ from dismember_tpu_torch.core.checkpoint import (  # noqa: E402
     load_pytree,
     save_pytree,
 )
-from dismember_tpu_torch.data.dr_dataset import DRData  # noqa: E402
+from dismember_tpu_torch.core import mesh as meshlib, multihost  # noqa: E402
+from dismember_tpu_torch.data.dr_dataset import DRData, build_dr_data  # noqa: E402
 from dismember_tpu_torch.data.ingest import (  # noqa: E402
     read_csv,
     unique_items_with_category,
@@ -216,6 +241,7 @@ from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
     make_config,
 )
 from dismember_tpu_torch.serving import DRServing, OTMServing, TDMServing  # noqa: E402
+from dismember_tpu_torch.train import multiproc, spmd, spmd_sparse  # noqa: E402
 from dismember_tpu_torch.train import otm as otm_train  # noqa: E402
 from dismember_tpu_torch.train import sparse_adam  # noqa: E402
 from dismember_tpu_torch.train.dr import DRTrainer  # noqa: E402
@@ -350,6 +376,13 @@ DEEPFM_STEPS, DEEPFM_AUDITED_STEPS, DEEPFM_NEAR_TIE = 20, 5, 1e-5
 # scripts/jax_reference_recall.py), and the seed band of BASELINE.md:151
 JAX_RECALL = {"din": 0.011657156652161813, "deepfm": 0.015153125451413693}
 RECALL_BAND, RECALL_SEEDS, RECALL_ITERS = 0.003, (0, 1, 2), 2000
+# the mesh phase: (a) bench.py's 1M trainer on a (1, 1) mesh over nccl,
+# steps on the same negatives as the single-device mv route (the first
+# audited), then timed steps; sharded serving calls a measurement; (b) the
+# sharded mv steps on the example catalog and the DR E-steps timed on the
+# two gloo ranks; the two ranks' time limit
+MESH_PARITY_STEPS, MESH_STEPS, MESH_SERVE_CALLS = 3, 20, 3
+MESH_EXAMPLE_STEPS, MESH_DR_STEPS, MESH_TIMEOUT_S = 5, 5, 600
 
 
 def emit(obj) -> None:
@@ -2859,6 +2892,343 @@ def cli_stage(command: str, conf: str) -> float:
     return time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------- mesh
+def mesh_trainer_1m(dev, tree: ArrayTree, mesh) -> dict:
+    """(a)'s training leg: bench.py's 1M trainer on the mesh (auto route:
+    the sharded mv state) against the single-device mv route from the same
+    weights on the same negatives, bit for bit, the first step's K2 commit
+    and adds audited; then a warm-up and MESH_STEPS timed steps of each."""
+    tr = deep_trainer(tree, dev, mesh=mesh)
+    check(tr._sparse and not tr._pmv and set(tr.emb_state) == {"mv", "count"},
+          "the 1M mesh trainer did not take the sharded mv route")
+    check(tr.model.embedding.numel() == 0 and tr._shard.shape[0] == tr._table_rows,
+          "the 1M mesh trainer keeps a table beside its shard")
+    ref = deep_trainer(tree, dev, sparse_format="mv")
+    init = multihost.gather_to_host(tr.params)
+    v = ref.model.embedding.shape[0]
+    ref.model.load_numpy(dict(init, embedding=init["embedding"][:v]))
+    b = tr.num_targets_per_batch
+    rng = np.random.default_rng(SEED + 40)
+    targets = rng.integers(1, DEEP_ITEMS + 1, size=b * (MESH_STEPS + MESH_PARITY_STEPS + 1))
+    seqs = rng.integers(1, DEEP_ITEMS + 1, size=(len(targets), SEQ_LEN))
+    seqs[:, :3] = np.where(rng.random((len(seqs), 3)) < 0.3, 0, seqs[:, :3])
+    tc_all, sc_all = tree.ids_to_codes(targets), tree.ids_to_codes(seqs)
+    batch = lambda i: (tr._codes(tc_all[i * b : (i + 1) * b]),  # noqa: E731
+                       tr._codes(sc_all[i * b : (i + 1) * b]))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    for i in range(MESH_PARITY_STEPS):
+        tc, sc = batch(i)
+        samples = tr.sampler.sample(gen, tc)
+        with (writes_audited() if i == 0 else contextlib.nullcontext([])) as writes, \
+                (adds_audited() if i == 0 else contextlib.nullcontext({})) as adds:
+            loss = tr.step_from_samples(sc, *samples)
+        if i == 0:
+            audited = {"k2_calls": len(writes), "add_calls": adds["calls"]}
+        with uncounted():
+            check(loss.item() == ref.step_from_samples(sc, *samples).item(),
+                  f"mesh 1M: step {i}'s loss differs from the single-device mv step's")
+    check(audited == {"k2_calls": 1, "add_calls": 1}, f"mesh 1M: the audited step {audited}")
+    named = ref._named_params()
+    for n, p in flatten(tr.params).items():
+        check(torch.equal(bits(p[:v] if n == "embedding" else p), bits(named[n])),
+              f"mesh 1M: {n} differs from the single-device mv route's")
+    check(torch.equal(bits(tr.emb_state["mv"]), bits(ref.emb_state["mv"])),
+          "mesh 1M: the m|v state differs from the single-device mv route's")
+
+    def timed(t: TDMTrainer) -> float:
+        t._train_step(*batch(MESH_PARITY_STEPS))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_STEPS):
+            t._train_step(*batch(MESH_PARITY_STEPS + 1 + i))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / MESH_STEPS * 1e3
+
+    k2 = row_writer.launches["write_rows"]
+    ms = timed(tr)
+    k2 = row_writer.launches["write_rows"] - k2
+    check(k2 == MESH_STEPS + 1, f"mesh 1M: {k2} K2 launches in {MESH_STEPS + 1} steps")
+    with uncounted():
+        ref_ms = timed(ref)
+    held = sum(t.numel() * t.element_size() for t in (tr.model.embedding, tr._shard,
+                                                      tr.emb_state["mv"]))
+    return {"items": DEEP_ITEMS, "route": "sharded mv", "targets_per_step": b,
+            "table_and_state_bytes_held": held,
+            "parity_steps": MESH_PARITY_STEPS, "equals_single_device_mv": True,
+            "first_step_audited": audited, "timed_steps": MESH_STEPS,
+            "ms_per_step": ms, "single_device_mv_ms_per_step": ref_ms}
+
+
+def mesh_serving_1m(dev, deep: TDMServing, deep_seqs: np.ndarray, deep_lists: list,
+                    mesh) -> dict:
+    """(a)'s serving leg: ``make_sharded_tree_serving_fn`` over the 1M
+    catalog's f32 pair table, 4096 windows, lists equal to ``TDMServing``'s
+    packed route's; one batch again with every K3 level audited."""
+    model, tree = deep.params, deep.tree
+    fn, route = spmd.make_sharded_tree_serving_fn(model, tree, BEAM, mesh)
+    check(route == "packed", f"the 1M catalog served on the {route} route")
+    codes = meshlib.local_rows(torch.as_tensor(tree.ids_to_codes(deep_seqs), dtype=torch.long,
+                                               device=dev), mesh, meshlib.DATA_AXIS)
+    k3 = packed_level_kernel.launches
+    fn(codes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_SERVE_CALLS):
+        ids, scores = fn(codes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / MESH_SERVE_CALLS * 1e3
+    k3 = packed_level_kernel.launches - k3
+    cfg = make_config(tree, BEAM)
+    levels = cfg.max_level - cfg.start_level
+    check(k3 == levels * (MESH_SERVE_CALLS + 1), f"mesh serving: {k3} K3 launches")
+    lists = filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), TOPK)
+    check([r.tolist() for r in lists] == [r.tolist() for r in deep_lists],
+          "mesh serving: the lists differ from TDMServing's packed route")
+    # the unsharded packed loop of TDMServing, timed the same way (device
+    # results, no host top-k)
+    unsharded = deep._beam_fn(BEAM)
+    with uncounted():
+        unsharded(model, codes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_SERVE_CALLS):
+            unsharded(model, codes)
+        torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / MESH_SERVE_CALLS * 1e3
+    seen = {"calls": 0, "max_abs_err": 0.0}
+
+    def level(rows, alive, seq_e, pad, *w):
+        ks, kh, _, a = k3_check(rows, alive, seq_e, pad, w[:-1], w[-1])
+        seen["calls"] += 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], a["max_abs_err"])
+        return ks, kh
+
+    audited = spmd.make_sharded_packed_beam_fn(make_packed_tree(tree, model.embedding, BEAM),
+                                               mesh, DIN.precompute_seq, level_fn=level)
+    with uncounted():
+        a_ids, _ = audited(model, codes)
+    check(seen["calls"] == levels and torch.equal(a_ids, ids),
+          f"mesh serving: the audited batch {seen}")
+    return {"batch": BATCH, "levels": levels, "calls": MESH_SERVE_CALLS, "k3_launches": k3,
+            "ms_per_batch": ms, "single_device_ms_per_batch": single_ms,
+            "lists_equal_tdmserving": True, "k3_audit": seen}
+
+
+def mesh_nccl(dev, deep: TDMServing, deep_seqs: np.ndarray, deep_lists: list) -> dict:
+    """(a): world size 1 over nccl, mesh (1, 1), in this process."""
+    store = OUT / "mesh_nccl.store"
+    store.unlink(missing_ok=True)
+    meshlib.init_distributed(f"file://{store}", 1, 0, device="cuda")
+    try:
+        mesh = meshlib.make_mesh(1, 1)
+        return {"mesh": [1, 1], "transport": meshlib.backend(mesh),
+                "training": mesh_trainer_1m(dev, deep.tree, mesh),
+                "serving": mesh_serving_1m(dev, deep, deep_seqs, deep_lists, mesh)}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_tdm_example(dev, tree: ArrayTree, samples, mesh, rank: int) -> dict:
+    """(b): the sharded sparse (mv) TDM step on the example catalog, each
+    data shard's negatives from its own stream; rank 0 feeds the union of
+    the shards' draws to the single-device mv route from the same weights:
+    bit for bit at (1, 2), within the dense tolerances at (2, 1)."""
+    kw = dict(TDM_CONF, sparse_embed_update=True, sparse_format="mv", seed=SEED, device=dev)
+    tr = TDMTrainer(tree=tree, mesh=mesh, **kw)
+    init = multihost.gather_to_host(tr.params)
+    n_data = meshlib.axis_size(mesh, meshlib.DATA_AXIS)
+    b, h = tr.num_targets_per_batch, tr.num_targets_per_batch // n_data
+    tc_all = tree.ids_to_codes(samples.train_targets)
+    sc_all = tree.ids_to_codes(samples.train_seqs)
+    local = lambda t: meshlib.local_rows(t, mesh, meshlib.DATA_AXIS)  # noqa: E731
+    steps = []
+    for i in range(MESH_EXAMPLE_STEPS):
+        tc, sc = tr._codes(tc_all[i * b : (i + 1) * b]), tr._codes(sc_all[i * b : (i + 1) * b])
+        draws = [tr.sampler.sample(spmd_sparse.shard_generator(SEED, i, d, dev),
+                                   tc[d * h : (d + 1) * h]) for d in range(n_data)]
+        steps.append((sc, *(torch.cat(x) for x in zip(*draws))))
+    # the warm-up step, untimed, with its K2 commit and add audited
+    with writes_audited() as writes, adds_audited() as adds:
+        losses = [tr.step_from_samples(*(local(t) for t in steps[0]))]
+    audited = {"k2_calls": len(writes), "add_calls": adds["calls"]}
+    check(audited == {"k2_calls": 1, "add_calls": 1},
+          f"mesh ({n_data}, {2 // n_data}): the audited step {audited}")
+    del writes
+    torch.cuda.synchronize()
+    dist.barrier()  # both ranks start the timed steps together
+    t0 = time.perf_counter()
+    losses += [tr.step_from_samples(*(local(t) for t in s)) for s in steps[1:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (len(steps) - 1) * 1e3
+    got = flatten(tr.params)  # gathered on every rank
+    out = {"targets_per_step": b, "steps": len(steps), "timed_steps": len(steps) - 1,
+           "ms_per_step": ms, "losses": [x.item() for x in losses],
+           "first_step_audited": audited}
+    if rank == 0:
+        with uncounted():
+            ref = TDMTrainer(tree=tree, **kw)
+            v = ref.model.embedding.shape[0]
+            ref.model.load_numpy(dict(init, embedding=init["embedding"][:v]))
+            ref_losses = [ref.step_from_samples(*s).item() for s in steps]
+        named = ref._named_params()
+        gap = max(((p[:v] if n == "embedding" else p) - named[n]).abs().div(
+            PARAM_ATOL + PARAM_RTOL * named[n].abs()).max().item()
+            for n, p in got.items())
+        exact = n_data == 1
+        if exact:
+            check(out["losses"] == ref_losses and all(
+                torch.equal(bits(p[:v] if n == "embedding" else p), bits(named[n]))
+                for n, p in got.items()),
+                "mesh (1, 2): the sharded mv step differs from the single-device step")
+        else:
+            check(np.allclose(out["losses"], ref_losses, rtol=LOSS_RTOL, atol=0) and gap <= 1.0,
+                  f"mesh (2, 1): the sharded mv step is not within the dense tolerances: {gap}")
+        out.update(bit_exact=exact, param_gap=gap, single_device_losses=ref_losses)
+    return out
+
+
+def mesh_serving_deep(dev, tree: ArrayTree, model: DIN, seqs: np.ndarray, mesh) -> dict:
+    """(b): sharded packed serving of 4096 windows on the 1M catalog; the
+    lists go to the parent, which holds them against TDMServing's."""
+    fn, route = spmd.make_sharded_tree_serving_fn(model, tree, BEAM, mesh)
+    codes = meshlib.local_rows(torch.as_tensor(tree.ids_to_codes(seqs), dtype=torch.long,
+                                               device=dev), mesh, meshlib.DATA_AXIS)
+    fn(codes)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MESH_SERVE_CALLS):
+        ids, scores = fn(codes)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / MESH_SERVE_CALLS * 1e3
+    got = multihost.gather_to_host({"ids": ids, "scores": scores}, mesh, meshlib.DATA_AXIS)
+    return {"route": route, "ms_per_batch": ms,
+            "lists": [r.tolist() for r in filter_topk(got["ids"], got["scores"], TOPK)]}
+
+
+def mesh_sweep_example(dev, tree: ArrayTree, samples, model: DIN, mesh, rank: int) -> dict:
+    """(b): a mesh JTM sweep on the example catalog, every K1 call of its
+    sharded scoring (this rank's rows of each score batch) and every add
+    of its accumulation held against the plain versions; rank 0 holds its
+    projection against the single-device sweep's."""
+    t0 = time.perf_counter()
+    with k1_audited() as k1_audit, adds_audited() as add_audit:
+        proj = TreeLearner(tree, model, samples.train_seqs, samples.train_targets, mesh=mesh,
+                           device=dev).optimize()
+    check(k1_audit["calls"] > 0 and add_audit["calls"] > 0,
+          f"mesh sweep: audited {k1_audit['calls']} K1 calls and {add_audit['calls']} adds")
+    out = {"seconds": time.perf_counter() - t0, "items": len(proj), "k1_audit": k1_audit,
+           "add_audit": add_audit}
+    if rank == 0:
+        with uncounted():
+            ref = TreeLearner(tree, model, samples.train_seqs, samples.train_targets,
+                              device=dev).optimize()
+        check(proj == ref, "mesh sweep: the projection differs from the single-device sweep's")
+        out["equals_single_device"] = True
+    return out
+
+
+def mesh_dr_example(dev, data: DRData, mesh, rank: int) -> dict:
+    """(b) at (1, 2): DRTrainer(mesh=)'s E-step on the example data, its
+    three K2 commits audited; rank 0 holds it bit for bit against the
+    single-device pmv E-step from the same seed on the same negatives."""
+    tr = DRTrainer(data, seed=SEED, mesh=mesh, device=dev, **DR_CONF)
+    b = tr.num_targets_per_batch
+    seqs, paths, labels = dr_estep_batch(tr, data.train_seqs[:b], data.train_targets[:b])
+    negs = tr.sample_negatives(labels)
+    with writes_audited() as calls:
+        lm, rm = tr._estep_fused(seqs, paths, labels, negs)
+    check(len(calls) == 3, f"mesh DR: one E-step made {len(calls)} K2 calls, not 3")
+    check(tr.rerank_params["embedding"].numel() == 0 and tr.layer_params["embedding"].numel() == 0,
+          "mesh DR: the trainer keeps whole tables beside its slices")
+    out = {"targets_per_step": b, "audited_k2_calls": [[list(c["table"].shape), len(c["idx"])]
+                                                       for c in calls]}
+    with tr.whole_table():  # gathered on every rank
+        got = [flatten(tr.layer_params), flatten(tr.rerank_params)]
+    if rank == 0:
+        with uncounted():
+            ref = DRTrainer(data, seed=SEED, sparse_embed_update=True, device=dev, **DR_CONF)
+            check(ref._pmv, "the single-device DR trainer is not pmv")
+            lr_, rr = ref._estep_fused(seqs, paths, labels, negs)
+            ref._sync_mirrors()
+        check(torch.equal(lm, lr_) and torch.equal(rm, rr), "mesh DR: the losses differ")
+        for a, r in zip(got, (ref.layer_params, ref.rerank_params)):
+            refs = flatten(r)
+            for n, t in a.items():
+                check(torch.equal(bits(t.contiguous()), bits(refs[n].contiguous())),
+                      f"mesh DR: {n} differs from the single-device pmv E-step's")
+        out["equals_single_device_pmv"] = True
+    del got
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MESH_DR_STEPS):
+        tr._estep_fused(seqs, paths, labels, negs)
+    torch.cuda.synchronize()
+    out["ms_per_estep"] = (time.perf_counter() - t0) / MESH_DR_STEPS * 1e3
+    return out
+
+
+def mesh_ranks(dev, tree_path: str, seqs_path: str) -> dict:
+    """(b): one of two ranks sharing the card over gloo; both meshes of the
+    two-rank world, (1, 2) and (2, 1).  Counts its own launches around its
+    legs, the single-device comparisons uncounted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    meshes = {s: meshlib.make_mesh(*s, device=dev.type) for s in ((1, 2), (2, 1))}
+    tree = ArrayTree.from_file(tree_path)
+    raw = read_csv(str(ROOT / "data" / "example_data.csv"))
+    samples = generate_split_samples(user_interactions(raw), SEQ_LEN, 2, 0.8)
+    model = params_from_numpy(seed_params((1 << (tree.max_level + 1)) - 1,
+                                          np.random.default_rng(SEED)), device=dev)
+    deep = deep_tree(DEEP_ITEMS)
+    deep_model = params_from_numpy(seed_params((1 << (deep.max_level + 1)) - 1,
+                                               np.random.default_rng(SEED + 2)), device=dev)
+    dr_data = build_dr_data(str(ROOT / "data" / "example_data.csv"), SEQ_LEN, 2, 0.8)
+    out = {"rank": rank, "transport": meshlib.backend(meshes[(1, 2)])}
+    zero_launches()
+    for shape, mesh in meshes.items():
+        out[str(list(shape))] = {
+            "tdm_example": mesh_tdm_example(dev, tree, samples, mesh, rank),
+            "serving_1m": mesh_serving_deep(dev, deep, deep_model, np.load(seqs_path), mesh),
+            "jtm_sweep": mesh_sweep_example(dev, tree, samples, model, mesh, rank)}
+    out["dr_example_1x2"] = mesh_dr_example(dev, dr_data, meshes[(1, 2)], rank)
+    out["launches"] = read_launches()
+    return out
+
+
+def mesh(dev, deep: TDMServing, deep_seqs: np.ndarray, deep_lists: list, tree_path: str,
+         smi: str) -> dict:
+    """The mesh phase: (a) in this process, (b) on two spawned ranks; each
+    rank's launches and the sum over (a) and (b)."""
+    zero_launches()
+    t0 = time.perf_counter()
+    a = mesh_nccl(dev, deep, deep_seqs, deep_lists)
+    a["launches"] = read_launches()
+    a["seconds"] = time.perf_counter() - t0
+    seqs_path = OUT / "mesh_deep_seqs.npy"
+    np.save(seqs_path, deep_seqs)
+    t0 = time.perf_counter()
+    ranks = multiproc.spawn(mesh_ranks, 2, (tree_path, str(seqs_path)), device="cuda",
+                            backend="gloo", timeout=MESH_TIMEOUT_S)
+    for r in ranks:
+        check(r["transport"] == "gloo", f"rank {r['rank']}: transport {r['transport']}")
+        for shape in ("[1, 2]", "[2, 1]"):
+            serve = r[shape]["serving_1m"]
+            check(serve["route"] == "packed", f"rank {r['rank']} {shape}: {serve['route']}")
+            check(serve.pop("lists") == [x.tolist() for x in deep_lists],
+                  f"rank {r['rank']} {shape}: the sharded lists differ from TDMServing's")
+            serve["lists_equal_tdmserving"] = True
+    launches = {k: a["launches"][k] + sum(r["launches"][k] for r in ranks)
+                for k in a["launches"]}
+    return {"nvidia_smi": smi, "nccl_world_1": a,
+            "gloo_two_ranks": {"seconds": time.perf_counter() - t0,
+                               "transport": "gloo (CUDA buffers staged through host memory)",
+                               "ranks": ranks},
+            "launches": launches}
+
+
 # ---------------------------------------------------------------- reference recall
 def reference_recall(dev, tree_path: str, samples) -> dict:
     """ROADMAP item 5's check: scripts/sparse_quality_check.py's protocol
@@ -3168,6 +3538,17 @@ def main() -> int:
         launches[name] += (facts_w["launches"][name] + facts_fm["launches"][name]
                            + facts_rr["launches"][name])
 
+    # ---- the multi-device paths: (a) in this process over nccl, (b) on
+    # two ranks sharing the card over gloo; each part's launch counts
+    # zeroed just before it, read just after
+    facts_mesh = mesh(dev, deep, deep_seqs, deep_lists, tree_path, smi)
+    emit({"phase": "mesh", **facts_mesh})
+    check(all(facts_mesh["launches"][k] > 0
+              for k in ("din_score", "packed_level", "write_rows", "add_rows")),
+          f"mesh: {facts_mesh['launches']}")
+    for name in launches:
+        launches[name] += facts_mesh["launches"][name]
+
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",
            "packed_level": "dismember_tpu_torch/csrc/din_kernels.cu",
@@ -3205,7 +3586,8 @@ def main() -> int:
                                 *(c["max_abs_err"] for c in kern["packed_level"]["wide"].values()),
                                 facts4["heavy_user"]["vs_plain"]["max_abs_err"],
                                 facts_oe["eval"]["k3_vs_plain"]["max_abs_err"],
-                                facts_od["serving"]["k3_vs_plain"]["max_abs_err"]),
+                                facts_od["serving"]["k3_vs_plain"]["max_abs_err"],
+                                facts_mesh["nccl_world_1"]["serving"]["k3_audit"]["max_abs_err"]),
             "packed_level_bf16_rows": max(facts_10m["k3_bf16_rows"]["max_abs_err"],
                                           facts_10m["serving"]["vs_plain"]["max_abs_err"]),
             "write_rows": max(row_errors(rk, "write"),

@@ -235,14 +235,15 @@ def rerank_scores(params: dict, user_vecs: torch.Tensor, candidates: torch.Tenso
 
 def to_device_tree(tree, device):
     """Nested dicts and lists of arrays -> the same of f32 tensors on
-    ``device``."""
+    ``device``, copies (a trainer updates its tensors in place, and must
+    not write through to the caller's arrays)."""
     if isinstance(tree, dict):
         return {k: to_device_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_device_tree(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(tree, np.float32), device=device)
+        return tree.detach().to(device=device, dtype=torch.float32, copy=True)
+    return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
 def dr_params_from_numpy(layer: dict, rerank: dict, device="cuda") -> tuple[dict, dict]:

@@ -13,18 +13,22 @@ import torch
 
 
 def bce_with_logits(
-    logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor | None = None
+    logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor | None = None,
+    denom: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean binary cross-entropy over all elements (optionally masked).
 
     weights: same shape as logits; 0 excludes an element from both the sum and
-    the denominator (used for padded sample rows).
+    the denominator (used for padded sample rows).  ``denom`` replaces the
+    denominator (a mesh rank's share of a batch divides by the global one).
     """
     x, z = logits, targets
     per = torch.clamp_min(x, 0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
     if weights is None:
         return per.mean()
-    return (per * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(weights.sum(), 1.0)
+    return (per * weights).sum() / denom
 
 
 def cross_entropy(

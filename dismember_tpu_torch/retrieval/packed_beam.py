@@ -152,15 +152,20 @@ def beam_search_packed(
     packed: PackedTree,
     precompute: Callable,
     level_fn: Callable = packed_level,
+    gather_rows: Callable | None = None,
+    n_pairs: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (leaf item ids [B, 2*beam], scores [B, 2*beam]), block-ordered
     children; non-existent leaves carry id -1 and score NEG_INF.  A DIN's
     levels go to ``level_fn``, K3 (:func:`packed_level`) or its plain
-    version; any other scorer's to its ``apply_from_emb``."""
+    version; any other scorer's to its ``apply_from_emb``.  ``gather_rows``
+    (codes [B, beam] -> pair rows) and ``n_pairs`` replace the row gather
+    out of ``packed.pair_table`` (a mesh's row-sharded table)."""
     cfg = packed.cfg
     table = packed.pair_table
     b = seq_codes.shape[0]
-    n_pairs = table.shape[0]
+    if gather_rows is None:
+        gather_rows, n_pairs = (lambda c: table[c]), table.shape[0]
     ctx = precompute(params, seq_codes)
     if params.model_type == "din":
         weights = params.scorer_weights()
@@ -178,7 +183,7 @@ def beam_search_packed(
     )  # (-1, base-1, ...): a dead slot decodes to -1
     for _ in range(cfg.max_level - cfg.start_level):
         top_codes, top_alive = select_top(frontier, scores, cfg.beam)
-        rows = table[top_codes.clamp(0, n_pairs - 1)]  # [B, beam, ROW]
+        rows = gather_rows(top_codes.clamp(0, n_pairs - 1))  # [B, beam, ROW]
         scores, ids_hilo = level(rows, top_alive)
         # K3's outputs are block-ordered (left children | right children)
         frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)

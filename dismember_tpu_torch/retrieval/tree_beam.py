@@ -52,6 +52,15 @@ def make_config(tree: ArrayTree, beam: int) -> TreeBeamConfig:
     )
 
 
+def is_deep_catalog(tree: ArrayTree, beam: int) -> bool:
+    """The packed-table serving rule: trees of ``max_level >= 8`` with a
+    scored level below the beam's start level serve through the packed
+    pair table; small trees stay on the classic loop rather than build a
+    pair table for a toy catalog."""
+    cfg = make_config(tree, beam)
+    return tree.max_level >= 8 and cfg.max_level - cfg.start_level >= 1
+
+
 def start_frontier(cfg: TreeBeamConfig, b: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """([B, 2*beam] start codes, their scores: 0, or NEG_INF for padding)."""
     codes = torch.tensor(cfg.start_codes_padded, dtype=torch.long, device=device)

@@ -33,7 +33,12 @@ from dismember_tpu_torch.retrieval.packed_beam import (
     make_packed_beam_fn,
     pair_row_width,
 )
-from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn, make_config
+from dismember_tpu_torch.retrieval.tree_beam import (
+    filter_topk,
+    is_deep_catalog,
+    make_beam_fn,
+    make_config,
+)
 from dismember_tpu_torch.train.dr import DRTrainer
 from dismember_tpu_torch.train.otm import OTMTrainer
 from dismember_tpu_torch.train.tdm import (
@@ -113,10 +118,7 @@ class TDMServing:
             return False
         if self.packed is not None:
             return self.packed
-        # auto: small trees stay on the classic loop rather than build a
-        # pair table for a toy catalog
-        cfg = make_config(self.tree, cn)
-        return self.tree.max_level >= 8 and cfg.max_level - cfg.start_level >= 1
+        return is_deep_catalog(self.tree, cn)
 
     def _matmul_first(self) -> bool:
         return self.model_type is None or self.model_type in MATMUL_FIRST_SCORERS

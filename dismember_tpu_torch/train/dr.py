@@ -26,6 +26,12 @@ embedding, softmax w and b), chosen as the JAX package chooses them:
   entry and before a sync.  As in the JAX package, the folded bias gets lazy Adam, not the
   dense route's.
 
+On a mesh (``train/spmd_dr.py``) a rank holds only its "model" slice of
+each packed table, and the four mirrors are empty placeholders between
+boundaries: ``evaluate`` and the recommend calls run inside
+:meth:`DRTrainer.whole_table`, which all-gathers the tables for the call
+and drops them afterwards.
+
 Negatives are drawn from the trainer's ``torch.Generator`` (seeded
 ``seed + 1`` at ``train`` entry), not JAX's PRNG; the steps take them as
 given, so one draw can feed this package and the JAX package.  Batches come
@@ -35,6 +41,7 @@ Serving (evaluate's recommend leg) is ``retrieval/dr_serve.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -42,16 +49,17 @@ import time
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import mesh as meshlib
 from dismember_tpu_torch.core.checkpoint import flatten
 from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.core.mesh import with_whole_table
 from dismember_tpu_torch.core.metrics import compute_metrics, compute_metrics_batch
 from dismember_tpu_torch.data.dr_dataset import DRData
 from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.models import dr_models
 from dismember_tpu_torch.models.losses import cross_entropy
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search
-from dismember_tpu_torch.train import sparse_adam, step_resume
-from dismember_tpu_torch.train.tdm import _not_ported
+from dismember_tpu_torch.train import sparse_adam, spmd_dr, spmd_sparse, step_resume
 
 logger = logging.getLogger("dismember_tpu_torch.dr")
 
@@ -141,10 +149,24 @@ class DRTrainer:
         pack (3*(E+1) <= 128), the split format otherwise.  Initial weights
         come from a ``torch.Generator`` on ``device`` seeded ``seed``; the
         path index from ``PathIndex.random_init(..., seed)``, the JAX
-        package's draws.  ``mesh`` (ROADMAP item 13) is not ported."""
-        if mesh is not None:
-            raise _not_ported("mesh training", "item 13: multi-device")
-        self.device = resolve_device(device)
+        package's draws.
+
+        ``mesh``: a ("data", "model") DeviceMesh (``core/mesh.py``): the
+        three item-scaled tables row-shard on "model" in the pmv format
+        (``train/spmd_dr.py``) and their mirrors are dropped
+        (:meth:`whole_table`), batches split on "data" (their sizes
+        rounded to a multiple of it, a ragged epoch tail cut to one), each
+        data shard draws its negatives from its own (seed, step, data
+        index) stream, and ``evaluate`` serves through the sharded block
+        route.  Only widths whose E and E+1 pack p|m|v (3(E+1) <= 128)."""
+        self.mesh = mesh
+        self.device = meshlib.trainer_device(mesh, resolve_device(device))
+        if mesh is not None and not (sparse_adam.pmv_slots(embed_size)
+                                     and sparse_adam.pmv_slots(embed_size + 1)):
+            raise ValueError(
+                f"mesh mode needs p|m|v-packable widths; E={embed_size} does not pack "
+                "(3*E and 3*(E+1) must fit 128 lanes)")
+        n_data = meshlib.data_size(mesh)
         self.data = data
         self.num_layers = num_layers
         self.num_nodes = num_nodes
@@ -157,7 +179,9 @@ class DRTrainer:
         self.seed = seed
         self.learning_rate = learning_rate
         self.num_targets_per_batch = max(1, train_batch_size // num_paths_per_item)
+        self.num_targets_per_batch = max(n_data, self.num_targets_per_batch // n_data * n_data)
         self.eval_targets_per_batch = max(1, eval_batch_size // num_paths_per_item)
+        self.eval_targets_per_batch = max(n_data, self.eval_targets_per_batch // n_data * n_data)
         self.path_index = path_index or PathIndex.random_init(
             data.num_items, num_layers, num_nodes, num_paths_per_item, seed)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -173,11 +197,18 @@ class DRTrainer:
                 seq_len + num_paths_per_item * (num_layers - 1))
             self._sparse = sparse_adam.sparse_worthwhile(
                 data.num_items + num_nodes * (num_layers - 1), touched, embed_dim=embed_size)
+        if mesh is not None:
+            self._sparse = True
         self._pmv = (self._sparse and sparse_adam.pmv_slots(embed_size) > 0
                      and sparse_adam.pmv_slots(embed_size + 1) > 0)
         self._mirrors_stale = False
+        self._mesh_steps = 0
         lp, rp = self.layer_params, self.rerank_params
-        if self._pmv:
+        if mesh is not None:
+            (self._layer_step, self._rerank_step, self.layer_opt_state,
+             self.rerank_opt_state) = spmd_dr.make_sharded_dr_steps(self, mesh)
+            self._drop_tables()
+        elif self._pmv:
             self.layer_opt_state = (_adam_init({"heads": lp["heads"]}),
                                     sparse_adam.pmv_init(lp["embedding"]))
             # softmax weights and bias train as ONE [V, E+1] packed table
@@ -203,9 +234,14 @@ class DRTrainer:
 
     def sample_negatives(self, labels: torch.Tensor) -> torch.Tensor:
         """[B] labels -> [B, num_sampled] negatives from the trainer's
-        generator."""
-        return dr_models.sample_negatives(self._gen, labels, self.data.num_items,
-                                          self.num_sampled)
+        generator; on a mesh, this rank's labels from its data shard's
+        stream at the current step."""
+        gen = self._gen
+        if self.mesh is not None:
+            gen = spmd_sparse.shard_generator(
+                self.seed, self._mesh_steps, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS),
+                self.device)
+        return dr_models.sample_negatives(gen, labels, self.data.num_items, self.num_sampled)
 
     def _layer_codes(self, seqs: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:
         """[B*L + B*J*(D-1)] rows the layer step touches (-1 = padding):
@@ -328,6 +364,19 @@ class DRTrainer:
         (layer losses, rerank loss)."""
         return self._layer_step(seqs, paths), self._rerank_step(seqs, labels, negs)
 
+    def _serve_sharded(self, serve, seqs: torch.Tensor, consumed: torch.Tensor) -> torch.Tensor:
+        """A mesh's sharded serving of a global eval batch: padded with
+        copies of its first row to a "data" multiple, each rank serving its
+        rows, the items all-gathered back in row order."""
+        b = seqs.shape[0]
+        pad = (-b) % meshlib.data_size(self.mesh)
+        if pad:
+            seqs = torch.cat([seqs, seqs[:1].expand(pad, -1)])
+            consumed = torch.cat([consumed, consumed[:1].expand(pad, -1)])
+        items, _ = serve(self.layer_params, self.rerank_params,
+                         meshlib.data_rows(seqs, self.mesh), meshlib.data_rows(consumed, self.mesh))
+        return meshlib.all_gather_rows(items, self.mesh, meshlib.DATA_AXIS)[:b]
+
     # -- pmv mirrors --------------------------------------------------------
     def _wb_mirror(self) -> torch.Tensor:
         """[V, E+1] softmax projection: weights with the bias as last lane."""
@@ -351,10 +400,11 @@ class DRTrainer:
 
     def _sync_mirrors(self) -> None:
         """Re-materialize the [V, E] param mirrors from the packed p|m|v
-        state (no-op outside pmv mode or when already in sync).  A mirror
-        replaced from outside since the last sync is adopted first, so a
-        checkpoint load is never overwritten by older packed rows."""
-        if not self._pmv or not self._mirrors_stale:
+        state (no-op outside pmv mode, on a mesh, or when already in sync).
+        A mirror replaced from outside since the last sync is adopted
+        first, so a checkpoint load is never overwritten by older packed
+        rows."""
+        if not self._pmv or self.mesh is not None or not self._mirrors_stale:
             return
         self._adopt_mirrors()
         e, n = self.embed_size, self.data.num_items
@@ -363,11 +413,45 @@ class DRTrainer:
         self.layer_params["embedding"] = sparse_adam.pmv_unpack(
             layer_emb, n + self.num_nodes * (self.num_layers - 1), e)
         self.rerank_params["embedding"] = sparse_adam.pmv_unpack(rerank_emb, n, e)
-        wb = sparse_adam.pmv_unpack(wb_state, n, e + 1)
-        self.rerank_params["softmax_w"] = wb[:, :e].contiguous()
-        self.rerank_params["softmax_b"] = wb[:, e].contiguous()
+        self._set_wb(sparse_adam.pmv_unpack(wb_state, n, e + 1))
         self._mirrors_stale = False
         self._record_mirror_ids()
+
+    def _set_wb(self, wb: torch.Tensor) -> None:
+        e = self.embed_size
+        self.rerank_params["softmax_w"] = wb[:, :e].contiguous()
+        self.rerank_params["softmax_b"] = wb[:, e].contiguous()
+
+    @contextlib.contextmanager
+    def whole_table(self):
+        """The four item-scaled params (layer and rerank embeddings, softmax
+        w and b) hold their whole tables inside the block.  Off a mesh they
+        always do (re-read from the packed states in pmv mode).  On a mesh a
+        rank holds only its slices between blocks: the tables are
+        all-gathered over "model" on entry, so every rank enters together,
+        and dropped on exit; blocks nest."""
+        if self.mesh is None or self.rerank_params["embedding"].shape[0]:
+            self._sync_mirrors()
+            yield self
+            return
+        _, layer_emb = self.layer_opt_state
+        _, rerank_emb, wb_state = self.rerank_opt_state
+        self.layer_params["embedding"] = layer_emb.unpack()
+        self.rerank_params["embedding"] = rerank_emb.unpack()
+        self._set_wb(wb_state.unpack())
+        try:
+            yield self
+        finally:
+            self._drop_tables()
+
+    def _drop_tables(self) -> None:
+        """On a mesh: the four item-scaled params back to empty
+        placeholders."""
+        lp, rp = self.layer_params, self.rerank_params
+        lp["embedding"] = lp["embedding"].new_empty(0, self.embed_size)
+        rp["embedding"] = rp["embedding"].new_empty(0, self.embed_size)
+        rp["softmax_w"] = rp["softmax_w"].new_empty(0, self.embed_size)
+        rp["softmax_b"] = rp["softmax_b"].new_empty(0)
 
     def _adopt_mirrors(self) -> None:
         """Push externally assigned param mirrors into the packed state's p
@@ -375,7 +459,20 @@ class DRTrainer:
         _sync_mirrors.  When the packed state is newer (steps driven without
         _sync_mirrors) the external values still win, with a warning, and
         the mirrors stay marked stale: the next sync re-reads every table,
-        the adopted ones included."""
+        the adopted ones included.  On a mesh the whole tables found in the
+        params (a load) go into the rank's slices and are dropped."""
+        if self.mesh is not None:
+            lp, rp = self.layer_params, self.rerank_params
+            _, layer_emb = self.layer_opt_state
+            _, rerank_emb, wb_state = self.rerank_opt_state
+            if lp["embedding"].shape[0]:
+                layer_emb.refresh(lp["embedding"])
+            if rp["embedding"].shape[0]:
+                rerank_emb.refresh(rp["embedding"])
+            if rp["softmax_w"].shape[0]:
+                wb_state.refresh(self._wb_mirror())
+            self._drop_tables()
+            return
         if not self._pmv:
             return
         replaced = self._replaced_mirrors()
@@ -399,9 +496,12 @@ class DRTrainer:
     def load_params(self, layer: dict, rerank: dict) -> None:
         """Take layer and rerank param pytrees of arrays (either package's
         checkpoints through ``load_pytree``); in pmv mode the next train()
-        adopts them into the packed state."""
+        adopts them into the packed state, on a mesh this call does (each
+        rank keeps its rows; every rank loads the same arrays)."""
         self.layer_params, self.rerank_params = dr_models.dr_params_from_numpy(
             layer, rerank, self.device)
+        if self.mesh is not None:
+            self._adopt_mirrors()
 
     # -- step-level snapshots (train/step_resume.py) ----------------------
     _MIRROR_KEYS = ("embedding", "softmax_w", "softmax_b")
@@ -410,6 +510,8 @@ class DRTrainer:
         """The loop state a within-stage snapshot holds.  In pmv mode the
         packed p|m|v states own the item tables, so the [V, E] mirrors
         (layer and rerank embeddings, softmax w and b) are left out."""
+        if self.mesh is not None:
+            raise ValueError("step snapshots are single-device; a mesh trainer has none")
         lp, rp = self.layer_params, self.rerank_params
         if self._pmv:
             lp = {k: v for k, v in lp.items() if k != "embedding"}
@@ -448,9 +550,11 @@ class DRTrainer:
         n = len(d.train_seqs)
         rng = np.random.default_rng(self.seed)
         self._gen.manual_seed(self.seed + 1)
+        self._mesh_steps = 0
         results: list[DREvalResult] = []
         self.train_loss_log: list[dict] = []
         bsz = self.num_targets_per_batch
+        n_data = meshlib.data_size(self.mesh)
         rerank_stop = rerank_epochs if rerank_epochs is not None else num_epochs
         start_epoch, start_s = 1, 0
         if checkpoint_path:
@@ -470,18 +574,24 @@ class DRTrainer:
             layer_sum = torch.zeros(self.num_layers, device=self.device)
             rerank_sum = torch.zeros((), device=self.device)
             s0, start_s = start_s, 0  # a resume lands mid-epoch once
+            rows = lambda a: meshlib.data_rows(self._ids(a), self.mesh)  # noqa: E731
             for s in range(s0, n, bsz):
+                # ragged epoch tail: a mesh batch must split over "data"
                 idx = perm[s : s + bsz]
-                seqs = self._ids(d.train_seqs[idx])
+                idx = idx[: len(idx) // n_data * n_data]
+                if len(idx) == 0:
+                    continue
+                seqs = rows(d.train_seqs[idx])
                 targets = d.train_targets[idx]
-                paths = self._ids(self.path_index.item_paths[targets])
+                paths = rows(self.path_index.item_paths[targets])
                 if epoch <= rerank_stop:
-                    labels = self._ids(targets)
+                    labels = rows(targets)
                     losses, rloss = self._estep_fused(seqs, paths, labels,
                                                       self.sample_negatives(labels))
                     rerank_sum += rloss
                 else:
                     losses, rloss = self._layer_step(seqs, paths), float("nan")
+                self._mesh_steps += 1
                 layer_sum += losses
                 it += 1
                 if checkpoint_path and checkpoint_every > 0 and it % checkpoint_every == 0 \
@@ -505,10 +615,10 @@ class DRTrainer:
         return results
 
     # ------------------------------------------------------------------
+    @with_whole_table
     def beam_search_paths_async(self, seqs: np.ndarray):
         """One beam-search batch as device tensors (paths [B, beam, D],
         probs [B, beam]), without waiting for the device."""
-        self._sync_mirrors()
         return path_beam_search(self.layer_params, self._ids(seqs), self.beam,
                                 self.data.num_items, self.num_nodes, self.num_layers)
 
@@ -517,6 +627,7 @@ class DRTrainer:
         return paths.cpu().numpy(), probs.cpu().numpy()
 
     @torch.no_grad()
+    @with_whole_table
     def recommend_batch(self, seqs: np.ndarray, topk: int | None = None,
                         consumed: list[np.ndarray] | None = None,
                         path_to_items: dict[tuple, list[int]] | None = None) -> list[np.ndarray]:
@@ -550,6 +661,7 @@ class DRTrainer:
         return out
 
     @torch.no_grad()
+    @with_whole_table
     def evaluate(self) -> DREvalResult:
         """Eval parity with dr Evaluator.evaluate: per-batch layer CE vector,
         the exact-softmax rerank loss and recall/precision/nDCG of the
@@ -557,12 +669,14 @@ class DRTrainer:
         when the dense path table does not fit)."""
         from dismember_tpu_torch.retrieval.dr_serve import make_dr_serving_fn
 
-        self._sync_mirrors()
         d = self.data
         m = len(d.eval_seqs)
         if m == 0:
             return DREvalResult([0.0] * self.num_layers, 0.0, 0.0, 0.0, 0.0)
-        serve = make_dr_serving_fn(self, topk=self.topk)
+        if self.mesh is not None:
+            serve = spmd_dr.make_sharded_dr_serving_fn(self, self.mesh, topk=self.topk)
+        else:
+            serve = make_dr_serving_fn(self, topk=self.topk)
         p2i = None if serve is not None else self.path_index.path_to_items()
         max_consumed = max((len(d.user_consumed.get(int(u), ())) for u in d.eval_users),
                            default=0)
@@ -584,7 +698,10 @@ class DRTrainer:
                 for i, u in enumerate(d.eval_users[s:e]):
                     c = d.user_consumed.get(int(u), ())
                     cons[i, : len(c)] = c
-                items, _sc = serve(self.layer_params, rp, seqs, self._ids(cons))
+                if self.mesh is not None:
+                    items = self._serve_sharded(serve, seqs, self._ids(cons))
+                else:
+                    items, _sc = serve(self.layer_params, rp, seqs, self._ids(cons))
                 p, r, nd = compute_metrics_batch(items.cpu().numpy(), d.eval_labels[s:e])
                 prec += float(p.sum())
                 rec += float(r.sum())

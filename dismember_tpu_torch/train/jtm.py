@@ -39,12 +39,14 @@ import time
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import mesh as meshlib
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.tree_io import write_tree
 from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.ops import row_writer
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
+from dismember_tpu_torch.train import spmd
 
 logger = logging.getLogger("dismember_tpu_torch.jtm")
 
@@ -105,7 +107,15 @@ class GenericTreeLearner:
     leaf code per item, for the stay-preference), ``rows_codes`` [R, L]
     sequence codes per training row, ``row_item_pos`` [R] item position per
     row.  ``model`` is the scorer (the port's ``DIN`` or ``DeepFM``) on
-    ``device``."""
+    ``device``.
+
+    ``mesh``: a ("data", "model") DeviceMesh; every rank calls the sweep.
+    The scoring pass runs sharded (``train/spmd.make_sharded_forward``: the
+    score rows split on "data", the node table row-sharded on "model"),
+    the scores come back to every rank in row order (:meth:`_scores`), and
+    the accumulation and rebalance run on every rank as on one device, so
+    the weights are the single-device sweep's up to the scorer's batch
+    rounding and the projections equal it."""
 
     model: TreeScorer
     max_level: int
@@ -117,6 +127,7 @@ class GenericTreeLearner:
     score_batch_rows: int = 8192
     weights_mode: str = "device"  # "device" | "host" (the CPU parity twin)
     device: str | torch.device = "cuda"
+    mesh: object = None  # a ("data", "model") DeviceMesh: sharded scoring
 
     def __post_init__(self):
         if self.weights_mode not in ("device", "host"):
@@ -132,6 +143,9 @@ class GenericTreeLearner:
         self.device = self.model.embedding.device
         self._weights_device = self.weights_mode == "device"
         self._dev_cache = None
+        if self.mesh is not None:
+            meshlib.check_mesh(self.mesh)
+            self._score_fn, _ = spmd.make_sharded_forward(self.model, self.mesh)
 
     # ------------------------------------------------------------------
     def _seq_codes_at_level(self, level: int) -> np.ndarray:
@@ -153,8 +167,20 @@ class GenericTreeLearner:
     @torch.inference_mode()
     def _scores(self, chain: torch.Tensor, seqs: torch.Tensor) -> torch.Tensor:
         """chain codes [R, C], seqs [R, L] -> logits [R, C] (K1 on CUDA for
-        DIN)."""
-        return self.model(chain, seqs)
+        DIN).  On a mesh the rows are padded with -1 rows to a "data"
+        multiple, each rank scores its rows from the sharded table, the
+        scores are all-gathered back in row order and the pad rows
+        dropped, so every rank accumulates the single-device add sequence."""
+        if self.mesh is None:
+            return self.model(chain, seqs)
+        r = chain.shape[0]
+        pad = (-r) % meshlib.data_size(self.mesh)
+        if pad:
+            chain = torch.cat([chain, chain.new_full((pad, chain.shape[1]), -1)])
+            seqs = torch.cat([seqs, seqs.new_full((pad, seqs.shape[1]), -1)])
+        out = self._score_fn(meshlib.data_rows(chain, self.mesh),
+                             meshlib.data_rows(seqs, self.mesh))
+        return meshlib.all_gather_rows(out, self.mesh, meshlib.DATA_AXIS)[:r]
 
     # ------------------------------------------------------------------
     # device-resident weight computation: rows and item positions live on
@@ -448,6 +474,7 @@ class TreeLearner(GenericTreeLearner):
         score_batch_rows: int = 8192,
         weights_mode: str = "device",
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.tree = tree
         self.hierarchical = hierarchical
@@ -469,6 +496,7 @@ class TreeLearner(GenericTreeLearner):
             score_batch_rows=score_batch_rows,
             weights_mode=weights_mode,
             device=device,
+            mesh=mesh,
         )
 
     def _seq_codes_at_level(self, level: int) -> np.ndarray:
@@ -496,6 +524,7 @@ def otm_tree_learner(
     score_batch_rows: int = 8192,
     weights_mode: str = "device",
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> GenericTreeLearner:
     """OTM tree construction (otm/.../tree/TreeConstruction.scala): the same
     assignment algorithm over the implicit complete tree; each (sequence,
@@ -527,6 +556,7 @@ def otm_tree_learner(
         score_batch_rows=score_batch_rows,
         weights_mode=weights_mode,
         device=device,
+        mesh=mesh,
     )
 
 

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core import mesh as meshlib
+from dismember_tpu_torch.core.mesh import with_whole_table
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.metrics import compute_metrics_batch
 from dismember_tpu_torch.data.otm_dataset import OTMData, lower_log2, upper_log2
@@ -49,9 +51,9 @@ from dismember_tpu_torch.retrieval.packed_beam import (
     make_packed_beam_fn,
 )
 from dismember_tpu_torch.retrieval.tree_beam import NEG_INF, TreeBeamConfig
-from dismember_tpu_torch.train import sparse_adam, step_resume
+from dismember_tpu_torch.train import sparse_adam, spmd, spmd_sparse, step_resume
 from dismember_tpu_torch.train.row_step import RowStepTrainer
-from dismember_tpu_torch.train.tdm import _not_ported, build_model
+from dismember_tpu_torch.train.tdm import build_model
 
 logger = logging.getLogger("dismember_tpu_torch.otm")
 
@@ -103,6 +105,8 @@ def _row_group_parents(parents: torch.Tensor, values: torch.Tensor):
 
 
 class OTMTrainer(RowStepTrainer):
+    _table_caches = ("_packed_cache",)  # the packed loop's pair table
+
     def __init__(
         self,
         data: OTMData,
@@ -141,18 +145,28 @@ class OTMTrainer(RowStepTrainer):
 
         Initial weights come from ``torch.Generator().manual_seed(seed)``,
         not from JAX's draws (``load_numpy`` carries a JAX trainer's
-        params and state).  ``mesh`` (ROADMAP item 13) is not ported and
-        raises; on CUDA a DIN at a width K1 and K3 are not built for is
-        refused here."""
+        params and state); on CUDA a DIN at a width K1 and K3 are not built
+        for is refused here.
+
+        ``mesh``: a ("data", "model") DeviceMesh (``core/mesh.py``): each
+        batch splits on "data" (its size rounded to a multiple of it, a
+        ragged epoch tail cut to one), the node table zero-padded and
+        row-sharded on "model" with its dense moments or sharded mv state
+        (``train/spmd.make_sharded_otm_train_batch``); f32 only, and pmv
+        is refused."""
         if precision not in ("f32", "f64"):
             raise ValueError(f"precision must be f32 or f64, got {precision!r}")
-        if mesh is not None:
-            raise _not_ported("mesh training", "item 13: multi-device")
         if sparse_format not in ("auto", "mv", "pmv"):
             raise ValueError(f"unknown sparse_format {sparse_format!r}")
         self._x64 = precision == "f64"
         self.dtype = torch.float64 if self._x64 else torch.float32
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = meshlib.trainer_device(mesh, resolve_device(device))
+        if mesh is not None and self._x64:
+            raise ValueError("mesh mode is f32-only (no f64 SPMD path)")
+        if mesh is not None and sparse_format == "pmv":
+            raise ValueError("pmv is single-device; meshes use the sharded mv state")
+        n_data = meshlib.data_size(mesh)
         check_kernel_width(model_type, embed_size, self.device)
         self.data = data
         self.model_type = model_type
@@ -168,6 +182,7 @@ class OTMTrainer(RowStepTrainer):
         self.n_levels = self.leaf_level - self.start_level
         self.label_num = data.label_num or data.train_labels.shape[1]
         self.train_batch_size = max(1, total_train_batch_size // (beam_size * 2))
+        self.train_batch_size = max(n_data, self.train_batch_size // n_data * n_data)
         self.eval_batch_size = max(1, total_eval_batch_size // (beam_size * 2))
 
         num_index = data.num_tree_nodes
@@ -186,7 +201,16 @@ class OTMTrainer(RowStepTrainer):
             touched = self.train_batch_size * (2 * beam_size + seq_len)
             sparse = not self._x64 and sparse_adam.sparse_worthwhile(
                 num_index, touched, embed_dim=embed_size)
+        if mesh is not None:
+            # zero rows pad the table to split over "model" (and to slot-pack
+            # each shard's rows in the sparse mode); they are never addressed
+            rows = (spmd_sparse.sparse_padded_rows(num_index, mesh, embed_size) if sparse
+                    else spmd.padded_num_index(num_index, mesh))
+            self.model.embedding = torch.nn.Parameter(
+                spmd.pad_embedding_rows(self.model.embedding.detach(), rows))
         self._init_optimizer(sparse, sparse_format)
+        self._batch_fn = (self._train_batch if mesh is None
+                          else spmd.make_sharded_otm_train_batch(self))
         self._packed_cache = None
 
     # -- frozen scoring -------------------------------------------------
@@ -195,6 +219,10 @@ class OTMTrainer(RowStepTrainer):
         packed state in pmv mode (the mirror may be stale there)."""
         valid = codes != PADDING_IDX
         safe = torch.where(valid, codes, 0)
+        if self._shard is not None:
+            rows = spmd_sparse.gather_rows_sharded(self._shard, safe.reshape(-1),
+                                                   valid.reshape(-1), self.mesh)
+            return rows.view(*codes.shape, -1)
         if self._pmv:
             rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe.reshape(-1),
                                           self.embed_size).view(*codes.shape, -1)
@@ -321,6 +349,7 @@ class OTMTrainer(RowStepTrainer):
                 start_epoch, start_bi = int(meta["epoch"]), int(meta["batch"]) + 1
                 logger.info(f"resumed step checkpoint {checkpoint_path} at epoch "
                             f"{start_epoch} batch {meta['batch']}")
+        n_data = meshlib.data_size(self.mesh)
         for epoch in range(start_epoch, num_epochs + 1):
             rng_before_perm = step_resume.rng_state_to_json(rng)
             perm = rng.permutation(n)
@@ -337,6 +366,10 @@ class OTMTrainer(RowStepTrainer):
             bi0, start_bi = start_bi, 0  # a resume lands mid-epoch once
             for bi in range(bi0, num_batches):
                 idx = perm[bi * self.train_batch_size : (bi + 1) * self.train_batch_size]
+                # ragged epoch tail: a mesh batch must split over "data"
+                idx = idx[: len(idx) // n_data * n_data]
+                if len(idx) == 0:
+                    continue
                 targets_np = d.train_labels[idx]
                 if targets_np.shape[1] > self.label_num:
                     # ragged one_user_sample labels: pad each batch only to
@@ -344,8 +377,8 @@ class OTMTrainer(RowStepTrainer):
                     jmax = int((targets_np >= 0).sum(axis=1).max(initial=0))
                     width = max(self.label_num, 1 << max(jmax - 1, 0).bit_length())
                     targets_np = targets_np[:, : min(width, targets_np.shape[1])]
-                inflight.append(self._train_batch(self._codes(d.train_seqs[idx]),
-                                                  self._codes(targets_np)))
+                inflight.append(self._batch_fn(self._codes(d.train_seqs[idx]),
+                                               self._codes(targets_np)))
                 if len(inflight) >= 8:
                     drain()
                 if checkpoint_path and checkpoint_every > 0 \
@@ -408,12 +441,12 @@ class OTMTrainer(RowStepTrainer):
         self._packed_cache = (key, fn)
         return fn
 
+    @with_whole_table
     def batch_beam_search(self, seqs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Final-level candidates [B, 2*beam] (codes) and their scores: the
         packed loop in f32, the frozen trajectory's last level in the f64
         mode (float64 plain ops, as the JAX package keeps f64 off its packed
         path)."""
-        self._sync_mirrors()
         codes = self._codes(seqs)
         if self._x64 or self.n_levels < 1:
             with torch.no_grad():
@@ -454,6 +487,7 @@ class OTMTrainer(RowStepTrainer):
                 out.append((items, sc[order]) if with_scores else items)
         return out
 
+    @with_whole_table
     def evaluate(self) -> OTMEvalResult:
         """Eval parity with otm Evaluator.evaluate: beam search per eval
         sample, consumed + validity filter, top-k; loss = summed BCE of the

@@ -25,20 +25,29 @@ MIRROR: ``_sync_mirrors`` re-materializes it at eval/train boundaries and
 Parameter's identity and in-place version) back into the p lanes, the JAX
 package's contract.  The Adam state is optax's, so the JAX trainers' states
 load as they are (:meth:`RowStepTrainer.load_numpy`).
+
+On a mesh each rank keeps only its "model" block of the table (``_shard``)
+with its moments or m|v state; ``model.embedding`` is an empty [0, E]
+placeholder between boundaries.  ``evaluate``, ``recommend*`` and
+``export_embeddings`` run inside :meth:`RowStepTrainer.whole_table`, which
+all-gathers the table over "model" into the model for the call and drops
+it afterwards; ``params`` hands out a gathered copy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
 import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
+from dismember_tpu_torch.core import mesh as meshlib
 from dismember_tpu_torch.core.checkpoint import flatten, to_tensor
 from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.models.scorer import TreeScorer
-from dismember_tpu_torch.train import sparse_adam, step_resume
+from dismember_tpu_torch.train import sparse_adam, spmd, spmd_sparse, step_resume
 
 logger = logging.getLogger("dismember_tpu_torch.train")
 
@@ -62,32 +71,50 @@ class RowStepTrainer:
     :meth:`_init_optimizer` sets the rest."""
 
     model: TreeScorer
+    # attributes holding something built from the whole table (dropped
+    # with it on a mesh)
+    _table_caches: tuple[str, ...] = ()
 
     def _init_optimizer(self, sparse: bool, sparse_format: str) -> None:
         """Dense Adam, or lazy sparse Adam on the embedding in the mv or pmv
         format ("auto": pmv when the width packs, 3E <= 128, and the table
-        is f32; mv for a bf16 table)."""
+        is f32; mv for a bf16 table).  On a mesh the table is row-sharded:
+        the rank keeps its rows in ``_shard`` and the model's embedding is
+        dropped (:meth:`whole_table`); the sparse mode takes the sharded mv
+        state, never pmv."""
         self._sparse = sparse
         self._pmv = False
         self._mirrors_stale = False
         self.emb_state = None
+        self._shard = None
         if sparse:
             if sparse_format not in ("auto", "mv", "pmv"):
                 raise ValueError(f"unknown sparse_format {sparse_format!r}")
             packable = sparse_adam.pmv_slots(self.embed_size) > 0
             f32_table = self.model.embedding.dtype == torch.float32
             self._pmv = (packable and f32_table if sparse_format == "auto"
-                         else sparse_format == "pmv")
+                         else sparse_format == "pmv") and self.mesh is None
             if self._pmv and not (packable and f32_table):
                 raise ValueError(
                     f"pmv needs a packable width (3*E <= 128; E={self.embed_size}) "
                     "and an f32 table")
-            table = self.model.embedding.detach()
-            if self._pmv:
-                self.emb_state = sparse_adam.pmv_init(table)
-                self._record_mirror_id()
+        table = self.model.embedding.detach()
+        if self.mesh is not None:
+            self._shard = meshlib.local_rows(table, self.mesh).clone()
+            self._table_rows = table.shape[0]
+            self._drop_table()
+            if sparse:
+                n_model = meshlib.axis_size(self.mesh, meshlib.MODEL_AXIS)
+                self.emb_state = spmd_sparse.sharded_state_zeros(
+                    table.shape[0], self.embed_size, n_model, device=table.device)
+                self._mesh_step = spmd_sparse.make_sharded_sparse_train_step(self)
             else:
-                self.emb_state = sparse_adam.init_state(table)
+                self._mesh_step = spmd.make_sharded_train_step(self)
+        elif self._pmv:
+            self.emb_state = sparse_adam.pmv_init(table)
+            self._record_mirror_id()
+        elif sparse:
+            self.emb_state = sparse_adam.init_state(table)
         self.adam = self._adam_init()
 
     # ------------------------------------------------------------------
@@ -99,10 +126,19 @@ class RowStepTrainer:
         embedding in the sparse modes, whose rows have their own state)."""
         return [n for n in self._named_params() if not (self._sparse and n == "embedding")]
 
+    def _shard_params(self) -> dict:
+        """The parameters a step updates: the named parameters with the
+        embedding replaced by this rank's table shard on a mesh."""
+        p = self._named_params()
+        if self._shard is not None:
+            p["embedding"] = self._shard
+        return p
+
     def _adam_init(self) -> dict:
         """optax.adam(mu_dtype=float32)'s state: moments in each parameter's
-        dtype, but a bf16 table's mu in f32 (its nu stays bf16)."""
-        p = self._named_params()
+        dtype, but a bf16 table's mu in f32 (its nu stays bf16); on a mesh
+        the table's moments cover its shard (they follow its rows)."""
+        p = self._shard_params()
         names = self._adam_names()
         mu_dtype = lambda t: torch.float32 if t.dtype == torch.bfloat16 else t.dtype  # noqa: E731
         return {"count": 0,
@@ -111,8 +147,47 @@ class RowStepTrainer:
 
     @property
     def params(self) -> dict:
-        """The params pytree (the embedding is the mirror in pmv mode)."""
-        return self.model.param_tree()
+        """The params pytree (the embedding is the mirror in pmv mode).  On
+        a mesh the embedding is the whole table all-gathered over "model"
+        for the caller: every rank reads ``params`` together."""
+        tree = self.model.param_tree()
+        if self._shard is not None and not self.model.embedding.shape[0]:
+            tree = dict(tree, embedding=meshlib.full_rows(self._shard, self.mesh))
+        return tree
+
+    @contextlib.contextmanager
+    def whole_table(self):
+        """``model.embedding`` holds the whole [V, E] table inside the
+        block.  Off a mesh it always does (re-read from the packed state in
+        pmv mode).  On a mesh a rank holds only its shard between blocks:
+        the table is all-gathered over "model" on entry, so every rank
+        enters together, and dropped on exit with what was built from it;
+        blocks nest."""
+        if self._shard is None or self.model.embedding.shape[0]:
+            self._sync_mirrors()
+            yield self.model
+            return
+        self.model.embedding.data = meshlib.full_rows(self._shard, self.mesh)
+        try:
+            yield self.model
+        finally:
+            self._drop_table()
+
+    def _drop_table(self) -> None:
+        """On a mesh: the model's embedding back to its [0, E] placeholder,
+        and the caches built from the whole table cleared."""
+        emb = self.model.embedding
+        emb.data = emb.data.new_empty(0, emb.shape[1])
+        for name in self._table_caches:
+            setattr(self, name, None)
+
+    def _adopt_table(self) -> None:
+        """On a mesh: take this rank's rows of a whole table found in the
+        model's embedding (a load, or an assignment from outside) into the
+        shard, and drop the table."""
+        with torch.no_grad():
+            self._shard.copy_(meshlib.local_rows(self.model.embedding.detach(), self.mesh))
+        self._drop_table()
 
     def load_numpy(self, params: dict, opt_state=None) -> None:
         """Take a params pytree and, optionally, an optimizer state, as
@@ -122,8 +197,14 @@ class RowStepTrainer:
         the dense mode, and ``(that, {"pmv" | "mv" | "m", "v", "count"})`` in
         the sparse modes.  In pmv mode the packed state owns the table, and
         the embedding is re-read from it.  Arrays take each parameter's
-        dtype."""
+        dtype.  On a mesh the arrays are whole (padded rows included) and
+        each rank keeps its rows."""
+        if self._shard is not None:
+            emb = self.model.embedding
+            emb.data = emb.data.new_empty(self._table_rows, emb.shape[1])
         self.model.load_numpy(params)
+        if self._shard is not None:
+            self._adopt_table()
         if opt_state is None:
             return  # pmv mode adopts the new mirror at the next train()
         rest = opt_state
@@ -134,7 +215,7 @@ class RowStepTrainer:
                 raise ValueError(f"embedding state has {sorted(emb)}, expected {sorted(want)}")
             self.emb_state = {
                 k: int(np.asarray(v)) if k == "count" else
-                torch.tensor(np.asarray(v, np.float32), device=self.device)
+                self._rows_of(torch.tensor(np.asarray(v, np.float32), device=self.device))
                 for k, v in emb.items()
             }
         found = _find_adam(rest)
@@ -144,13 +225,22 @@ class RowStepTrainer:
         names = self._adam_names()
         like = self._adam_init()
         mu, nu = flatten(mu), flatten(nu)
-        conv = lambda a, t: to_tensor(a, t.dtype, self.device).reshape(t.shape)  # noqa: E731
+        def conv(n, a, t):
+            a = to_tensor(a, t.dtype, self.device)
+            return (self._rows_of(a) if n == "embedding" else a).reshape(t.shape)
+
         self.adam = {"count": int(np.asarray(count)),
-                     "mu": {n: conv(mu[n], like["mu"][n]) for n in names},
-                     "nu": {n: conv(nu[n], like["nu"][n]) for n in names}}
+                     "mu": {n: conv(n, mu[n], like["mu"][n]) for n in names},
+                     "nu": {n: conv(n, nu[n], like["nu"][n]) for n in names}}
         if self._pmv:
             self._mirrors_stale = True
             self._sync_mirrors()
+
+    def _rows_of(self, t: torch.Tensor) -> torch.Tensor:
+        """On a mesh, this rank's row block of a loaded row-sharded array
+        (the JAX package's global arrays: every shard's rows in "model"
+        order, the per-shard m|v tables stacked); off a mesh, ``t``."""
+        return t if self._shard is None else meshlib.local_rows(t, self.mesh).clone()
 
     # -- step-level snapshots (train/step_resume.py) ----------------------
     def _step_state(self) -> dict:
@@ -158,6 +248,8 @@ class RowStepTrainer:
         pmv mode without the [V, E] mirror, which the packed state owns and
         which would double a deep catalog's snapshot), the Adam state, the
         embedding's sparse state and the trainer's generator, if any."""
+        if self.mesh is not None:
+            raise ValueError("step snapshots are single-device; a mesh trainer has none")
         st = {"params": {n: p.detach() for n, p in self._named_params().items()
                          if not (self._pmv and n == "embedding")},
               "adam": self.adam}
@@ -192,9 +284,12 @@ class RowStepTrainer:
     def step_from_samples(self, seq_codes: torch.Tensor, codes: torch.Tensor,
                           labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """One train step on a batch of candidates; returns the loss (a 0-d
-        tensor on the device, before the update)."""
+        tensor on the device, before the update).  On a mesh the batch is
+        this rank's data rows and the loss the global one."""
+        if self.mesh is not None:
+            return self._mesh_step(seq_codes, codes, labels, weights)
         b, u = codes.shape
-        l, e = seq_codes.shape[1], self.embed_size
+        e = self.embed_size
         flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
         valid = flat != PADDING_IDX
         safe = torch.where(valid, flat, 0)
@@ -204,17 +299,10 @@ class RowStepTrainer:
             rows = self.model.embedding.detach()[safe]
             if rows.dtype == torch.bfloat16:
                 rows = rows.float()  # a bf16 table's rows compute in f32
-        rows = (rows * valid[:, None].to(rows.dtype)).requires_grad_()
-        params = self._named_params()
-        rest_names = [n for n in params if n != "embedding"]
-        with torch.enable_grad():
-            ctx = self.model.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
-                                              (seq_codes == PADDING_IDX).float())
-            logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
-            loss = bce_with_logits(logits, labels, weights)
-            g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])
+        rows = rows * valid[:, None].to(rows.dtype)
+        loss, g_rows, grads = self._row_loss_grads(rows, seq_codes, labels, weights, b, u)
         g_rows = g_rows * valid[:, None].to(g_rows.dtype)
-        grads = dict(zip(rest_names, g_rest))
+        params = self._named_params()
         with torch.no_grad():
             if not self._sparse:
                 grads["embedding"] = self._dense_table_grad(flat, g_rows, b * u)
@@ -228,13 +316,33 @@ class RowStepTrainer:
                                        flat, g_rows, lr)
         return loss.detach()
 
+    def _row_loss_grads(self, rows: torch.Tensor, seq_codes: torch.Tensor, labels: torch.Tensor,
+                        weights: torch.Tensor, b: int, u: int, denom=None):
+        """The scorer's forward on gathered rows ([B*U candidate rows |
+        B*L sequence rows]) and the BCE, differentiated: (loss, row grads
+        [R, E], tower grads by name).  ``denom``: the BCE's normaliser when
+        it is not this batch's own weight sum (a mesh's global one)."""
+        l, e = seq_codes.shape[1], self.embed_size
+        rows = rows.detach().requires_grad_()
+        params = self._named_params()
+        rest_names = [n for n in params if n != "embedding"]
+        with torch.enable_grad():
+            ctx = self.model.ctx_from_seq_emb(rows[b * u :].view(b, l, e),
+                                              (seq_codes == PADDING_IDX).float())
+            logits = self.model.train_apply_from_emb(rows[: b * u].view(b, u, e), ctx)
+            loss = bce_with_logits(logits, labels, weights, denom=denom)
+            g_rows, *g_rest = torch.autograd.grad(loss, [rows, *(params[n] for n in rest_names)])
+        return loss.detach(), g_rows, dict(zip(rest_names, g_rest))
+
     def _dense_table_grad(self, flat: torch.Tensor, g_rows: torch.Tensor,
-                          n_items: int) -> torch.Tensor:
-        """The [V, E] table gradient: per-occurrence row gradients summed
-        per code in a fixed order (no float atomics), zeros elsewhere.  A
-        bf16 table takes the JAX package's bf16 sums: the candidates' and the
-        sequences' gathers each summed serially in bf16, then added."""
-        table = self.model.embedding
+                          n_items: int, table: torch.Tensor | None = None) -> torch.Tensor:
+        """The [V, E] gradient of ``table`` (the embedding by default; a
+        mesh's table shard, with shard-local codes): per-occurrence row
+        gradients summed per code in a fixed order (no float atomics), zeros
+        elsewhere.  A bf16 table takes the JAX package's bf16 sums: the
+        candidates' and the sequences' gathers each summed serially in bf16,
+        then added."""
+        table = self.model.embedding if table is None else table
         v_rows = table.shape[0]
         if table.dtype == torch.bfloat16:
             parts = [sparse_adam.serial_bf16_sums(flat[sl], g_rows[sl], v_rows)
@@ -273,8 +381,9 @@ class RowStepTrainer:
 
     def _sync_mirrors(self) -> None:
         """Re-materialize the [V, E] embedding mirror from the packed p|m|v
-        state (no-op outside pmv mode or when already in sync)."""
-        if not self._pmv or not self._mirrors_stale:
+        state; a no-op when already in sync (and on a mesh, which holds no
+        mirror)."""
+        if not self._mirrors_stale:
             return
         v_rows, e = self.model.embedding.shape
         with torch.no_grad():
@@ -284,17 +393,20 @@ class RowStepTrainer:
 
     def _adopt_mirrors(self) -> None:
         """Push an externally assigned embedding into the packed state's p
-        lanes, keeping moments.  Called at train() entry.  If the packed
-        state was newer (steps driven without _sync_mirrors), the external
-        values win with a warning."""
+        lanes (moments kept), or on a mesh a whole table assigned to the
+        model into this rank's shard.  Called at train() entry.  If the
+        packed state was newer (steps driven without _sync_mirrors), the
+        external values win with a warning."""
+        if self._shard is not None:
+            if self.model.embedding.shape[0]:
+                self._adopt_table()
+            return
         if not self._pmv or self._mirror_key() == self._mirror_id:
             return
         if self._mirrors_stale:
             logger.warning(
                 "embedding mirror was externally replaced while the packed "
-                "p|m|v state was newer; adopting the external values into the "
-                "packed state (moments kept)."
-            )
+                "p|m|v state was newer; adopting the external values (moments kept).")
         sparse_adam.pmv_refresh(self.emb_state, self.model.embedding.detach().float())
         self._mirrors_stale = False
         self._record_mirror_id()

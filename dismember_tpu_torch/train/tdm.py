@@ -34,6 +34,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import mesh as meshlib
+from dismember_tpu_torch.core.mesh import with_whole_table
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
 from dismember_tpu_torch.core.metrics import EvalResult, compute_metrics_batch
@@ -44,7 +46,7 @@ from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.ops.din_kernel import check_kernel_width
 from dismember_tpu_torch.retrieval.tree_beam import filter_topk, make_beam_fn
-from dismember_tpu_torch.train import sparse_adam, step_resume
+from dismember_tpu_torch.train import sparse_adam, spmd, spmd_sparse, step_resume
 from dismember_tpu_torch.train.row_step import RowStepTrainer
 from dismember_tpu_torch.train.sampler import TreeSampler
 
@@ -64,10 +66,12 @@ def scorer_class(model_type: str) -> type[TreeScorer]:
 
 def build_model(model_type: str, tree_max_level: int, embed_size: int,
                 seq_len: int, generator: torch.Generator | None = None,
-                device="cuda") -> TreeScorer:
+                device="cuda", num_index: int | None = None) -> TreeScorer:
     """The scorer over tree-node codes, num_index = 2^(max_level+1) - 1
-    (DIN.buildModel); ``seq_len`` sizes DeepFM's DNN."""
-    num_index = (1 << (tree_max_level + 1)) - 1
+    (DIN.buildModel) unless given (a mesh's padded row count); ``seq_len``
+    sizes DeepFM's DNN."""
+    if num_index is None:
+        num_index = (1 << (tree_max_level + 1)) - 1
     if model_type == "deepfm":
         return DeepFM(num_index, embed_size, seq_len, device=device, generator=generator)
     return scorer_class(model_type)(num_index, embed_size, device=device, generator=generator)
@@ -152,7 +156,9 @@ class TDMTrainer(RowStepTrainer):
     topk: int = 10
     beam_size: int = 20
     seed: int = 0
-    mesh: object = None  # not ported (ROADMAP queue 1 item 13)
+    mesh: object = None  # a ("data", "model") DeviceMesh (core/mesh.py):
+    # targets split on "data", the table and its Adam state row-sharded on
+    # "model" (train/spmd.py dense, train/spmd_sparse.py sparse mv)
     embed_dtype: object = None  # torch.bfloat16 stores the table in bf16
     # (DIN only): half the memory of a deep catalog's table; compute stays
     # f32 and the Adam moments are optax's (mu f32; dense nu bf16)
@@ -168,14 +174,13 @@ class TDMTrainer(RowStepTrainer):
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise _not_ported("mesh training", "item 13: multi-device")
         if self.embed_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"embed_dtype must be float32 or bfloat16, got {self.embed_dtype!r}")
         if self.embed_dtype == torch.bfloat16 and self.model_type == "deepfm":
             raise _not_ported("DeepFM with a bf16 embedding table",
                               "label i: its bf16 step pinned to the JAX package's HLO")
-        self.device = resolve_device(self.device)
+        self.device = meshlib.trainer_device(self.mesh, resolve_device(self.device))
+        n_data = meshlib.data_size(self.mesh)
         check_kernel_width(self.model_type, self.embed_size, self.device)
         self.sampler = TreeSampler.build(
             self.tree, self.layer_neg_counts, start_level=self.start_sample_level,
@@ -183,6 +188,8 @@ class TDMTrainer(RowStepTrainer):
             device=self.device,
         )
         self.num_targets_per_batch = max(1, self.total_batch_size // self.sampler.unit)
+        # on a mesh the targets of a batch split over "data"
+        self.num_targets_per_batch = max(n_data, self.num_targets_per_batch // n_data * n_data)
         base_num_index = (1 << (self.tree.max_level + 1)) - 1
         if self.sparse_embed_update is not None:
             sparse = self.sparse_embed_update
@@ -190,9 +197,18 @@ class TDMTrainer(RowStepTrainer):
             touched = self.num_targets_per_batch * (self.sampler.unit + self.seq_len)
             sparse = sparse_adam.sparse_worthwhile(
                 base_num_index, touched, embed_dim=self.embed_size)
+        num_index = None
+        if self.mesh is not None:
+            # the table pads to split over "model" (and, for the sharded
+            # sparse step, so that each shard's rows slot-pack); the JAX
+            # package draws its mesh init at the padded count too
+            num_index = (spmd_sparse.sparse_padded_rows(base_num_index, self.mesh,
+                                                        self.embed_size)
+                         if sparse else spmd.padded_num_index(base_num_index, self.mesh))
         self.model = build_model(
             self.model_type, self.tree.max_level, self.embed_size, self.seq_len,
             generator=torch.Generator().manual_seed(self.seed), device=self.device,
+            num_index=num_index,
         )
         if self.embed_dtype == torch.bfloat16:
             self.model.embedding.data = self.model.embedding.data.to(torch.bfloat16)
@@ -200,6 +216,7 @@ class TDMTrainer(RowStepTrainer):
         # re-materialized by _sync_mirrors at eval/train boundaries
         self._init_optimizer(sparse, self.sparse_format)
         self._gen = torch.Generator(device=self.device)
+        self._mesh_steps = 0
         self._beam_fn = None
         self._beam_fn_width = None
 
@@ -210,7 +227,23 @@ class TDMTrainer(RowStepTrainer):
         return self.sampler.sample(self._gen, target_codes)
 
     def _train_step(self, target_codes: torch.Tensor, seq_codes: torch.Tensor) -> torch.Tensor:
-        return self.step_from_samples(seq_codes, *self.sample(target_codes))
+        """One step on a global batch.  On a mesh each rank keeps its "data"
+        rows: the dense step samples the global batch from the trainer's
+        generator (the single-device draws) and keeps its rows, the sparse
+        step samples its rows from the (seed, step, data index) stream
+        (``spmd_sparse.shard_generator``)."""
+        if self.mesh is None:
+            return self.step_from_samples(seq_codes, *self.sample(target_codes))
+        rows = lambda t: meshlib.data_rows(t, self.mesh)  # noqa: E731
+        if self._sparse:
+            gen = spmd_sparse.shard_generator(
+                self.seed, self._mesh_steps, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS),
+                self.device)
+            samples = self.sampler.sample(gen, rows(target_codes))
+        else:
+            samples = [rows(t) for t in self.sample(target_codes)]
+        self._mesh_steps += 1
+        return self.step_from_samples(rows(seq_codes), *samples)
 
     @torch.inference_mode()
     def _eval_loss_step(self, gen: torch.Generator, target_codes: torch.Tensor,
@@ -250,6 +283,7 @@ class TDMTrainer(RowStepTrainer):
         rng_before_perm = step_resume.rng_state_to_json(rng)
         perm = rng.permutation(n) if shuffle else np.arange(n)
         self._gen.manual_seed(self.seed + 1)
+        self._mesh_steps = 0
         start_it, pos = 1, 0
         if checkpoint_path:
             loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
@@ -417,6 +451,7 @@ class TDMTrainer(RowStepTrainer):
         return st
 
     # ------------------------------------------------------------------
+    @with_whole_table
     def evaluate(
         self,
         eval_data: tuple[np.ndarray, np.ndarray, np.ndarray],
@@ -425,7 +460,6 @@ class TDMTrainer(RowStepTrainer):
     ) -> EvalResult:
         """Eval loss (the training sampler, target = first label, scored by
         K1) + beam-search metrics per user (Evaluator.scala:14-74)."""
-        self._sync_mirrors()
         eval_seqs, eval_labels, eval_users = eval_data
         seq_codes = self.tree.ids_to_codes(eval_seqs)
         target_codes = self.tree.ids_to_codes(eval_labels[:, 0])
@@ -460,6 +494,7 @@ class TDMTrainer(RowStepTrainer):
         result.ndcg += float(nd.sum())
         return result
 
+    @with_whole_table
     def recommend_batch(
         self,
         seqs: np.ndarray,  # [B, L] raw item ids
@@ -469,7 +504,6 @@ class TDMTrainer(RowStepTrainer):
         batch_size: int = 4096,
     ) -> list[np.ndarray]:
         """Classic beam search (K1 per level) over ``batch_size`` chunks."""
-        self._sync_mirrors()
         cn = candidate_num or self.beam_size
         k = topk or self.topk
         if self._beam_fn is None or self._beam_fn_width != cn:
@@ -505,11 +539,11 @@ class TDMTrainer(RowStepTrainer):
         )[0]
 
     # ------------------------------------------------------------------
+    @with_whole_table
     def export_embeddings(self, path: str) -> None:
         """Leaf-item embeddings CSV: ``id, e1, ..., ed`` keyed by item id,
         rows read from the shared embedding table at each item's leaf code
         (tdm/.../utils/Serialization.scala:15-58)."""
-        self._sync_mirrors()
         table = self.model.embedding.detach().float().cpu().numpy()
         with open_file(path, "w", encoding="utf-8") as f:
             for iid, code in zip(self.tree.item_ids, self.tree.item_codes):

@@ -221,7 +221,8 @@ def test_guards(data):
     assert OTMTrainer(data, model_type="deepfm", **kw).model.model_type == "deepfm"
     with pytest.raises(ValueError, match="unknown deep model"):
         OTMTrainer(data, model_type="dssm", **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh is ported (tests/test_torch_spmd_sparse.py): anything else is refused
+    with pytest.raises(TypeError, match="DeviceMesh with mesh_dim_names"):
         OTMTrainer(data, mesh=object(), **kw)
     with pytest.raises(ValueError, match="f64"):
         OTMTrainer(data, precision="f64", sparse_embed_update=True, **kw)
