@@ -5,8 +5,9 @@ Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
   2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
-     ptxas's registers and spills of every K1 and K3 instance (E = 8, 16
-     and 32; K3 one-tile and multi-tile over f32 and bf16 rows) against its
+     ptxas's registers and spills of every K1 and K3 instance (E = 8, 16,
+     32, 64, 96 and 128; K3 one-tile and multi-tile over f32 and bf16 rows;
+     K1 past E = 32 its wide kernel with its prologue) against its
      register cap (REG_CAPS), and of the row add on an f32 or a bf16 table
      against 64 (past its cap or spilling fails the run), and each K3
      instance's tensor-core instructions (HMMA) counted in ``cuobjdump
@@ -127,6 +128,19 @@ Phases, one JSON line each; any failed check raises and fails the run:
      tree, the whole eval split) for DIN and DeepFM at seeds 0-2: each
      model's mean recall@10 within RECALL_BAND of the JAX package's
      (JAX_RECALL, measured on the CPU);
+  wide: K1 and K3 at E = 64, 96 and 128 (scripts/quality_push.py's
+     widths; weights' std scaled as w_std says) against their plain
+     versions, uncounted: K1 at [4096, 40], [8192, 4], [8192, 2], predict's
+     row and [4096, 40] at L = 24, K3 on f32 and bf16 rows at [4096, 20]
+     with the f32-scorer control failing, beam 110, L = 24 and a beam past
+     one launch (kernels_at_width); then, counted, the recipe through
+     scripts/quality_push_torch.py at each width (WIDE_ITERS iterations a
+     stage: category tree -> re-cluster -> retrain -> JTM -> retrain, every
+     K1 call audited), the learned tree served on the packed route from f32
+     and bf16 pair tables (K3 audited, lists up to near ties), the 1M
+     catalog served at E = 64 and 128 from both tables, and item 5's
+     protocol at E = 64 (stage 1 of e64x6k, 2000 dense steps, seeds 0-2)
+     within RECALL_BAND of the JAX package's mean (JAX_RECALL_E64);
   mesh: the multi-device paths (``core/mesh.py``, ``train/spmd*.py``).
      (a) In this process, world size 1 over nccl, mesh (1, 1): bench.py's
      1M trainer with ``mesh=`` (the sharded mv route; its model keeps no
@@ -149,8 +163,8 @@ Phases, one JSON line each; any failed check raises and fails the run:
      at (1, 2), ``DRTrainer(mesh=)``'s E-step bit for bit against the
      single-device pmv E-step with its three K2 commits audited.  Each
      rank's launches, ms a step and a serving batch, the transport;
-  6. the ``{"kernels": [...]}`` summary: every instance, E = 8 and 32 among
-     them;
+  6. the ``{"kernels": [...]}`` summary: every instance, E = 8, 32, 64, 96
+     and 128 among them;
   7. last line ``{"ok": true, "device": {...}}``.
 
 Times are medians (with p10/p90, min/max) of one pair of CUDA events
@@ -181,6 +195,7 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 from dismember_tpu_torch.cli.main import main as cli_main  # noqa: E402
 from dismember_tpu_torch.core.checkpoint import (  # noqa: E402
@@ -226,6 +241,7 @@ from dismember_tpu_torch.ops.packed_level_kernel import (  # noqa: E402
     NEG_INF,
     packed_level,
     packed_level_plain,
+    pair_row_width,
 )
 from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
     PackedTree,
@@ -254,13 +270,21 @@ from dismember_tpu_torch.train.tdm import (  # noqa: E402
     packed_fns,
     serving_fns,
 )
+import quality_push_torch  # noqa: E402  (scripts/)
 
 SEED = 0
 BATCH, BEAM, TOPK, SEQ_LEN, E = 4096, 20, 10, 10, 16  # configs/tdm.conf, bench.py
 DEEP_ITEMS = 1_000_000
 # weights and embeddings at O(1) scale (embeddings N(0, 1), weights and
 # biases N(0, 0.5)): logits of a few units and a softmax far from uniform,
-# so a kernel that dropped a scale, a bias or a rounding would show
+# so a kernel that dropped a scale, a bias or a rounding would show.  Past E
+# = 32 the weights' std scales as sqrt(16 / E) (w_std: 0.25, 0.204 and 0.177
+# at E = 64, 96 and 128), so the E-deep sums keep E = 16's scale (logit std
+# ~3 at E = 128).  At 0.5 they grow with E (logit std ~54 at E = 128), and
+# even at sqrt(32 / E) (~8) the f32 plain version itself misses its float64
+# value by more than K1's tolerance on a few candidates near a zero logit
+# at E = 128 (din_score_plain in float32 against float64 on the CPU), a
+# tolerance no f32 kernel could then hold; at sqrt(16 / E) none does.
 EMB_STD, W_STD = 1.0, 0.5
 # Every candidate: |kernel - plain| <= ATOL + RTOL*|plain|.  K1 is f32
 # throughout and differs from its plain version only in summation order.  K3
@@ -272,11 +296,14 @@ EMB_STD, W_STD = 1.0, 0.5
 # its share beyond K1's tolerance at most 6.7e-5; K3's bound is about twice
 # that error.  E = 32 rounds twice as many operands a candidate (K = 32 and
 # 64 products): its share reached 8.6e-4 at L = 24 (E = 8: 1.3e-4) on the
-# same H100, so its share is held to 5e-3.  K1's
+# same H100, so its share is held to 5e-3.  Past E = 32 (w_std's weights)
+# the share grows with the roundings a candidate: at most 1.5e-3 at E = 64,
+# 2.9e-3 at 96 and 4.7e-3 at 128 over every K3 check and audit of a probe of
+# the wide phase on the same H100, held to 5e-3, 1e-2 and 1e-2.  K1's
 # f32 scorer in K3's place puts 96-97% of candidates beyond K1's tolerance at
-# every width (phase 3's controls), so it fails.
+# every width (phase 3's and the wide phase's controls), so it fails.
 TOL = {"din_score": (1e-5, 2e-4), "packed_level": (1e-1, 1e-2)}
-FLIP_SHARE = {8: 1e-3, 16: 1e-3, 32: 5e-3}
+FLIP_SHARE = {8: 1e-3, 16: 1e-3, 32: 5e-3, 64: 5e-3, 96: 1e-2, 128: 1e-2}
 # the H100 SXM's published peaks (NVIDIA H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -352,18 +379,20 @@ RES_CHUNK, RES_CHUNKS, RES_TWIN_CHUNK = 16, 2, 8
 RESUME_ITERS, RESUME_EVERY, RESUME_KILLED_AT = 40, 10, 25
 BF16_ITERS = 30
 # the widths K1 and K3 are built for beside E (8: the JAX package's kernel
-# and beam tests; 32: scripts/quality_1m.py's), and the registers a thread
+# and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
+# scripts/quality_push.py's, the wide phase's), and the registers a thread
 # of each instance may use (their launch bounds): K1 and the one-tile K3 64
-# at E = 8 and 16, 128 at E = 32; the multi-tile K3 255, the hardware's
+# at E = 8 and 16, 128 at E = 32; K1 128 at E = 64 and 255 past it (one
+# block of 256 threads an SM); the one-tile K3 255 past E = 32 (two blocks
+# of 128 threads an SM at most, by their shared memory); the multi-tile K3
+# 255, the hardware's
 WIDTHS = (8, 32)
+WIDE = (64, 96, 128)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
-            ("one-tile", 8): 64, ("one-tile", 16): 64, ("one-tile", 32): 128,
-            ("tiles", 8): 255, ("tiles", 16): 255, ("tiles", 32): 255}
-# K3 at E = 32 past the serving shape: (batch, beam, L, timed): the example
-# catalog's widest recommend (beam 110); a beam past one launch at E = 32
-# (~746 f32 parents at L <= 16 on an H100; 1,000 goes in two launches); two
-# sequence tiles
-K3_WIDE_E32 = ((BATCH, 110, SEQ_LEN, True), (256, 1000, SEQ_LEN, False), (BATCH, BEAM, 24, True))
+            ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
+            **{("one-tile", e): 64 if e <= 16 else 128 if e == 32 else 255
+               for e in (8, 16, 32, *WIDE)},
+            **{("tiles", e): 255 for e in (8, 16, 32, *WIDE)}}
 WIDTH_STEPS = 10  # the E = 32 trainer's timed pmv steps at 1M items
 # the deepfm phase's 1M trainer: timed pmv steps, then steps whose every K2
 # commit is audited; the relative score gap a near tie between DeepFM's
@@ -376,6 +405,16 @@ DEEPFM_STEPS, DEEPFM_AUDITED_STEPS, DEEPFM_NEAR_TIE = 20, 5, 1e-5
 # scripts/jax_reference_recall.py), and the seed band of BASELINE.md:151
 JAX_RECALL = {"din": 0.011657156652161813, "deepfm": 0.015153125451413693}
 RECALL_BAND, RECALL_SEEDS, RECALL_ITERS = 0.003, (0, 1, 2), 2000
+# the wide phase: (c) each wide width's recipe (scripts/quality_push_torch.py,
+# scripts/quality_push.py's e64x6k, e96x6k and e128x6k), its 6000 iterations
+# a stage cut to WIDE_ITERS; (d) 1M-item serving at WIDE_DEEP; (e) item 5's
+# protocol at E = 64: stage 1 of e64x6k (category tree, lr 3e-3, batch 8192,
+# the conf's negatives, dense) cut to RECALL_ITERS, seeds 0-2, against the
+# JAX package's mean on the CPU (0.018326, 0.018747, 0.019742;
+# scripts/jax_reference_recall.py --embed 64 --lr 3e-3 --models din)
+WIDE_RECIPES = {64: "e64x6k", 96: "e96x6k", 128: "e128x6k"}
+WIDE_ITERS, WIDE_DEEP = 300, (64, 128)
+JAX_RECALL_E64 = 0.018937993223878267
 # the mesh phase: (a) bench.py's 1M trainer on a (1, 1) mesh over nccl,
 # steps on the same negatives as the single-device mv route (the first
 # audited), then timed steps; sharded serving calls a measurement; (b) the
@@ -394,15 +433,22 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+def w_std(e: int) -> float:
+    """The std of the scorer's weights at width ``e``: W_STD up to E = 32,
+    W_STD * sqrt(16 / e) past it."""
+    return W_STD if e <= 32 else W_STD * (16 / e) ** 0.5
+
+
 def seed_params(num_index: int, rng: np.random.Generator, e: int = E) -> dict:
     """DIN params pytree of width ``e`` from numpy at O(1) scale (EMB_STD,
-    W_STD)."""
+    w_std(e))."""
     f = lambda std, *s: (rng.standard_normal(s) * std).astype(np.float32)  # noqa: E731
+    w = w_std(e)
     return {
         "embedding": f(EMB_STD, num_index, e),
-        "att_linear": {"weight": f(W_STD, e, e)},
-        "mlp1": {"weight": f(W_STD, e, 2 * e), "bias": f(W_STD, e)},
-        "mlp2": {"weight": f(W_STD, 1, e), "bias": f(W_STD, 1)},
+        "att_linear": {"weight": f(w, e, e)},
+        "mlp1": {"weight": f(w, e, 2 * e), "bias": f(w, e)},
+        "mlp2": {"weight": f(w, 1, e), "bias": f(w, 1)},
     }
 
 
@@ -533,11 +579,12 @@ def ptxas_usage(log: str, kernel: str) -> dict:
 
 def instance_name(mangled: str) -> str | None:
     """The K1 or K3 instance a mangled kernel name belongs to: "K1 E=16"
-    (every L of a width together), "K3 E=32 bf16 one-tile", ...; None for
-    other kernels."""
-    m = re.search(r"din_score_kernelILi(\d+)ELi\d+EE", mangled)
+    (every L of a width together; past E = 32 the wide kernel and its
+    prologue), "K3 E=32 bf16 one-tile", ...; None for other kernels."""
+    m = re.search(r"din_score_kernelILi(\d+)ELi\d+EE|"
+                  r"din_(?:score_wide|prologue)_kernelILi(\d+)EE", mangled)
     if m:
-        return f"K1 E={m[1]}"
+        return f"K1 E={m[1] or m[2]}"
     m = re.search(r"packed_level_kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
     if m:
         return (f"K3 E={m[3]} {'f32' if m[2] == 'f' else 'bf16'} "
@@ -712,12 +759,13 @@ def seq_inputs(g: torch.Generator, b: int, l: int, dev,
 
 def k3_rows(g: torch.Generator, b: int, beam: int, dev, dtype: torch.dtype = torch.float32,
             e: int = E) -> tuple[torch.Tensor, torch.Tensor]:
-    """[b, beam] 128-lane pair rows of width ``e`` (15% missing children,
-    random id digits: 2 base-4096 digits a child in f32 rows, 4 base-256 in
-    bf16 rows) and their parents' alive mask (10% dead, row 1 all dead)."""
+    """[b, beam] pair rows of width ``e`` (``pair_row_width`` lanes: 128
+    up to E = 32; 15% missing children, random id digits: 2 base-4096
+    digits a child in f32 rows, 4 base-256 in bf16 rows) and their parents'
+    alive mask (10% dead, row 1 all dead)."""
     k = packed_level_kernel.ID_DIGITS[dtype]
     base = 4096 if dtype == torch.float32 else 256
-    rows = torch.zeros(b, beam, 128)
+    rows = torch.zeros(b, beam, pair_row_width(e, dtype))
     rows[..., : 2 * e] = torch.randn(b, beam, 2 * e, generator=g) * EMB_STD
     rows[..., 2 * e : 2 * e + 2] = (torch.rand(b, beam, 2, generator=g) < 0.85).float()
     if k == 2:
@@ -757,8 +805,10 @@ def k1_times(item_e, seq_e, pad, weights, flush) -> dict:
     b, u, e = item_e.shape
     l = seq_e.shape[1]
     out = torch.empty(b, u, device=item_e.device)
+    scratch = _cuda.din_scratch(e, item_e.device)
     lib, stream = _cuda.library(), _cuda.stream_handle(item_e.device)
     args = [t.data_ptr() for t in (item_e, seq_e, pad, *weights, out)]
+    args.append(None if scratch is None else scratch.data_ptr())
     launch = lambda: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
         *args, b, u, l, e, stream))
     by, op = bound(nbytes(item_e, seq_e, pad, *weights, out), din_folded_flops(b, u, l, e))
@@ -2522,28 +2572,33 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
     with O(1)-scale inputs (padding, an all-padding row, zero candidates,
     dead parents, missing children): K1 at the serving shape [4096, 40],
     the sweep's [8192, 4] and [8192, 2] and predict's one row of every
-    catalog item; K3 at [4096, 20] on f32 and bf16 rows, each with the
-    f32-scorer control, which must fail K3's check; at E = 32 also
-    K3_WIDE_E32.  The serving and sweep shapes are timed warm and cold,
-    beside the plain version and the bound."""
+    catalog item (past E = 32 also [4096, 40] at L = 24); K3 at [4096, 20]
+    on f32 and bf16 rows, each with the f32-scorer control, which must fail
+    K3's check; k3_wide_cases at E = 32 on f32 rows and past E = 32 on
+    both row types.  The serving and sweep shapes (past E
+    = 32 also L = 24) are timed warm and cold, beside the plain version and
+    the bound."""
     g = torch.Generator().manual_seed(SEED + 40 + e)
     weights = tuple(t.detach() for t in params_from_numpy(
         seed_params(7, np.random.default_rng(SEED + 40 + e), e), device=dev).scorer_weights())
     b, u, l = BATCH, 2 * BEAM, SEQ_LEN
     seq_e, pad = seq_inputs(g, b, l, dev, e)
     k1 = {}
-    for case, (bb, uu) in (("serving", (b, u)), ("sweep", (SWEEP_ROWS, SWEEP_U)),
-                           ("sweep_u2", (SWEEP_ROWS, 2)), ("predict", (1, n_items))):
+    cases = [("serving", (b, u, l)), ("sweep", (SWEEP_ROWS, SWEEP_U, l)),
+             ("sweep_u2", (SWEEP_ROWS, 2, l)), ("predict", (1, n_items, l))]
+    if e in WIDE:
+        cases.append(("l24", (b, u, 24)))
+    for case, (bb, uu, ll) in cases:
         item_e = torch.randn(bb, uu, e, generator=g) * EMB_STD
         item_e[torch.rand(bb, uu, generator=g) < 0.1] = 0.0
         item_e = item_e.to(dev)
         s_e, s_pad = ((seq_e[2:3].contiguous(), pad[2:3].contiguous()) if case == "predict"
-                      else seq_inputs(g, bb, l, dev, e))
+                      else seq_inputs(g, bb, ll, dev, e))
         got = din_score(item_e, s_e, s_pad, *weights)
         k1[case] = dict(**within("din_score", got, din_score_plain(item_e, s_e, s_pad, *weights)),
-                        shape=[bb, uu, l, e])
+                        shape=[bb, uu, ll, e])
         check(bool(torch.isfinite(got).all()), f"din_score at E={e}: non-finite output")
-        if case in ("serving", "sweep"):
+        if case in ("serving", "sweep", "l24"):
             k1[case].update(k1_times(item_e, s_e, s_pad, weights, flush))
     k3 = {}
     for dt, name in K3_ROWS.items():
@@ -2556,25 +2611,42 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
         k3[name] = dict(**agree, **k3_times(rows, alive, seq_e, pad, weights, flush, e),
                         shape=[b, BEAM, rows.shape[2], l, e], control_f32_scorer=control)
         del rows, alive, blk
-    if e == 32:
-        wide = {}
-        for bb, beam, ll, timed in K3_WIDE_E32:
-            rows, alive = k3_rows(g, bb, beam, dev, e=e)
-            s_e, s_pad = seq_inputs(g, bb, ll, dev, e)
-            n0 = packed_level_kernel.launches_by_width[e, torch.float32]
-            agree = k3_check(rows, alive, s_e, s_pad, weights, e)[3]
-            wide[f"beam{beam}_l{ll}"] = dict(
-                **agree, shape=[bb, beam, rows.shape[2], ll, e],
-                launches=packed_level_kernel.launches_by_width[e, torch.float32] - n0,
-                **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
-            del rows, alive, s_e, s_pad
-        limit = _cuda.library().packed_level_max_beam(SEQ_LEN, e)
-        check(wide["beam1000_l10"]["launches"] == -(-1000 // limit) >= 2,
-              f"beam 1000 at E=32 is not split at the width's limit ({limit}): {wide}")
-        k3["packed_level"]["wide"] = wide
-        k3["packed_level"]["max_beam_l10"] = limit
+    for dt, name in K3_ROWS.items():
+        if e == 32 and dt == torch.float32 or e in WIDE:
+            k3[name].update(k3_wide_cases(dev, g, e, dt, weights, flush))
     torch.cuda.synchronize()
     return {"din_score": k1, **k3}
+
+
+def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
+                  flush: torch.Tensor) -> dict:
+    """K3 at width ``e`` on ``dt`` rows past the serving shape, against its
+    plain version: beam 110 (the example catalog's widest recommend) and L =
+    24 (two sequence tiles), both timed, and a beam past one launch in two
+    launches (E = 32: 1,000, ~746 f32 parents fitting one launch at L <= 16
+    on an H100; past it half the width's single-launch limit more), with
+    that limit."""
+    lib = _cuda.library()
+    limit = (lib.packed_level_max_beam_bf16rows if dt == torch.bfloat16
+             else lib.packed_level_max_beam)(SEQ_LEN, e)
+    check(limit >= BEAM, f"K3 at E={e}: one launch takes {limit} parents at L={SEQ_LEN}")
+    past = 1000 if e == 32 else limit + limit // 2
+    wide = {}
+    for bb, beam, ll, timed in ((BATCH, 110, SEQ_LEN, True), (256, past, SEQ_LEN, False),
+                                (BATCH, BEAM, 24, True)):
+        rows, alive = k3_rows(g, bb, beam, dev, dt, e)
+        s_e, s_pad = seq_inputs(g, bb, ll, dev, e)
+        n0 = packed_level_kernel.launches_by_width[e, dt]
+        agree = k3_check(rows, alive, s_e, s_pad, weights, e)[3]
+        wide[f"beam{beam}_l{ll}"] = dict(
+            **agree, shape=[bb, beam, rows.shape[2], ll, e],
+            launches=packed_level_kernel.launches_by_width[e, dt] - n0,
+            **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
+        del rows, alive, s_e, s_pad
+    launches = wide[f"beam{past}_l{SEQ_LEN}"]["launches"]
+    check(launches == -(-past // limit) >= 2,
+          f"beam {past} at E={e}: {launches} launches at the width's limit ({limit})")
+    return {"wide": wide, "max_beam_l10": limit}
 
 
 def example_width_8(dev, tree_path: str, samples, seqs: np.ndarray) -> dict:
@@ -3230,6 +3302,34 @@ def mesh(dev, deep: TDMServing, deep_seqs: np.ndarray, deep_lists: list, tree_pa
 
 
 # ---------------------------------------------------------------- reference recall
+def recall_runs(dev, tree: ArrayTree, samples, model_type: str = "din", **conf) -> dict:
+    """scripts/sparse_quality_check.py's protocol at RECALL_SEEDS: tdm.conf's
+    trainer (``conf`` replacing its settings), RECALL_ITERS dense steps,
+    ``evaluate`` on the whole eval split; each run and the mean recall@10."""
+    eval_data = (samples.eval_seqs, samples.eval_labels, samples.eval_users)
+    runs = []
+    for seed in RECALL_SEEDS:
+        tr = TDMTrainer(tree=tree, model_type=model_type, seed=seed, device=dev,
+                        sparse_embed_update=False, **{**TDM_CONF, **conf})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(samples.train_seqs, samples.train_targets, RECALL_ITERS,
+                 progress_interval=RECALL_ITERS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev = tr.evaluate(eval_data, samples.user_consumed)
+        runs.append({"seed": seed, "train_s": t1 - t0, "eval_s": time.perf_counter() - t1,
+                     **{k: getattr(ev, k) / ev.count
+                        for k in ("recall", "precision", "ndcg", "loss")}})
+        del tr
+    return {"runs": runs, "mean_recall": float(np.mean([r["recall"] for r in runs]))}
+
+
+def within_recall_band(runs: dict, jax_mean: float) -> dict:
+    return {**runs, "jax_cpu_mean_recall": jax_mean, "gap": runs["mean_recall"] - jax_mean,
+            "within_band": abs(runs["mean_recall"] - jax_mean) <= RECALL_BAND}
+
+
 def reference_recall(dev, tree_path: str, samples) -> dict:
     """ROADMAP item 5's check: scripts/sparse_quality_check.py's protocol
     (configs/tdm.conf's trainer, RECALL_ITERS dense steps, E = 16, the
@@ -3237,32 +3337,73 @@ def reference_recall(dev, tree_path: str, samples) -> dict:
     at RECALL_SEEDS; each model's mean recall@10 within RECALL_BAND of the
     JAX package's mean (JAX_RECALL)."""
     tree = ArrayTree.from_file(tree_path)
-    eval_data = (samples.eval_seqs, samples.eval_labels, samples.eval_users)
-    out = {}
-    for model_type in ("din", "deepfm"):
-        runs = []
-        for seed in RECALL_SEEDS:
-            tr = TDMTrainer(tree=tree, model_type=model_type, seed=seed, device=dev,
-                            sparse_embed_update=False, **TDM_CONF)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train(samples.train_seqs, samples.train_targets, RECALL_ITERS,
-                     progress_interval=RECALL_ITERS)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            ev = tr.evaluate(eval_data, samples.user_consumed)
-            runs.append({"seed": seed, "train_s": t1 - t0, "eval_s": time.perf_counter() - t1,
-                         **{k: getattr(ev, k) / ev.count
-                            for k in ("recall", "precision", "ndcg", "loss")}})
-            del tr
-        mean = float(np.mean([r["recall"] for r in runs]))
-        out[model_type] = {"runs": runs, "mean_recall": mean,
-                           "jax_cpu_mean_recall": JAX_RECALL[model_type],
-                           "gap": mean - JAX_RECALL[model_type],
-                           "within_band": abs(mean - JAX_RECALL[model_type]) <= RECALL_BAND}
+    out = {m: within_recall_band(recall_runs(dev, tree, samples, m), JAX_RECALL[m])
+           for m in ("din", "deepfm")}
     out.update(protocol=f"configs/tdm.conf's trainer, {RECALL_ITERS} dense iterations, E={E}, "
                         f"category tree, evaluate on {len(samples.eval_seqs)} eval windows",
                band=RECALL_BAND, seeds=list(RECALL_SEEDS))
+    return out
+
+
+def wide_recipe(dev, e: int, data) -> dict:
+    """(c): scripts/quality_push_torch.py's recipe at width ``e``
+    (WIDE_RECIPES[e], WIDE_ITERS iterations a stage) with every K1 call of
+    its trainers (the evaluations' classic beams) and of the JTM sweep held
+    against ``din_score_plain``; then the learned tree served through
+    TDMServing's packed route from an f32 and a bf16 pair table
+    (width_serving: the f32 route's every K3 level audited, its lists equal
+    to the plain route's up to near ties, the bf16 table's equal to the f32
+    one's; ``predict`` over the catalog against K1's plain version)."""
+    name = WIDE_RECIPES[e]
+    cfg = quality_push_torch.VARIANTS[name]
+    check(cfg["embed"] == e, f"{name} is not at E={e}")
+    lines = []
+    t0 = time.perf_counter()
+    with k1_audited() as k1_audit:
+        tr = quality_push_torch.run_variant(name, cfg, data, str(OUT / "quality_push_torch"),
+                                            device=dev, iters=WIDE_ITERS, report=lines.append)
+    recipe_s = time.perf_counter() - t0
+    check([ln["run"] for ln in lines] == [f"{name}-stage{i}-{s}" for i, s in
+                                           enumerate(("category", "cluster", "jtm"), 1)],
+          f"{name}: stages {lines}")
+    check(all(0.0 <= ln[k] <= 1.0 for ln in lines for k in ("recall", "precision", "ndcg")),
+          f"{name}: metrics {lines}")
+    check(k1_audit["calls"] > 0, f"{name}: no K1 call was audited")
+    check(tr.tree.num_items == len(data.item_ids), f"{name}: the learned tree lost items")
+    serving = width_serving(dev, tr.model, tr.tree, data.samples.eval_seqs)
+    return {"variant": name, "cut": {"iterations_a_stage": WIDE_ITERS, "variant's": cfg["iters"]},
+            "stages": lines, "recipe_s": recipe_s, "k1_vs_plain": k1_audit, "serving": serving}
+
+
+def wide_deep(dev, e: int, tree: ArrayTree, seqs: np.ndarray) -> dict:
+    """(d): DIN at width ``e`` on the 1M catalog from seeded O(1)-scale
+    weights (w_std), ``recommend_batch(4096)`` on the packed route (16 K3
+    levels) from an f32 and a bf16 pair table (width_serving)."""
+    t0 = time.perf_counter()
+    num_index = (1 << (tree.max_level + 1)) - 1
+    model = params_from_numpy(seed_params(num_index, np.random.default_rng(SEED + 60 + e), e),
+                              device=dev)
+    setup_s = time.perf_counter() - t0
+    return {"items": DEEP_ITEMS, "embed_size": e, "setup_s": setup_s,
+            "serving": width_serving(dev, model, tree, seqs)}
+
+
+def wide(dev, tree_path: str, samples, deep: TDMServing, deep_seqs: np.ndarray) -> dict:
+    """The wide path: (c) the recipe at E = 64, 96 and 128, (d) 1M serving
+    at WIDE_DEEP and (e) the E = 64 recall check; the caller zeroes and
+    reads the launch counts around it."""
+    data = quality_push_torch.load_data()
+    out = {f"recipe_e{e}": wide_recipe(dev, e, data) for e in WIDE}
+    out.update({f"deep_e{e}": wide_deep(dev, e, deep.tree, deep_seqs) for e in WIDE_DEEP})
+    tree = ArrayTree.from_file(tree_path)
+    cfg = quality_push_torch.VARIANTS["e64x6k"]
+    out["recall_e64"] = within_recall_band(
+        recall_runs(dev, tree, samples, embed_size=cfg["embed"], learning_rate=cfg["lr"]),
+        JAX_RECALL_E64)
+    out["recall_e64"]["protocol"] = (
+        f"stage 1 of e64x6k cut to {RECALL_ITERS} dense iterations: configs/tdm.conf's "
+        f"trainer at E=64, lr {cfg['lr']}, category tree, evaluate on "
+        f"{len(samples.eval_seqs)} eval windows")
     return out
 
 
@@ -3538,6 +3679,30 @@ def main() -> int:
         launches[name] += (facts_w["launches"][name] + facts_fm["launches"][name]
                            + facts_rr["launches"][name])
 
+    # ---- K1 and K3 at E = 64, 96 and 128: against their plain versions,
+    # then the wide path (the recipe, 1M serving, the E = 64 recall check)
+    # with launch counts zeroed just before, read just after
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, device=dev)
+    kern_wide = {e: kernels_at_width(dev, e, facts4["catalog_items"], flush) for e in WIDE}
+    del flush
+    checks_s = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    facts_wide = wide(dev, tree_path, samples, deep, deep_seqs)
+    facts_wide["launches"] = read_launches()
+    emit({"phase": "wide", "kernels_vs_plain_s": checks_s, "path_s": time.perf_counter() - t0,
+          "flip_share": {e: FLIP_SHARE[e] for e in WIDE},
+          "kernels": {f"e{e}": k for e, k in kern_wide.items()}, **facts_wide})
+    check(all(facts_wide["launches"][f"{k}_e{e}"] > 0 for e in WIDE
+              for k in ("din_score", "packed_level", "packed_level_bf16_rows")),
+          f"wide: {facts_wide['launches']}")
+    check(facts_wide["recall_e64"]["within_band"],
+          f"wide: the E = 64 mean recall@10 is not within {RECALL_BAND} of the JAX "
+          f"package's: {facts_wide['recall_e64']}")
+    for name in launches:
+        launches[name] += facts_wide["launches"][name]
+
     # ---- the multi-device paths: (a) in this process over nccl, (b) on
     # two ranks sharing the card over gloo; each part's launch counts
     # zeroed just before it, read just after
@@ -3594,25 +3759,29 @@ def main() -> int:
                               *(c["max_abs_err"] for c in dr_k2.values())),
             "add_rows": row_errors(rk, "add"),
             "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"]}
-    # the instances at E = 8 and 32: K1 at the serving shape (also the
-    # sweep's), K3 at [4096, 20] on f32 and bf16 rows (at E = 32 also beam
-    # 110 and L = 24); their errors over the kernels phase and every audit
-    # of the widths phase
-    for e in WIDTHS:
-        kw, fw = kern_w[e], facts_w["e32_1m" if e == 32 else "e8_example"]
+    # the instances at the other widths: K1 at the serving shape (also the
+    # sweep's; past E = 32 also L = 24), K3 at [4096, 20] on f32 and bf16
+    # rows (at E = 32 and past also beam 110 and L = 24); their errors over
+    # the kernel checks and every audit of the widths and wide phases
+    audits = {8: [facts_w["e8_example"]], 32: [facts_w["e32_1m"]],
+              **{e: [facts_wide[f"recipe_e{e}"]]
+                 + ([facts_wide[f"deep_e{e}"]] if e in WIDE_DEEP else []) for e in WIDE}}
+    kern_all = {**kern_w, **kern_wide}
+    for e, fws in audits.items():
+        kw = kern_all[e]
         k1 = kw["din_score"]
-        timed[f"din_score_e{e}"] = {**k1["serving"], "sweep": k1["sweep"], "library_ms": None}
-        timed[f"packed_level_e{e}"] = {**kw["packed_level"], "library_ms": None}
-        timed[f"packed_level_bf16_rows_e{e}"] = {**kw["packed_level_bf16_rows"],
-                                                 "library_ms": None}
+        timed[f"din_score_e{e}"] = {**k1["serving"], "sweep": k1["sweep"], "library_ms": None,
+                                    **({"l24": k1["l24"]} if "l24" in k1 else {})}
+        for k in ("packed_level", "packed_level_bf16_rows"):
+            timed[f"{k}_e{e}"] = {**kw[k], "library_ms": None}
+            errs[f"{k}_e{e}"] = max([kw[k]["max_abs_err"]]
+                                    + [c["max_abs_err"] for c in kw[k].get("wide", {}).values()]
+                                    + ([fw["serving"]["float32"]["vs_plain"]["max_abs_err"]
+                                        for fw in fws] if k == "packed_level" else []))
         errs[f"din_score_e{e}"] = max(
             [c["max_abs_err"] for c in k1.values()]
-            + [fw["serving"]["float32"]["predict_vs_plain"]["max_abs_err"]]
-            + ([fw["k1_vs_plain"]["max_abs_err"]] if "k1_vs_plain" in fw else []))
-        errs[f"packed_level_e{e}"] = max(
-            [kw["packed_level"]["max_abs_err"], fw["serving"]["float32"]["vs_plain"]["max_abs_err"]]
-            + [c["max_abs_err"] for c in kw["packed_level"].get("wide", {}).values()])
-        errs[f"packed_level_bf16_rows_e{e}"] = kw["packed_level_bf16_rows"]["max_abs_err"]
+            + [fw["serving"]["float32"]["predict_vs_plain"]["max_abs_err"] for fw in fws]
+            + [fw["k1_vs_plain"]["max_abs_err"] for fw in fws if "k1_vs_plain" in fw])
         for k in ("din_score", "packed_level", "packed_level_bf16_rows"):
             src[f"{k}_e{e}"], replaces[f"{k}_e{e}"] = src[k], replaces[k]
     summary = []
@@ -3636,11 +3805,15 @@ def main() -> int:
                 n: {key: c[key] for key in ("table", "rows", "rows_written", "ms", "plain_ms",
                                             "library_ms", "bound_ms", "bound_by")}
                 for n, c in dr_k2.items()}} if name == "write_rows" else {}),
+            # K1 past E = 32 also at L = 24
+            **({"l24_ms": k["l24"]["ms"], "l24_cold_ms": k["l24"]["cold_ms"],
+                "l24_plain_ms": k["l24"]["plain_ms"], "l24_bound_ms": k["l24"]["bound_ms"],
+                "l24_shape": k["l24"]["shape"]} if "ms" in k.get("l24", {}) else {}),
             # K3 also at beam 110 (the example catalog's widest recommend)
             # and at L = 24 (two sequence tiles)
             **({f"{case}_{key}": k["wide"][case][key] for case in ("beam110_l10", "beam20_l24")
                 for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "shape")}
-               if name in ("packed_level", "packed_level_e32") else {}),
+               if "beam110_l10" in k.get("wide", {}) else {}),
         })
     emit({"kernels": summary})
 

@@ -68,8 +68,10 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(library_path()))
-    lib.din_score_f32.argtypes = [_PTR] * 9 + [_INT] * 4 + [_PTR]
+    lib.din_score_f32.argtypes = [_PTR] * 10 + [_INT] * 4 + [_PTR]
     lib.din_score_f32.restype = _INT
+    lib.din_score_scratch_floats.argtypes = [_INT]
+    lib.din_score_scratch_floats.restype = _INT
     lib.packed_level_bf16.argtypes = [_PTR] * 11 + [_INT] * 5 + [_PTR]
     lib.packed_level_bf16.restype = _INT
     lib.packed_level_bf16_bf16rows.argtypes = [_PTR] * 11 + [_INT] * 5 + [_PTR]
@@ -114,3 +116,19 @@ def check_shape(name: str, arg: str, t: torch.Tensor, shape: tuple) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def _din_scratch_floats(e: int) -> int:
+    return library().din_score_scratch_floats(e)
+
+
+def din_scratch(e: int, device: torch.device) -> torch.Tensor | None:
+    """K1's scratch at width ``e`` on ``device``, allocated on the current
+    stream: the prologue's packed weights (``[w1[:, :E] | M]^T``, b1, w2,
+    b2) at E >= 64, which the kernel writes and reads within one call;
+    None at E <= 32, which needs none."""
+    n = _din_scratch_floats(e)
+    if n < 0:
+        raise ValueError(f"din_score: E={e} is not a built width")
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None

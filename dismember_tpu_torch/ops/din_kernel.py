@@ -10,16 +10,20 @@ JTM sweep's [8192, 4] score batches (``train/jtm.py``).
 
 On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
 bound by bytes: ~13.9 MB of candidate and sequence embeddings, padding and
-logits against ~0.23 GFLOP of f32 work on the CUDA cores.  It folds the
-sequence side once per query row (ctx_l = (w1[:, E:] @ att_w) . seq_l, by
-linearity), so one thread scores one candidate with ~1.3 kFLOP in registers:
-L scores with padding as a multiply-add, the softmax with one reciprocal of
-its sum, and h from ctx.  The sum runs in another order than
+logits against ~0.23 GFLOP of f32 work on the CUDA cores.  At E <= 32 it
+folds the sequence side once per query row (ctx_l = (w1[:, E:] @ att_w) .
+seq_l, by linearity), so one thread scores one candidate with ~1.3 kFLOP
+in registers: L scores with padding as a multiply-add, the softmax with one
+reciprocal of its sum, and h from ctx.  At E = 64, 96 and 128 a prologue
+kernel writes [w1[:, :E] | M]^T (M = w1[:, E:] @ att_w) into scratch this
+wrapper allocates (``_cuda.din_scratch``), eight lanes a candidate take
+its scores and an online softmax, and a block computes h = [item | att] .
+[w1[:, :E] | M]^T as a register-tiled f32 product; there the E^2-deep
+products bound it by operations.  The sums run in another order than
 :func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
-E = 8, 16 and 32 (``KERNEL_WIDTHS``; E = 32 at up to 128 registers a
-thread, the others at 64).  Forward only: on CUDA it raises when grad mode
-is on and an input requires grad (the trainers score through the plain
-version under autograd, ``DIN.train_apply_from_emb``).
+``KERNEL_WIDTHS``.  Forward only: on CUDA it raises when grad mode is on
+and an input requires grad (the trainers score through the plain version
+under autograd, ``DIN.train_apply_from_emb``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from dismember_tpu_torch.ops import _cuda
 _MASK_F32 = float(np.float32(MASK_VALUE))
 
 # the embedding widths K1 and K3 are built for (csrc/din_kernels.cu)
-KERNEL_WIDTHS = (8, 16, 32)
+KERNEL_WIDTHS = (8, 16, 32, 64, 96, 128)
 
 # K1 launches on CUDA tensors, in all and by width; chip_smoke.py zeroes
 # and reads them
@@ -55,8 +59,7 @@ def check_kernel_width(model_type: str, embed_size: int, device: torch.device) -
     if model_type == "din" and device.type == "cuda" and embed_size not in KERNEL_WIDTHS:
         raise ValueError(
             f"embed_size={embed_size}: the CUDA kernels K1 and K3 are built for "
-            f"E in {list(KERNEL_WIDTHS)} only (ROADMAP queue 1, g's remainder: "
-            "E = 64, 96 and 128); use a built width, or device='cpu'"
+            f"E in {list(KERNEL_WIDTHS)} only; use a built width, or device='cpu'"
         )
 
 
@@ -130,10 +133,11 @@ def din_score(
                           ("b1", b1, (e,)), ("w2", w2, (1, e)), ("b2", b2, (1,))):
         _cuda.check_shape(name, arg, t, shape)
     out = torch.empty((b, u), dtype=torch.float32, device=dev)
+    scratch = _cuda.din_scratch(e, dev)
     code = _cuda.library().din_score_f32(
         item_e.data_ptr(), seq_e.data_ptr(), pad.data_ptr(), att_w.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, u, l, e, _cuda.stream_handle(dev),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, u, l, e, _cuda.stream_handle(dev),
     )
     _cuda.check_launch(name, code)
     launches += 1

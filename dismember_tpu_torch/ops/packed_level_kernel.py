@@ -23,14 +23,15 @@ values.
 :func:`packed_level` launches ``packed_level_bf16`` (f32 rows) or
 ``packed_level_bf16_bf16rows`` (bf16 rows; ``csrc/din_kernels.cu``) for
 CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel is
-built for E = 8, 16 and 32 (E = 32 with its weight fragments in shared
-memory, at up to 128 registers a thread; E = 8 pads its products' depth
-to 16 with zeros) and takes any L (in 16-position tiles).  A query row's
+built for ``KERNEL_WIDTHS`` (past E = 16 with its weight fragments in
+shared memory, 25, 56 and 99 KB at E = 64, 96 and 128; E = 8 pads its
+products' depth to 16 with zeros; past E = 32 a pair row passes 128 lanes,
+``pair_row_width``) and takes any L (in 16-position tiles).  A query row's
 staging area in shared memory grows with the beam and with E; a beam wider
 than one row of a block can hold (``packed_level_max_beam(L, E)``, ~1,340
-parents at E = 16 and L <= 16 on an H100, fewer at E = 32) is split here
-into chunks of parents, one launch each, and the chunks' outputs are put
-back into block order.  Each parent's two
+parents at E = 16 and L <= 16 on an H100, ~746 at E = 32, ~116 f32 or
+~224 bf16 parents at E = 128) is split here into chunks of parents, one
+launch each, and the chunks' outputs are put back into block order.  Each parent's two
 children are scored independently of the other parents, so the split
 changes no score.  The kernel runs its products on the tensor cores (bf16
 operands are the contract), so on the H100 at the serving shapes (B=4096,
@@ -62,7 +63,8 @@ launches_by_width = {(e, dt): 0 for e in KERNEL_WIDTHS for dt in ID_DIGITS}
 
 def pair_row_width(embed_size: int, dtype=torch.float32) -> int:
     """Lanes of a pair row: the used lanes (2E + 2 + 2 id digit groups)
-    rounded up to 128."""
+    rounded up to 128, as the JAX package's ``build_pair_table`` lays them
+    out (128 lanes up to E = 32, 256 at E = 64 and 96, 384 at E = 128)."""
     used = 2 * embed_size + 2 + 2 * ID_DIGITS[dtype]
     return (used + 127) // 128 * 128
 

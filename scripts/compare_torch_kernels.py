@@ -41,11 +41,19 @@ per probability instead of one reciprocal a row).  The probes other than
 ``div``, ``k1_regs48`` and ``k1_head_unroll2`` compute wrong scores and
 only split the time.
 
+``--wide`` instead times K3 at E = 64, 96 and 128 (f32 rows at beam 20
+and 110, L = 10, and beam 20 at L = 24; bf16 rows at beam 20; chip_smoke.py's
+inputs and weights at each width) for this tree and ``k3_one_pass_grid``, the
+tree with its persistent grid off (one block a group of query rows, as
+before; the same scores), and ``base`` where given, in turns, after
+checking each version against K3's plain version and the scores and digits
+bit for bit against the tree's.
+
 Every time is the median (p10, p90) of chip_smoke.py's per-call CUDA
 events.  One JSON line per measurement; the card's name and power limit
 first.
 
-Usage: python3 scripts/compare_torch_kernels.py [--base DIR] [--probe]   (one GPU)
+Usage: python3 scripts/compare_torch_kernels.py [--base DIR] [--probe | --wide]   (one GPU)
 """
 
 from __future__ import annotations
@@ -106,6 +114,13 @@ PROBES = {
             ("for (int i = 0; i < 2; ++i) s[j][2 * h + i] *= inv;",
              "for (int i = 0; i < 2; ++i) s[j][2 * h + i] /= sum_q;")],
 }
+# --wide's variant: K3 at E >= 64 without its persistent grid
+WIDE_PROBES = {"k3_one_pass_grid": [("constexpr bool kPersistentLevel = E >= 64;",
+                                     "constexpr bool kPersistentLevel = false;")]}
+# --wide's K3 cases: (E, row dtype, batch, beam, L)
+WIDE_CASES = [(e, dt, B, beam, l) for e in (64, 96, 128)
+              for dt, beam, l in ((torch.float32, 20, 10), (torch.float32, 110, 10),
+                                  (torch.float32, 20, 24), (torch.bfloat16, 20, 10))]
 
 
 def build(label: str, sources: dict[str, str]) -> subprocess.Popen:
@@ -120,9 +135,12 @@ def build(label: str, sources: dict[str, str]) -> subprocess.Popen:
 
 def load(label: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(OUT / label / "lib.so"))
-    lib.packed_level_bf16.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+    for fn in (lib.packed_level_bf16, lib.packed_level_bf16_bf16rows):
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # a library whose K1 takes a scratch pointer after `out` (built for E >= 64)
+    n_ptr = 10 if hasattr(lib, "din_score_scratch_floats") else 9
+    lib.din_score_f32.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    lib.din_score_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.write_rows_f32, lib.add_rows_f32):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
@@ -184,10 +202,56 @@ def k2_commit(dev):
     return table, idx, rows
 
 
+def wide(libs: dict) -> None:
+    """--wide: K3 at WIDE_CASES for each library, checked, then timed in
+    turns (each version, then the same in reverse)."""
+    from dismember_tpu_torch.ops import packed_level_kernel as plk
+
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(cs.SEED + 8)
+    labels = list(libs)
+    for e, dt, b, beam, l in WIDE_CASES:
+        weights = tuple(t.detach() for t in params_from_numpy(
+            cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
+            .scorer_weights())
+        rows, alive = cs.k3_rows(g, b, beam, dev, dt, e)
+        seq_e, pad = cs.seq_inputs(g, b, l, dev, e)
+        ps, ph = plk.packed_level_plain(rows, alive, seq_e, pad, *weights, e)
+        live = ps > cs.NEG_INF / 2
+        alive_f = alive.float()
+        launches, outs = {}, {}
+        for label in labels:
+            sc = torch.empty(b, 2 * beam, device=dev)
+            hl = torch.empty(b, 2 * beam, plk.ID_DIGITS[dt], dtype=dt, device=dev)
+            lib = libs[label]
+            fn = lib.packed_level_bf16_bf16rows if dt == torch.bfloat16 else lib.packed_level_bf16
+            args = [t.data_ptr() for t in (rows, alive_f, seq_e, pad, *weights, sc, hl)]
+            launches[label] = (lambda fn=fn, args=args: _cuda.check_launch(
+                "packed_level", fn(*args, b, beam, rows.shape[2], l, e, stream)))
+            launches[label]()
+            torch.cuda.synchronize()
+            cs.check(torch.equal(cs.bits(hl), cs.bits(ph)), f"{label}: id lanes differ")
+            a = cs.agreement("packed_level", sc[live], ps[live], e)
+            cs.check(a["ok"], f"{label}: K3 at E={e} against its plain version: {a}")
+            outs[label] = (sc, hl)
+        first = outs[labels[0]]
+        same = {label: torch.equal(o[0], first[0]) and torch.equal(cs.bits(o[1]), cs.bits(first[1]))
+                for label, o in outs.items()}
+        case = {"e": e, "rows": "bf16" if dt == torch.bfloat16 else "f32",
+                "shape": [b, beam, rows.shape[2], l, e], "bitwise_equal_to_" + labels[0]: same}
+        for label in labels + labels[::-1]:
+            cs.emit({"kernel": "packed_level", "version": label, **case,
+                     **cs.time_ms(launches[label])})
+        del rows, alive, seq_e, pad, ps, ph, outs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, help="directory holding another version's *.cu")
     ap.add_argument("--probe", action="store_true", help="time K1 and K3 probe variants too")
+    ap.add_argument("--wide", action="store_true",
+                    help="time K3 at E = 64, 96 and 128 against its one-pass grid instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_torch_kernels: CUDA is not available", file=sys.stderr)
@@ -199,14 +263,14 @@ def main() -> int:
     sources = {"new": new_src}
     if args.base:
         sources["base"] = {p.name: p.read_text() for p in sorted(args.base.glob("*.cu"))}
-    if args.probe:
-        for name, edits in PROBES.items():
-            text = new_src["din_kernels.cu"]
-            for old, new in edits:
-                if old not in text:
-                    raise RuntimeError(f"probe {name}: source edit does not apply: {old!r}")
-                text = text.replace(old, new)
-            sources[name] = {**new_src, "din_kernels.cu": text}
+    for name, edits in (PROBES.items() if args.probe else
+                        WIDE_PROBES.items() if args.wide else ()):
+        text = new_src["din_kernels.cu"]
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"probe {name}: source edit does not apply: {old!r}")
+            text = text.replace(old, new)
+        sources[name] = {**new_src, "din_kernels.cu": text}
     procs = {label: build(label, src) for label, src in sources.items()}
     for label, proc in procs.items():
         log = proc.communicate()[0]
@@ -218,6 +282,9 @@ def main() -> int:
                     for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E",
                               "ILb1EfLi16EE", "ILb1E13__nv_bfloat16Li16EE")}})
     libs = {label: load(label) for label in sources}
+    if args.wide:
+        wide(libs)
+        return 0
 
     if args.base:
         old, new = sass("base"), sass("new")
@@ -252,8 +319,9 @@ def main() -> int:
              torch.randn(cs.SPIKE_ROWS, ROW, generator=g, device=dev))
 
     def k1(lib):
+        scratch = (None,) if hasattr(lib, "din_score_scratch_floats") else ()  # none at E = 16
         return lambda: _cuda.check_launch("din_score", lib.din_score_f32(
-            *k1_args, logits.data_ptr(), B, 2 * BEAM, L, E, stream))
+            *k1_args, logits.data_ptr(), *scratch, B, 2 * BEAM, L, E, stream))
 
     def k3(lib):
         return lambda: _cuda.check_launch("packed_level", lib.packed_level_bf16(

@@ -5,10 +5,14 @@ protocol, for each scorer and seed: the reference the port's
 Protocol: configs/tdm.conf's trainer (E = 16, lr 1e-4, batch 8192, its
 negatives, beam 20, top-10), dense Adam, 2000 iterations on the category
 tree of data/example_data.csv, then ``evaluate`` on the whole eval split.
-One JSON line a run, then one with each model's mean recall.
+``--embed`` and ``--lr`` change the width and the learning rate: ``--embed
+64 --lr 3e-3 --models din`` is stage 1 of scripts/quality_push.py's e64x6k
+cut to 2000 iterations (``chip_smoke.py``'s ``JAX_RECALL_E64``).  One JSON
+line a run, then one with each model's mean recall.
 
-Usage (the CPU; ~40 s a run):
+Usage (the CPU; ~40 s a run at E = 16):
     python scripts/jax_reference_recall.py [--iters 2000] [--models din,deepfm] [--seeds 0,1,2]
+        [--embed 16] [--lr 1e-4]
 """
 
 import argparse
@@ -42,6 +46,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=2000)
     ap.add_argument("--models", default="din,deepfm")
     ap.add_argument("--seeds", default="0,1,2")
+    ap.add_argument("--embed", type=int, default=16)
+    ap.add_argument("--lr", type=float, default=1e-4)
     args = ap.parse_args()
     raw = read_csv(os.path.join(ROOT, "data", "example_data.csv"))
     s = generate_split_samples(user_interactions(raw), 10, 2, 0.8)
@@ -55,7 +61,8 @@ def main() -> None:
         recalls = []
         for seed in (int(x) for x in args.seeds.split(",")):
             t0 = time.perf_counter()
-            tr = TDMTrainer(tree=tree, model_type=model, embed_size=16, learning_rate=1e-4,
+            tr = TDMTrainer(tree=tree, model_type=model, embed_size=args.embed,
+                            learning_rate=args.lr,
                             total_batch_size=8192, total_eval_batch_size=8192,
                             layer_neg_counts=NEG, topk=10, beam_size=20, seed=seed,
                             sparse_embed_update=False)
@@ -65,6 +72,7 @@ def main() -> None:
             c = max(ev.count, 1)
             recalls.append(ev.recall / c)
             print(json.dumps({"model": model, "seed": seed, "iters": args.iters,
+                              "embed": args.embed, "lr": args.lr,
                               "recall": ev.recall / c, "precision": ev.precision / c,
                               "ndcg": ev.ndcg / c, "eval_windows": ev.count,
                               "seconds": time.perf_counter() - t0}), flush=True)

@@ -19,7 +19,7 @@ from dismember_tpu.index.arraytree import ArrayTree as JArrayTree
 from dismember_tpu.index.tree_io import category_sorted_codes, write_tree
 from dismember_tpu.ops.din_kernel import din_forward_pallas
 from dismember_tpu.ops.packed_level_kernel import packed_level_pallas
-from dismember_tpu.retrieval.packed_beam import make_packed_beam_fn_pallas
+from dismember_tpu.retrieval.packed_beam import build_pair_table, make_packed_beam_fn_pallas
 from dismember_tpu.retrieval.packed_beam import make_packed_tree as j_make_packed_tree
 from dismember_tpu.serving import TDMServing as JTDMServing
 from dismember_tpu_torch.models.din import params_from_numpy
@@ -129,16 +129,23 @@ def test_k3_bf16_rows_score_as_f32_rows_at_width(e):
 
 
 def test_pair_rows_fit_one_128_lane_row_at_every_built_width():
+    """A pair row is one 128-lane row up to E = 32 and, past it, as many as
+    the JAX package's ``build_pair_table`` gives its rows (256 lanes at E =
+    64 and 96, 384 at 128), at every built width and both row dtypes."""
     for e in KERNEL_WIDTHS:
+        emb = jnp.zeros((7, e), jnp.float32)
         for dt, k in packed_level_kernel.ID_DIGITS.items():
-            assert 2 * e + 2 + 2 * k <= pair_row_width(e, dt) == 128
+            jdt = jnp.float32 if dt == torch.float32 else jnp.bfloat16
+            ref = build_pair_table(emb, np.ones(7, bool), np.arange(7, dtype=np.int32), 7, jdt)
+            assert 2 * e + 2 + 2 * k <= pair_row_width(e, dt) == ref.shape[1]
+            assert (pair_row_width(e, dt) == 128) == (e <= 32)
 
 
-@pytest.mark.parametrize("e", [24, 64])
+@pytest.mark.parametrize("e", [24, 48])
 def test_wrapper_refuses_a_width_not_built(e):
     w = params_from_numpy(_params(np.random.default_rng(0), 7, e), device="cpu").scorer_weights()
     rows = torch.zeros(2, 3, pair_row_width(e)).as_subclass(_FakeCuda)
-    with pytest.raises(ValueError, match=r"built for E in \[8, 16, 32\]"):
+    with pytest.raises(ValueError, match=r"built for E in \[8, 16, 32, 64, 96, 128\]"):
         packed_level(rows, torch.ones(2, 3), torch.zeros(2, 4, e), torch.ones(2, 4), *w, e)
 
 
@@ -209,8 +216,9 @@ def test_packed_serving_matches_jax_at_width(tmp_path, small_csv, e):
 
 def test_chip_smoke_reads_every_instance_and_its_cap():
     """chip_smoke's build phase names each K1 and K3 instance from nvcc's
-    report and holds it to its register cap: 64 for K1 and the one-tile K3
-    at E <= 16, 128 at E = 32, 255 for the multi-tile K3."""
+    report (past E = 32 K1's wide kernel and its prologue as one instance)
+    and holds it to its register cap: 64 for K1 and the one-tile K3 at E <=
+    16, 128 at E = 32 and K1 at 64, 255 for the multi-tile K3 and past."""
     import chip_smoke
 
     log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116din_score_kernelILi32ELi10EEEvPKfS2_' for 'sm_90a'
@@ -225,15 +233,24 @@ ptxas info    : Used 56 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112write_kernelILb1EfEEvPT0_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 62 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121din_score_wide_kernelILi96EEEvPKfS2_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119din_prologue_kernelILi96EEEvPKfS2_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers
 """
     usage = chip_smoke.instance_usage(log)
     assert usage == {"K1 E=32": {"registers": 105, "spill_bytes": 8},
-                     "K3 E=8 bf16 one-tile": {"registers": 56, "spill_bytes": 0}}
-    caps = {n: chip_smoke.reg_cap(n) for n in ("K1 E=8", "K1 E=16", "K1 E=32",
-                                               "K3 E=16 f32 one-tile", "K3 E=32 f32 one-tile",
-                                               "K3 E=32 bf16 tiles")}
-    assert caps == {"K1 E=8": 64, "K1 E=16": 64, "K1 E=32": 128, "K3 E=16 f32 one-tile": 64,
-                    "K3 E=32 f32 one-tile": 128, "K3 E=32 bf16 tiles": 255}
+                     "K3 E=8 bf16 one-tile": {"registers": 56, "spill_bytes": 0},
+                     "K1 E=96": {"registers": 120, "spill_bytes": 0}}
+    caps = {n: chip_smoke.reg_cap(n) for n in ("K1 E=8", "K1 E=16", "K1 E=32", "K1 E=64",
+                                               "K1 E=128", "K3 E=16 f32 one-tile",
+                                               "K3 E=32 f32 one-tile", "K3 E=32 bf16 tiles",
+                                               "K3 E=128 bf16 one-tile")}
+    assert caps == {"K1 E=8": 64, "K1 E=16": 64, "K1 E=32": 128, "K1 E=64": 128,
+                    "K1 E=128": 255, "K3 E=16 f32 one-tile": 64, "K3 E=32 f32 one-tile": 128,
+                    "K3 E=32 bf16 tiles": 255, "K3 E=128 bf16 one-tile": 255}
     assert chip_smoke.instance_name("_ZN12_GLOBAL__N_112write_kernelILb0EfEEv") is None
 
 
