@@ -10,8 +10,9 @@ Phases, one JSON line each; any failed check raises and fails the run:
      K1 past E = 32 its wide kernel with its prologue) against its
      register cap (REG_CAPS), and of the row add on an f32 or a bf16 table
      against 64 (past its cap or spilling fails the run), and each K3
-     instance's tensor-core instructions (HMMA) counted in ``cuobjdump
-     -sass`` of the library (none fails the run);
+     instance's and each wide K1's (E >= 64) tensor-core instructions
+     (HMMA or HGMMA) counted in ``cuobjdump -sass`` of the library (none
+     fails the run);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
      ``predict``'s one row of every catalog item, at L=24 on the kernel
@@ -278,9 +279,15 @@ DEEP_ITEMS = 1_000_000
 # weights and embeddings at O(1) scale (embeddings N(0, 1), weights and
 # biases N(0, 0.5)): logits of a few units and a softmax far from uniform,
 # so a kernel that dropped a scale, a bias or a rounding would show.  Past E
-# = 32 the weights' std scales as sqrt(16 / E) (w_std: 0.25, 0.204 and 0.177
-# at E = 64, 96 and 128), so the E-deep sums keep E = 16's scale (logit std
-# ~3 at E = 128).  At 0.5 they grow with E (logit std ~54 at E = 128), and
+# = 16 the weights' std scales as sqrt(16 / E) (w_std: 0.354, 0.25, 0.204 and
+# 0.177 at E = 32, 64, 96 and 128), so the E-deep sums keep E = 16's scale
+# (logit std ~3 at E = 128).  At E = 32 and std 0.5 K3's check (below) is
+# marginal: over 100 fresh draws of [4096, 20] and beam 1,000 on an H100
+# (NVIDIA H100 80GB HBM3, 700 W; scripts/compare_torch_kernels.py
+# --k3-e32-draws) 8 of 200 calls failed it, largest error 0.212 (1.37x the
+# tolerance), K3's errors growing with the logits' scale (std 8.4); at
+# 0.354 none failed, largest 0.089 (0.53x), logit std 3.4.  Past E = 32, at
+# 0.5 they grow with E (logit std ~54 at E = 128), and
 # even at sqrt(32 / E) (~8) the f32 plain version itself misses its float64
 # value by more than K1's tolerance on a few candidates near a zero logit
 # at E = 128 (din_score_plain in float32 against float64 on the CPU), a
@@ -308,6 +315,9 @@ FLIP_SHARE = {8: 1e-3, 16: 1e-3, 32: 5e-3, 64: 5e-3, 96: 1e-2, 128: 1e-2}
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_MMA_FLOP_PER_S = 989e12  # dense
+# f32-accurate products on the tensor cores: 3xTF32 (three TF32 products a
+# product, K1's split at E >= 64) at a third of the dense TF32 rate
+TF32X3_FLOP_PER_S = 495e12 / 3
 SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: time_ms's head start
 OUT = ROOT / "build" / "chip_smoke"
 # configs/tdm.conf's trainer settings
@@ -382,10 +392,11 @@ BF16_ITERS = 30
 # and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
 # scripts/quality_push.py's, the wide phase's), and the registers a thread
 # of each instance may use (their launch bounds): K1 and the one-tile K3 64
-# at E = 8 and 16, 128 at E = 32; K1 128 at E = 64 and 255 past it (one
-# block of 256 threads an SM); the one-tile K3 255 past E = 32 (two blocks
-# of 128 threads an SM at most, by their shared memory); the multi-tile K3
-# 255, the hardware's
+# at E = 8 and 16, 128 at E = 32; the wide K1 128 at E = 64 (two blocks
+# of 256 threads an SM) and 255 past it (one block an SM, by its shared
+# memory: 135 and 211 KB at E = 96 and 128); the one-tile K3 255 past E =
+# 32 (two blocks of 128 threads an SM at most, by their shared memory);
+# the multi-tile K3 255, the hardware's
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
@@ -434,9 +445,9 @@ def check(cond, msg: str) -> None:
 
 
 def w_std(e: int) -> float:
-    """The std of the scorer's weights at width ``e``: W_STD up to E = 32,
+    """The std of the scorer's weights at width ``e``: W_STD up to E = 16,
     W_STD * sqrt(16 / e) past it."""
-    return W_STD if e <= 32 else W_STD * (16 / e) ** 0.5
+    return W_STD if e <= 16 else W_STD * (16 / e) ** 0.5
 
 
 def seed_params(num_index: int, rng: np.random.Generator, e: int = E) -> dict:
@@ -502,12 +513,15 @@ def time_ms(fn, prefix: str = "", iters: int = 100, warmup: int = 5,
     return {f"{prefix}ms{k}": float(v) for k, v in stats.items()}
 
 
-def bound(bytes_moved: int, f32_flops: int = 0, mma_flops: int = 0) -> tuple[float, str]:
+def bound(bytes_moved: int, f32_flops: int = 0, mma_flops: int = 0,
+          tf32x3_flops: int = 0) -> tuple[float, str]:
     """The least time in ms for moving ``bytes_moved`` through HBM and doing
-    ``f32_flops`` on the CUDA cores and ``mma_flops`` on the bf16 tensor
-    cores, and which of bytes and operations sets it."""
+    ``f32_flops`` on the CUDA cores, ``mma_flops`` on the bf16 tensor cores
+    and ``tf32x3_flops`` f32-accurate on the tensor cores (3xTF32), and
+    which of bytes and operations sets it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = f32_flops / F32_FLOP_PER_S + mma_flops / BF16_MMA_FLOP_PER_S
+    t_ops = (f32_flops / F32_FLOP_PER_S + mma_flops / BF16_MMA_FLOP_PER_S
+             + tf32x3_flops / TF32X3_FLOP_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -527,6 +541,29 @@ def din_folded_flops(b: int, u: int, l: int, e: int) -> int:
     term, bias and ReLU 4E, w2 2E and the last bias 1."""
     return (2 * e**3 + b * 2 * l * e * e
             + b * u * (4 * l * e + 6 * l + 2 * e * e + 6 * e + 1))
+
+
+def k1_flops(b: int, u: int, l: int, e: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """K1's operations over [b, u] candidates in its two orders, each as
+    (products, rest): folded (din_folded_flops: M once, ctx_l = M . seq_l a
+    query row, per candidate the scores, sum_l x_l ctx_l and w1[:, :E] .
+    item) and unfolded (M once, per candidate the scores 2LE, att = sum_l
+    p_l seq_l 2LE and h = [item | att] . [w1[:, :E] | M]^T 4E^2).  The rest
+    is the same in both: padding and scale 2L, softmax 4L, att's
+    normalisation, bias and ReLU 4E, w2 2E and the last bias 1.  Both
+    compute the same function; the fold is less work when U > L."""
+    rest = b * u * (6 * l + 6 * e + 1)
+    folded = 2 * e**3 + b * 2 * l * e * e + b * u * (4 * l * e + 2 * e * e)
+    unfolded = 2 * e**3 + b * u * (4 * l * e + 4 * e * e)
+    return (folded, rest), (unfolded, rest)
+
+
+def k1_bound(n_bytes: int, b: int, u: int, l: int, e: int) -> tuple[float, str]:
+    """K1's bound over [b, u] candidates moving ``n_bytes``: its products
+    f32-accurate on the tensor cores (TF32X3_FLOP_PER_S), the rest at the
+    f32 rate, in whichever order (k1_flops) takes less time."""
+    return min((bound(n_bytes, f32_flops=rest, tf32x3_flops=mm)
+                for mm, rest in k1_flops(b, u, l, e)), key=lambda t: t[0])
 
 
 def k3_bound(b: int, beam: int, l: int, e: int,
@@ -617,9 +654,9 @@ def reg_cap(instance: str) -> int:
 
 
 def hmma_counts(lib_path: Path) -> dict:
-    """Tensor-core instructions (HMMA) in each kernel's SASS in the built
-    library, from ``cuobjdump -sass``, keyed by K1's and K3's instance
-    names and the other kernels' plain names."""
+    """Tensor-core instructions (HMMA, and Hopper's warpgroup HGMMA) in each
+    kernel's SASS in the built library, from ``cuobjdump -sass``, keyed by
+    K1's and K3's instance names and the other kernels' plain names."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -628,7 +665,7 @@ def hmma_counts(lib_path: Path) -> dict:
         mangled, body = part.split("\n", 1)
         name = instance_name(mangled) or next(
             (k for k in ("write_kernel",) if k in mangled), mangled.strip())
-        out[name] = out.get(name, 0) + body.count("HMMA")
+        out[name] = out.get(name, 0) + body.count("HMMA") + body.count("HGMMA")
     return out
 
 
@@ -801,7 +838,8 @@ def k3_check(rows, alive, seq_e, pad, weights, e: int = E) -> tuple[torch.Tensor
 
 def k1_times(item_e, seq_e, pad, weights, flush) -> dict:
     """The raw K1 launch warm and cold, its plain version, and the bound
-    (K1's folded operations), at the inputs' width."""
+    (k1_bound; ``f32_core_bound_ms``: the folded operations all on the CUDA
+    cores, K1's earlier bound), at the inputs' width."""
     b, u, e = item_e.shape
     l = seq_e.shape[1]
     out = torch.empty(b, u, device=item_e.device)
@@ -811,10 +849,12 @@ def k1_times(item_e, seq_e, pad, weights, flush) -> dict:
     args.append(None if scratch is None else scratch.data_ptr())
     launch = lambda: _cuda.check_launch("din_score", lib.din_score_f32(  # noqa: E731
         *args, b, u, l, e, stream))
-    by, op = bound(nbytes(item_e, seq_e, pad, *weights, out), din_folded_flops(b, u, l, e))
+    n_bytes = nbytes(item_e, seq_e, pad, *weights, out)
+    by, op = k1_bound(n_bytes, b, u, l, e)
     return dict(**time_ms(launch), **time_ms(launch, "cold_", flush=flush),
                 **time_ms(lambda: din_score_plain(item_e, seq_e, pad, *weights), "plain_"),
-                bound_ms=by, bound_by=op)
+                bound_ms=by, bound_by=op,
+                f32_core_bound_ms=bound(n_bytes, din_folded_flops(b, u, l, e))[0])
 
 
 def k3_times(rows, alive, seq_e, pad, weights, flush, e: int = E) -> dict:
@@ -3453,8 +3493,10 @@ def main() -> int:
     check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
-    no_mma = [n for n in expected if n.startswith("K3") and not hmma.get(n)]
-    check(not no_mma, f"K3 instances whose SASS has no HMMA: {no_mma}")
+    # K3 and the wide K1 (E >= 64, its h product in 3xTF32) on the tensor cores
+    on_mma = {n for n in expected if n.startswith("K3")} | {f"K1 E={e}" for e in WIDE}
+    no_mma = sorted(n for n in on_mma if not hmma.get(n))
+    check(not no_mma, f"instances whose SASS has no HMMA or HGMMA: {no_mma}")
 
     # ---- 3. kernels against their plain versions
     tree_path, ckpt, seqs, facts4, samples, heavy = example_data()  # set-up of the main path

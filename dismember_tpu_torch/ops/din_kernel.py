@@ -16,10 +16,12 @@ seq_l, by linearity), so one thread scores one candidate with ~1.3 kFLOP
 in registers: L scores with padding as a multiply-add, the softmax with one
 reciprocal of its sum, and h from ctx.  At E = 64, 96 and 128 a prologue
 kernel writes [w1[:, :E] | M]^T (M = w1[:, E:] @ att_w) into scratch this
-wrapper allocates (``_cuda.din_scratch``), eight lanes a candidate take
-its scores and an online softmax, and a block computes h = [item | att] .
-[w1[:, :E] | M]^T as a register-tiled f32 product; there the E^2-deep
-products bound it by operations.  The sums run in another order than
+wrapper allocates (``_cuda.din_scratch``); in each block four warps take
+the candidates' scores and an online softmax while four others compute h =
+[item | att] . [w1[:, :E] | M]^T of the chunk before on the tensor cores in
+3xTF32 (each operand split into a TF32 part and its rest, three TF32
+products, f32 sums), which keeps f32 accuracy; there the E^2-deep products
+bound it by operations.  The sums run in another order than
 :func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
 ``KERNEL_WIDTHS``.  Forward only: on CUDA it raises when grad mode is on
 and an input requires grad (the trainers score through the plain version

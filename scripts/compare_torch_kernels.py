@@ -49,16 +49,49 @@ before; the same scores), and ``base`` where given, in turns, after
 checking each version against K3's plain version and the scores and digits
 bit for bit against the tree's.
 
+``--wide-k1`` instead times K1 at E = 64, 96 and 128 (WIDE_K1_CASES: the
+serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
+chip_smoke.py's inputs and weights at each width) for ``base`` where given
+and this tree, in turns, warm and cold, after checking each within K1's
+tolerance of ``din_score_plain``; then this tree's probes (WIDE_K1_PROBES:
+``k1w_empty``, the prologue and a kernel that returns at once;
+``k1w_attention_only``, the product warps skipping the product;
+``k1w_product_only``, the attention warps skipping the attention pass;
+``k1w_no_split``, the product without its splits; ``k1w_two_mma``, two
+mma a k-step instead of three; ``k1w_ldg_items``, candidates read
+through L1; ``k1w_fast_exp``, ``__expf``; ``k1w_no_shfl``, no shuffle
+sums;
+``k1w_12warps``, eight attention warps; ``k1w_span5`` and ``k1w_span8``,
+five and eight positions at once;
+``k1w_buffers4``, four buffers where they fit; ``k1w_chunk32``, h's sums
+restarted every 32 k: the last five compute K1, the others only split its
+time) and
+``torch.matmul`` of the product alone, [B*U, 2E] @ [2E, E] in f32 (TF32
+off), a yardstick of the product's pace that computes no part of K1.  With
+``--base`` it first asserts that the SASS of K1 at E <= 32, of every K3
+instance and of K2 (``write_kernel``, the write and the add) equals the
+base's.
+
+``--k3-e32-draws N`` instead holds this tree's K3 at E = 32 on f32 rows
+against its plain version over N fresh draws of the serving shape [4096,
+20] and of beam 1,000 ([256, 1000], two launches), with the scorer's
+weights at N(0, 0.5) and at N(0, 0.5 sqrt(16 / 32)): per weight scale the
+largest error, the largest share beyond K1's tolerance, the largest error
+over K3's tolerance, the largest error by |logit| band, the logits' std,
+and the f32-scorer control's share (which must fail K3's check).
+
 Every time is the median (p10, p90) of chip_smoke.py's per-call CUDA
 events.  One JSON line per measurement; the card's name and power limit
 first.
 
-Usage: python3 scripts/compare_torch_kernels.py [--base DIR] [--probe | --wide]   (one GPU)
+Usage: python3 scripts/compare_torch_kernels.py [--base DIR]
+           [--probe | --wide | --wide-k1 | --k3-e32-draws N]   (one GPU)
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import re
 import shutil
@@ -117,6 +150,54 @@ PROBES = {
 # --wide's variant: K3 at E >= 64 without its persistent grid
 WIDE_PROBES = {"k3_one_pass_grid": [("constexpr bool kPersistentLevel = E >= 64;",
                                      "constexpr bool kPersistentLevel = false;")]}
+# --wide-k1's probes: this tree's wide K1 with a pass taken out
+WIDE_K1_PROBES = {
+    "k1w_empty": [("  constexpr int kW = wide_weight_floats<E>(), R = kWideRow<E>, NB",
+                   "  if (N > 0) return;\n"
+                   "  constexpr int kW = wide_weight_floats<E>(), R = kWideRow<E>, NB")],
+    "k1w_attention_only": [("      wide_product<E>(sA + buf",
+                            "      if (N < 0) wide_product<E>(sA + buf")],
+    "k1w_product_only": [("      wide_attention<E>(sA + buf",
+                          "      if (N < 0) wide_attention<E>(sA + buf")],
+    # the product without its splits (each operand's bits as both parts)
+    "k1w_no_split": [("  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+                      "  small = __float_as_uint(x - __uint_as_float(big));",
+                      "  big = small = __float_as_uint(x);")],
+    # the product with two mma a k-step, not three (small(A) . big(B) left out)
+    "k1w_two_mma": [("for (int o = 0; o < NT; ++o) mma_tf32(acc[i][o], as[i], bb[o][0], bb[o][1]);",
+                     "for (int o = 0; o < NT; ++o) {}")],
+    # the attention pass's candidates through L1, its exponentials by
+    # __expf, its score sums without shuffles (the last two not K1's
+    # arithmetic: they only split the attention pass's time)
+    "k1w_ldg_items": [("      it[v] = __ldcs(reinterpret_cast<const float4*>(item_e",
+                       "      it[v] = __ldg(reinterpret_cast<const float4*>(item_e")],
+    "k1w_fast_exp": [("      const float a = expf(mx - m);", "      const float a = __expf(mx - m);"),
+                     ("        const float p = expf(x[i] - m);",
+                      "        const float p = __expf(x[i] - m);")],
+    "k1w_no_shfl": [("        d += __shfl_xor_sync(0xffffffffu, d, 1);\n"
+                     "        d += __shfl_xor_sync(0xffffffffu, d, 2);\n"
+                     "        d += __shfl_xor_sync(0xffffffffu, d, 4);\n"
+                     "        x[i] = l0 + i >= L",
+                     "        x[i] = l0 + i >= L")],
+    # eight attention warps beside the four product warps (384 threads)
+    "k1w_12warps": [("constexpr int kWideThreads = 256;", "constexpr int kWideThreads = 384;")],
+    # five positions at once in the attention pass (two spans at L = 10)
+    "k1w_span5": [("constexpr int kWideSpan = 4;", "constexpr int kWideSpan = 5;")],
+    # eight positions at once in the attention pass, not four
+    "k1w_span8": [("constexpr int kWideSpan = 4;", "constexpr int kWideSpan = 8;")],
+    # four buffers of [item | att] where they fit (E <= 96)
+    "k1w_buffers4": [("constexpr int kWideBuffers = 2;",
+                      "constexpr int kWideBuffers = E <= 96 ? 4 : 2;")],
+    # h's partial sums restarted every 32 k, not 16 (half the adds)
+    "k1w_chunk32": [("constexpr int kWideChunk = 16;", "constexpr int kWideChunk = 32;")],
+}
+# --wide-k1's K1 cases: (E, batch, candidates a row, L)
+WIDE_K1_CASES = [(e, b, u, l) for e in (64, 96, 128)
+                 for b, u, l in ((B, 2 * BEAM, L), (cs.SWEEP_ROWS, cs.SWEEP_U, L),
+                                 (B, 2 * BEAM, 24))]
+# --k3-e32-draws: the beam past one launch (chip_smoke.k3_wide_cases's at E =
+# 32) and the |logit| bands the largest errors are read in
+K3_DRAW_PAST, K3_DRAW_BANDS = (256, 1000), (0.0, 1.0, 2.0, 5.0, 10.0, float("inf"))
 # --wide's K3 cases: (E, row dtype, batch, beam, L)
 WIDE_CASES = [(e, dt, B, beam, l) for e in (64, 96, 128)
               for dt, beam, l in ((torch.float32, 20, 10), (torch.float32, 110, 10),
@@ -139,6 +220,8 @@ def load(label: str) -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     # a library whose K1 takes a scratch pointer after `out` (built for E >= 64)
     n_ptr = 10 if hasattr(lib, "din_score_scratch_floats") else 9
+    if n_ptr == 10:
+        lib.din_score_scratch_floats.argtypes = [ctypes.c_int]
     lib.din_score_f32.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     for fn in (lib.write_rows_f32, lib.add_rows_f32):
@@ -148,7 +231,11 @@ def load(label: str) -> ctypes.CDLL:
 
 
 def sass(label: str) -> dict[str, list[str]]:
-    """Each kernel's SASS instructions, addresses and constants masked."""
+    """Each kernel's SASS instructions, addresses and constants masked and
+    its branch labels numbered from 0 (cuobjdump numbers them across the
+    whole library, so one kernel's branches shift every later kernel's),
+    keyed by its mangled name from the kernel's own name on (nvcc names a
+    file's anonymous namespace after the file)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(OUT / label / "lib.so")], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -157,7 +244,11 @@ def sass(label: str) -> dict[str, list[str]]:
         name, body = part.split("\n", 1)
         ins = [re.sub(r"0x[0-9a-f]+", "X", ln.split("*/", 1)[1].split(";")[0]).strip()
                for ln in body.splitlines() if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
-        out[name.strip()] = ins
+        labels: dict[str, str] = {}
+        m = re.search(r"(din_score_kernel|din_score_wide_kernel|din_prologue_kernel|"
+                      r"packed_level_kernel|write_kernel)\w*", name)
+        out[m[0] if m else name.strip()] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
+            m[0], f".L_{len(labels)}"), i) for i in ins]
     return out
 
 
@@ -246,12 +337,154 @@ def wide(libs: dict) -> None:
         del rows, alive, seq_e, pad, ps, ph, outs
 
 
+def sass_outside_wide_k1(old: dict, new: dict) -> bool:
+    """Whether every kernel of the base library but the wide K1 and its
+    prologue (K1 at E <= 32, every K3 instance, K2's write_kernel) has the
+    same SASS in the new one; the first differing instruction of each that
+    differs is printed."""
+    groups, diffs = {}, {}
+    for name, ins in old.items():
+        inst = cs.instance_name(name)
+        if inst and inst.startswith("K1") and int(inst.split("=")[1]) >= 64:
+            continue
+        group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
+        if group is None:
+            continue
+        other = new.get(name)
+        groups.setdefault(group, []).append(other == ins)
+        if other != ins and other is not None:
+            i = next((i for i, (a, b) in enumerate(zip(ins, other)) if a != b),
+                     min(len(ins), len(other)))
+            diffs[name] = {"at": i, "lengths": [len(ins), len(other)],
+                           "base": ins[i:i + 2], "new": other[i:i + 2]}
+    same = set(groups) == {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
+    cs.emit({"sass_identical": {g: all(v) for g, v in groups.items()}, "all": same,
+             "functions": {g: len(v) for g, v in groups.items()},
+             "first_diffs": dict(list(diffs.items())[:4])})
+    return same
+
+
+def wide_k1(libs: dict) -> None:
+    """--wide-k1: K1 at WIDE_K1_CASES for each library, checked against its
+    plain version (probes excepted), then timed in turns, the probes and
+    the product's matmul after."""
+    from dismember_tpu_torch.ops.din_kernel import din_score_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the matmul yardstick in f32
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(64 << 20, device=dev)
+    versions = [v for v in ("base", "new") if v in libs]
+    probes = [v for v in libs if v in WIDE_K1_PROBES]
+    for e, b, u, l in WIDE_K1_CASES:
+        g = torch.Generator().manual_seed(cs.SEED + 40 + e)
+        weights = tuple(t.detach() for t in params_from_numpy(
+            cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
+            .scorer_weights())
+        item_e = torch.randn(b, u, e, generator=g) * cs.EMB_STD
+        item_e[torch.rand(b, u, generator=g) < 0.1] = 0.0
+        item_e = item_e.to(dev)
+        seq_e, pad = cs.seq_inputs(g, b, l, dev, e)
+        ref = din_score_plain(item_e, seq_e, pad, *weights)
+        case = {"e": e, "shape": [b, u, l, e]}
+        launches = {}
+        for label in versions + probes:
+            lib = libs[label]
+            out = torch.empty(b, u, device=dev)
+            scratch = torch.empty(lib.din_score_scratch_floats(e), device=dev)
+            args = [t.data_ptr() for t in (item_e, seq_e, pad, *weights, out, scratch)]
+            launches[label] = (lambda lib=lib, args=args: _cuda.check_launch(
+                "din_score", lib.din_score_f32(*args, b, u, l, e, stream)))
+            launches[label]()
+            torch.cuda.synchronize()
+            if label in versions:
+                a = cs.agreement("din_score", out, ref, e)
+                cs.check(a["ok"], f"{label}: K1 at {case['shape']} against its plain version: {a}")
+                cs.emit({"kernel": "din_score", "version": label, "check": a, **case})
+        for label in versions + versions[::-1]:
+            cs.emit({"kernel": "din_score", "version": label, **case, **cs.time_ms(launches[label]),
+                     **cs.time_ms(launches[label], "cold_", flush=flush)})
+        for label in probes:
+            cs.emit({"kernel": "din_score", "version": label, **case,
+                     **cs.time_ms(launches[label])})
+        a2 = torch.randn(b * u, 2 * e, device=dev)
+        b2 = torch.randn(2 * e, e, device=dev)
+        cs.emit({"kernel": "matmul_f32", "version": "torch.matmul [B*U, 2E] @ [2E, E]", **case,
+                 **cs.time_ms(lambda: torch.matmul(a2, b2))})
+        n_bytes = cs.nbytes(item_e, seq_e, pad, *weights, ref)
+        by, op = cs.k1_bound(n_bytes, b, u, l, e)
+        cs.emit({"bound": "din_score", **case, "bound_ms": by, "bound_by": op,
+                 "f32_core_bound_ms": cs.bound(n_bytes, cs.din_folded_flops(b, u, l, e))[0]})
+        del item_e, seq_e, pad, ref, launches, a2, b2
+
+
+def k3_e32_draws(n: int) -> None:
+    """--k3-e32-draws: K3 at E = 32 on f32 rows over ``n`` fresh draws a
+    weight scale, through its wrapper (beam 1,000 split at the card's
+    limit), against its plain version."""
+    from dismember_tpu_torch.ops import packed_level_kernel as plk
+    from dismember_tpu_torch.ops.din_kernel import din_score
+
+    dev, e = torch.device("cuda", 0), 32
+    k1_atol, k1_rtol = cs.TOL["din_score"]
+    atol, rtol = cs.TOL["packed_level"]
+    for std in (cs.W_STD, cs.W_STD * (16 / e) ** 0.5):
+        worst = {"max_abs_err": 0.0, "max_share_beyond_f32_tol": 0.0, "max_err_over_tol": 0.0,
+                 "bands": [0.0] * (len(K3_DRAW_BANDS) - 1), "logit_std": [],
+                 "control_min_share": 1.0, "fails": 0}
+        for d in range(n):
+            rng = np.random.default_rng(cs.SEED + 1000 + d)
+            params = cs.seed_params(7, rng, e)
+            for k, v in (("att_linear", "weight"), ("mlp1", "weight"), ("mlp1", "bias"),
+                         ("mlp2", "weight"), ("mlp2", "bias")):
+                params[k][v] = (rng.standard_normal(params[k][v].shape) * std).astype(np.float32)
+            weights = tuple(t.detach() for t in params_from_numpy(params, device=dev)
+                            .scorer_weights())
+            g = torch.Generator().manual_seed(cs.SEED + 1000 + d)
+            for bb, beam in ((B, BEAM), K3_DRAW_PAST):
+                rows, alive = cs.k3_rows(g, bb, beam, dev, torch.float32, e)
+                seq_e, pad = cs.seq_inputs(g, bb, L, dev, e)
+                ks, _ = plk.packed_level(rows, alive, seq_e, pad, *weights, e)
+                ps, _ = plk.packed_level_plain(rows, alive, seq_e, pad, *weights, e)
+                live = ps > cs.NEG_INF / 2
+                got, ref = ks[live], ps[live]
+                err = (got - ref).abs()
+                a = cs.agreement("packed_level", got, ref, e)
+                worst["fails"] += not a["ok"]
+                worst["max_abs_err"] = max(worst["max_abs_err"], a["max_abs_err"])
+                worst["max_share_beyond_f32_tol"] = max(worst["max_share_beyond_f32_tol"],
+                                                        a["share_beyond_f32_tol"])
+                worst["max_err_over_tol"] = max(worst["max_err_over_tol"],
+                                                (err / (atol + rtol * ref.abs())).max().item())
+                for i, (lo, hi) in enumerate(zip(K3_DRAW_BANDS, K3_DRAW_BANDS[1:])):
+                    band = (ref.abs() >= lo) & (ref.abs() < hi)
+                    if band.any():
+                        worst["bands"][i] = max(worst["bands"][i], err[band].max().item())
+                worst["logit_std"].append(ref.std().item())
+                if beam == BEAM:  # K1's f32 scorer in K3's place must fail K3's check
+                    blk = torch.cat([rows[..., :e], rows[..., e:2 * e]], dim=1).contiguous()
+                    c = din_score(blk, seq_e, pad, *weights)[live]
+                    share = ((c - ref).abs() > k1_atol + k1_rtol * ref.abs()).float().mean().item()
+                    worst["control_min_share"] = min(worst["control_min_share"], share)
+                del rows, alive, seq_e, pad, ks, ps
+        stds = worst.pop("logit_std")
+        cs.emit({"k3_e32_draws": n, "weight_std": std, "shapes": [[B, BEAM, L], [*K3_DRAW_PAST, L]],
+                 "tolerance": cs.TOL["packed_level"], "flip_share": cs.FLIP_SHARE[e],
+                 "bands": list(zip(K3_DRAW_BANDS, K3_DRAW_BANDS[1:])),
+                 "logit_std_mean": float(np.mean(stds)), "logit_std_max": float(np.max(stds)),
+                 **worst})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", type=Path, help="directory holding another version's *.cu")
     ap.add_argument("--probe", action="store_true", help="time K1 and K3 probe variants too")
     ap.add_argument("--wide", action="store_true",
                     help="time K3 at E = 64, 96 and 128 against its one-pass grid instead")
+    ap.add_argument("--wide-k1", action="store_true",
+                    help="time K1 at E = 64, 96 and 128 and its probes instead")
+    ap.add_argument("--k3-e32-draws", type=int, metavar="N",
+                    help="hold K3 at E = 32 over N fresh draws a weight scale instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_torch_kernels: CUDA is not available", file=sys.stderr)
@@ -259,12 +492,16 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.k3_e32_draws:
+        _cuda.library()
+        k3_e32_draws(args.k3_e32_draws)
+        return 0
     new_src = {p.name: p.read_text() for p in _cuda.SOURCES}
     sources = {"new": new_src}
     if args.base:
         sources["base"] = {p.name: p.read_text() for p in sorted(args.base.glob("*.cu"))}
-    for name, edits in (PROBES.items() if args.probe else
-                        WIDE_PROBES.items() if args.wide else ()):
+    for name, edits in (PROBES.items() if args.probe else WIDE_PROBES.items() if args.wide
+                        else WIDE_K1_PROBES.items() if args.wide_k1 else ()):
         text = new_src["din_kernels.cu"]
         for old, new in edits:
             if old not in text:
@@ -280,10 +517,24 @@ def main() -> int:
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
                  **{f"k3{k}": cs.ptxas_usage(log, f"packed_level_kernel{k}")
                     for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E",
-                              "ILb1EfLi16EE", "ILb1E13__nv_bfloat16Li16EE")}})
+                              "ILb1EfLi16EE", "ILb1E13__nv_bfloat16Li16EE")},
+                 **{f"k1_wide_e{e}": cs.ptxas_usage(log, f"din_score_wide_kernelILi{e}E")
+                    for e in (64, 96, 128)}})
     libs = {label: load(label) for label in sources}
     if args.wide:
         wide(libs)
+        return 0
+    if args.wide_k1:
+        ops = {}
+        for name, ins in sass("new").items():
+            m = re.match(r"din_score_wide_kernelILi(\d+)E", name)
+            if m:
+                ops[m[1]] = dict(collections.Counter(
+                    i.split()[i.startswith("@")].split(".")[0] for i in ins if i).most_common())
+        cs.emit({"sass_opcodes": "din_score_wide_kernel", **ops})
+        same = sass_outside_wide_k1(sass("base"), sass("new")) if args.base else True
+        wide_k1(libs)
+        cs.check(same, "SASS outside the wide K1 differs from the base's")
         return 0
 
     if args.base:
