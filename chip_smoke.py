@@ -11,8 +11,8 @@ Phases, one JSON line each; any failed check raises and fails the run:
      register cap (REG_CAPS), and of the row add on an f32 or a bf16 table
      against 64 (past its cap or spilling fails the run), and each K3
      instance's and each wide K1's (E >= 64) tensor-core instructions
-     (HMMA or HGMMA) counted in ``cuobjdump -sass`` of the library (none
-     fails the run);
+     (HMMA and HGMMA) counted in ``cuobjdump -sass`` of the library (none
+     fails the run, and so does a wide K3 instance without HGMMA);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
      ``predict``'s one row of every catalog item, at L=24 on the kernel
@@ -133,8 +133,8 @@ Phases, one JSON line each; any failed check raises and fails the run:
      widths; weights' std scaled as w_std says) against their plain
      versions, uncounted: K1 at [4096, 40], [8192, 4], [8192, 2], predict's
      row and [4096, 40] at L = 24, K3 on f32 and bf16 rows at [4096, 20]
-     with the f32-scorer control failing, beam 110, L = 24 and a beam past
-     one launch (kernels_at_width); then, counted, the recipe through
+     with the f32-scorer control failing, beam 110, L = 24 and beam 1,000
+     in one launch (kernels_at_width); then, counted, the recipe through
      scripts/quality_push_torch.py at each width (WIDE_ITERS iterations a
      stage: category tree -> re-cluster -> retrain -> JTM -> retrain, every
      K1 call audited), the learned tree served on the packed route from f32
@@ -394,16 +394,18 @@ BF16_ITERS = 30
 # of each instance may use (their launch bounds): K1 and the one-tile K3 64
 # at E = 8 and 16, 128 at E = 32; the wide K1 128 at E = 64 (two blocks
 # of 256 threads an SM) and 255 past it (one block an SM, by its shared
-# memory: 135 and 211 KB at E = 96 and 128); the one-tile K3 255 past E =
-# 32 (two blocks of 128 threads an SM at most, by their shared memory);
-# the multi-tile K3 255, the hardware's
+# memory: 135 and 211 KB at E = 96 and 128); the multi-tile K3 255 up to
+# E = 32; past it K3's warpgroup plan 168 where a block holds three
+# warpgroups (one sequence tile at E = 96 and, on bf16 rows, at 128; more
+# at E = 64), else 255; a key with the row type overrides one without
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
             ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
-            **{("one-tile", e): 64 if e <= 16 else 128 if e == 32 else 255
+            **{("one-tile", e): 64 if e <= 16 else 128 if e == 32 else 168 if e == 96 else 255
                for e in (8, 16, 32, *WIDE)},
-            **{("tiles", e): 255 for e in (8, 16, 32, *WIDE)}}
+            ("one-tile", 128, "bf16"): 168,
+            **{("tiles", e): 168 if e == 64 else 255 for e in (8, 16, 32, *WIDE)}}
 WIDTH_STEPS = 10  # the E = 32 trainer's timed pmv steps at 1M items
 # the deepfm phase's 1M trainer: timed pmv steps, then steps whose every K2
 # commit is audited; the relative score gap a near tie between DeepFM's
@@ -622,7 +624,7 @@ def instance_name(mangled: str) -> str | None:
                   r"din_(?:score_wide|prologue)_kernelILi(\d+)EE", mangled)
     if m:
         return f"K1 E={m[1] or m[2]}"
-    m = re.search(r"packed_level_kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
+    m = re.search(r"packed_level_(?:wgmma_)?kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
     if m:
         return (f"K3 E={m[3]} {'f32' if m[2] == 'f' else 'bf16'} "
                 f"{'one-tile' if m[1] == '1' else 'tiles'}")
@@ -650,13 +652,17 @@ def instance_usage(log: str) -> dict:
 def reg_cap(instance: str) -> int:
     """REG_CAPS of an instance_name."""
     parts = instance.split()
-    return REG_CAPS[parts[0] if parts[0] == "K1" else parts[-1], int(parts[1][2:])]
+    if parts[0] == "K1":
+        return REG_CAPS["K1", int(parts[1][2:])]
+    key = (parts[-1], int(parts[1][2:]))
+    return REG_CAPS.get((*key, parts[2]), REG_CAPS[key])
 
 
-def hmma_counts(lib_path: Path) -> dict:
-    """Tensor-core instructions (HMMA, and Hopper's warpgroup HGMMA) in each
-    kernel's SASS in the built library, from ``cuobjdump -sass``, keyed by
-    K1's and K3's instance names and the other kernels' plain names."""
+def mma_counts(lib_path: Path) -> dict:
+    """Tensor-core instructions in each kernel's SASS in the built library,
+    from ``cuobjdump -sass``: {"HMMA": n, "HGMMA": n} (mma.sync's, and
+    Hopper's warpgroup wgmma's) keyed by K1's and K3's instance names and the
+    other kernels' plain names."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -665,8 +671,24 @@ def hmma_counts(lib_path: Path) -> dict:
         mangled, body = part.split("\n", 1)
         name = instance_name(mangled) or next(
             (k for k in ("write_kernel",) if k in mangled), mangled.strip())
-        out[name] = out.get(name, 0) + body.count("HMMA") + body.count("HGMMA")
+        n = out.setdefault(name, {"HMMA": 0, "HGMMA": 0})
+        n["HMMA"] += body.count("HMMA")
+        n["HGMMA"] += body.count("HGMMA")
     return out
+
+
+def tensor_core_gate(counts: dict) -> list[str]:
+    """The instances that fail the build's tensor-core gate (mma_counts):
+    every K3 instance and every wide K1 (E >= 64, its h product in 3xTF32)
+    must hold HMMA or HGMMA, and every wide K3 instance HGMMA (its weight
+    products on wgmma)."""
+    expected = {f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
+                for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in WIDE}
+    none = {"HMMA": 0, "HGMMA": 0}
+    return sorted(n for n in expected
+                  if not sum(counts.get(n, none).values())
+                  or n.startswith("K3") and int(n.split()[1][2:]) in WIDE
+                  and not counts.get(n, none)["HGMMA"])
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -2662,15 +2684,15 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
                   flush: torch.Tensor) -> dict:
     """K3 at width ``e`` on ``dt`` rows past the serving shape, against its
     plain version: beam 110 (the example catalog's widest recommend) and L =
-    24 (two sequence tiles), both timed, and a beam past one launch in two
-    launches (E = 32: 1,000, ~746 f32 parents fitting one launch at L <= 16
-    on an H100; past it half the width's single-launch limit more), with
-    that limit."""
+    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000]: at E
+    = 32 in two launches (~746 f32 parents fit one launch at L <= 16 on an
+    H100), past it in one (the warpgroup plan's shared memory does not grow
+    with the beam), with the single-launch limit."""
     lib = _cuda.library()
     limit = (lib.packed_level_max_beam_bf16rows if dt == torch.bfloat16
              else lib.packed_level_max_beam)(SEQ_LEN, e)
     check(limit >= BEAM, f"K3 at E={e}: one launch takes {limit} parents at L={SEQ_LEN}")
-    past = 1000 if e == 32 else limit + limit // 2
+    past = 1000
     wide = {}
     for bb, beam, ll, timed in ((BATCH, 110, SEQ_LEN, True), (256, past, SEQ_LEN, False),
                                 (BATCH, BEAM, 24, True)):
@@ -2684,7 +2706,7 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
             **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
         del rows, alive, s_e, s_pad
     launches = wide[f"beam{past}_l{SEQ_LEN}"]["launches"]
-    check(launches == -(-past // limit) >= 2,
+    check(launches == -(-past // limit) and (launches == 1) == (e in WIDE),
           f"beam {past} at E={e}: {launches} launches at the width's limit ({limit})")
     return {"wide": wide, "max_beam_l10": limit}
 
@@ -3476,11 +3498,11 @@ def main() -> int:
     # template arguments as nvcc mangles them: <kAdd, T>
     add_usage = {dt: ptxas_usage(log, f"write_kernelILb1E{m}E")
                  for dt, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"))}
-    hmma = hmma_counts(lib_path)
+    mma = mma_counts(lib_path)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
           "instances": {n: {**u, "register_cap": reg_cap(n)} for n, u in sorted(usage.items())},
-          "add_ptxas": add_usage, "sass_hmma": hmma})
+          "add_ptxas": add_usage, "sass_mma": mma})
     # every K1 and K3 instance within its register cap (K1 and the one-tile
     # K3 at E <= 16: 64, so the serving batch's blocks fit the card in one
     # wave) and no spill; every K3 instance on the tensor cores
@@ -3493,10 +3515,9 @@ def main() -> int:
     check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
-    # K3 and the wide K1 (E >= 64, its h product in 3xTF32) on the tensor cores
-    on_mma = {n for n in expected if n.startswith("K3")} | {f"K1 E={e}" for e in WIDE}
-    no_mma = sorted(n for n in on_mma if not hmma.get(n))
-    check(not no_mma, f"instances whose SASS has no HMMA or HGMMA: {no_mma}")
+    # K3 and the wide K1 on the tensor cores, the wide K3 on wgmma
+    no_mma = tensor_core_gate(mma)
+    check(not no_mma, f"instances without their tensor-core instructions (HMMA, HGMMA): {no_mma}")
 
     # ---- 3. kernels against their plain versions
     tree_path, ckpt, seqs, facts4, samples, heavy = example_data()  # set-up of the main path

@@ -41,13 +41,18 @@ per probability instead of one reciprocal a row).  The probes other than
 ``div``, ``k1_regs48`` and ``k1_head_unroll2`` compute wrong scores and
 only split the time.
 
-``--wide`` instead times K3 at E = 64, 96 and 128 (f32 rows at beam 20
-and 110, L = 10, and beam 20 at L = 24; bf16 rows at beam 20; chip_smoke.py's
-inputs and weights at each width) for this tree and ``k3_one_pass_grid``, the
-tree with its persistent grid off (one block a group of query rows, as
-before; the same scores), and ``base`` where given, in turns, after
-checking each version against K3's plain version and the scores and digits
-bit for bit against the tree's.
+``--wide`` instead times K3 at E = 64, 96 and 128 (WIDE_CASES: f32 and
+bf16 rows at [4096, 20, L 10], beam 110 and L = 24; chip_smoke.py's
+inputs and weights at each width) for ``base`` where given and this tree,
+in turns, warm and cold, after checking each against K3's plain version
+(K3's tolerance and flip share, id digits and the dead mask bit for bit;
+``bitwise_equal_to_...`` says whether the scores equal the first
+version's), then this tree's variants (WIDE_PROBES: two design steps,
+checked as the versions are, and probes that split the time), warm, and
+each case's bound.  With ``--base`` it first asserts that the SASS of K1
+(every width), of K3 at E <= 32 and of K2 (``write_kernel``, the write and
+the add) equals the base's; it prints the wide K3 instances' HMMA and
+HGMMA counts.
 
 ``--wide-k1`` instead times K1 at E = 64, 96 and 128 (WIDE_K1_CASES: the
 serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
@@ -147,9 +152,45 @@ PROBES = {
             ("for (int i = 0; i < 2; ++i) s[j][2 * h + i] *= inv;",
              "for (int i = 0; i < 2; ++i) s[j][2 * h + i] /= sum_q;")],
 }
-# --wide's variant: K3 at E >= 64 without its persistent grid
-WIDE_PROBES = {"k3_one_pass_grid": [("constexpr bool kPersistentLevel = E >= 64;",
-                                     "constexpr bool kPersistentLevel = false;")]}
+# --wide's variants of this tree's K3 at E >= 64 (packed_level_wgmma_kernel).
+# Two design steps taken back, computing K3 and checked as the versions
+# are: k3w_wg2, two warpgroups a block at every width; k3w_att_scalar,
+# att's B fragments read a lane at a time (no att_k order).  Probes that
+# only split the time (wrong scores): k3w_empty, the weights filled and no
+# tile; k3w_loads_only, the tiles' loads and stores without the per-query
+# part or the weight products; k3w_no_attention, without the per-query
+# part (att zero, no sequence read); k3w_no_wgmma, without the weight
+# products (h zero).
+K3W_GROUPS = ("    kOneTile && (E == 96 || E == 128 && sizeof(Row) == 2) || E == 64 && !kOneTile "
+              "? 3 : 2;")
+K3W_ATTENTION = ("    tile_attention<kOneTile, E>(acc, a_item, seq_e + (size_t)b * L * E, "
+                 "pad + (size_t)b * L, L,\n                                g, t);")
+K3W_PRODUCTS = "    wg_products<E>(h, ae, a_item, w);"
+K3W_NO_PRODUCTS = ("    zero(h);\n    h[0][0] = __uint_as_float(ae[0][0] ^ ae[kK - 1][3] ^ "
+                   "a_item[0][0] ^ a_item[kK - 1][3]);")
+WIDE_PROBES = {
+    "k3w_wg2": [(K3W_GROUPS, "    2;")],
+    "k3w_att_scalar": [
+        ("      const float* p = att_w + n * E + kc / 2 * 16 + kc % 2;\n#pragma unroll\n"
+         "      for (int q = 0; q < 8; ++q) v[q] = __ldg(p + 2 * q);",
+         "      for (int q = 0; q < 8; ++q) v[q] = __ldg(att_w + n * E + 8 * kc + q);"),
+        ("#pragma unroll\n  for (int s = 0; s < Dims<E>::kK; ++s) {\n"
+         "    const float2 a = at(l0, s), b = at(l0 + 1, s), "
+         "c = at(l0 + 8, s), d = at(l0 + 9, s);\n"
+         "    f.at[2 * s] = make_uint2(bf16x2(a.x, b.x), bf16x2(c.x, d.x));\n"
+         "    f.at[2 * s + 1] = make_uint2(bf16x2(a.y, b.y), bf16x2(c.y, d.y));\n  }",
+         "  const auto at1 = [&](int l, int n) { return l < L ? __ldg(seq + l * E + n) : 0.f; };\n"
+         "#pragma unroll\n  for (int j = 0; j < Dims<E>::kN; ++j) {\n    const int n = 8 * j + g;\n"
+         "    f.at[j] = make_uint2(bf16x2(at1(l0, n), at1(l0 + 1, n)), "
+         "bf16x2(at1(l0 + 8, n), at1(l0 + 9, n)));\n  }")],
+    "k3w_empty": [("  const float bias2 = __ldg(b2);\n",
+                   "  const float bias2 = __ldg(b2);\n  if (B > 0) return;\n")],
+    "k3w_loads_only": [(K3W_ATTENTION, "    zero(acc);"), (K3W_PRODUCTS, K3W_NO_PRODUCTS)],
+    "k3w_no_attention": [(K3W_ATTENTION, "    zero(acc);")],
+    "k3w_no_wgmma": [(K3W_PRODUCTS, K3W_NO_PRODUCTS)],
+}
+# the design steps among them, held to K3's tolerance like the versions
+WIDE_CHECKED = ("k3w_wg2", "k3w_att_scalar")
 # --wide-k1's probes: this tree's wide K1 with a pass taken out
 WIDE_K1_PROBES = {
     "k1w_empty": [("  constexpr int kW = wide_weight_floats<E>(), R = kWideRow<E>, NB",
@@ -199,9 +240,8 @@ WIDE_K1_CASES = [(e, b, u, l) for e in (64, 96, 128)
 # 32) and the |logit| bands the largest errors are read in
 K3_DRAW_PAST, K3_DRAW_BANDS = (256, 1000), (0.0, 1.0, 2.0, 5.0, 10.0, float("inf"))
 # --wide's K3 cases: (E, row dtype, batch, beam, L)
-WIDE_CASES = [(e, dt, B, beam, l) for e in (64, 96, 128)
-              for dt, beam, l in ((torch.float32, 20, 10), (torch.float32, 110, 10),
-                                  (torch.float32, 20, 24), (torch.bfloat16, 20, 10))]
+WIDE_CASES = [(e, dt, B, beam, l) for e in (64, 96, 128) for dt in (torch.float32, torch.bfloat16)
+              for beam, l in ((20, 10), (110, 10), (20, 24))]
 
 
 def build(label: str, sources: dict[str, str]) -> subprocess.Popen:
@@ -246,7 +286,7 @@ def sass(label: str) -> dict[str, list[str]]:
                for ln in body.splitlines() if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
         labels: dict[str, str] = {}
         m = re.search(r"(din_score_kernel|din_score_wide_kernel|din_prologue_kernel|"
-                      r"packed_level_kernel|write_kernel)\w*", name)
+                      r"packed_level_kernel|packed_level_wgmma_kernel|write_kernel)\w*", name)
         out[m[0] if m else name.strip()] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
             m[0], f".L_{len(labels)}"), i) for i in ins]
     return out
@@ -294,14 +334,18 @@ def k2_commit(dev):
 
 
 def wide(libs: dict) -> None:
-    """--wide: K3 at WIDE_CASES for each library, checked, then timed in
-    turns (each version, then the same in reverse)."""
+    """--wide: K3 at WIDE_CASES for each library, the versions and the
+    design steps checked (K3's tolerance against its plain version, digits
+    and the dead mask bit for bit), then timed: the versions in turns (each,
+    then the same in reverse), warm and cold, the variants warm after."""
     from dismember_tpu_torch.ops import packed_level_kernel as plk
 
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(64 << 20, device=dev)
     g = torch.Generator().manual_seed(cs.SEED + 8)
-    labels = list(libs)
+    versions = [v for v in ("base", "new") if v in libs]
+    variants = [v for v in libs if v in WIDE_PROBES]
     for e, dt, b, beam, l in WIDE_CASES:
         weights = tuple(t.detach() for t in params_from_numpy(
             cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
@@ -311,8 +355,10 @@ def wide(libs: dict) -> None:
         ps, ph = plk.packed_level_plain(rows, alive, seq_e, pad, *weights, e)
         live = ps > cs.NEG_INF / 2
         alive_f = alive.float()
+        case = {"e": e, "rows": "bf16" if dt == torch.bfloat16 else "f32",
+                "shape": [b, beam, rows.shape[2], l, e]}
         launches, outs = {}, {}
-        for label in labels:
+        for label in versions + variants:
             sc = torch.empty(b, 2 * beam, device=dev)
             hl = torch.empty(b, 2 * beam, plk.ID_DIGITS[dt], dtype=dt, device=dev)
             lib = libs[label]
@@ -322,30 +368,39 @@ def wide(libs: dict) -> None:
                 "packed_level", fn(*args, b, beam, rows.shape[2], l, e, stream)))
             launches[label]()
             torch.cuda.synchronize()
-            cs.check(torch.equal(cs.bits(hl), cs.bits(ph)), f"{label}: id lanes differ")
-            a = cs.agreement("packed_level", sc[live], ps[live], e)
-            cs.check(a["ok"], f"{label}: K3 at E={e} against its plain version: {a}")
-            outs[label] = (sc, hl)
-        first = outs[labels[0]]
-        same = {label: torch.equal(o[0], first[0]) and torch.equal(cs.bits(o[1]), cs.bits(first[1]))
-                for label, o in outs.items()}
-        case = {"e": e, "rows": "bf16" if dt == torch.bfloat16 else "f32",
-                "shape": [b, beam, rows.shape[2], l, e], "bitwise_equal_to_" + labels[0]: same}
-        for label in labels + labels[::-1]:
+            if label in versions or label in WIDE_CHECKED:
+                cs.check(torch.equal(cs.bits(hl), cs.bits(ph)), f"{label}: id lanes differ")
+                cs.check(torch.equal(sc > cs.NEG_INF / 2, live)
+                         and bool((sc[~live] == ps[~live]).all()), f"{label}: dead mask differs")
+                a = cs.agreement("packed_level", sc[live], ps[live], e)
+                cs.check(a["ok"], f"{label}: K3 at {case} against its plain version: {a}")
+                outs[label] = sc
+                cs.emit({"kernel": "packed_level", "version": label, "check": a, **case})
+        first = outs[versions[0]]
+        case["bitwise_equal_to_" + versions[0]] = {k: torch.equal(o, first)
+                                                   for k, o in outs.items()}
+        for label in versions + versions[::-1]:
+            cs.emit({"kernel": "packed_level", "version": label, **case,
+                     **cs.time_ms(launches[label]),
+                     **cs.time_ms(launches[label], "cold_", flush=flush)})
+        for label in variants:
             cs.emit({"kernel": "packed_level", "version": label, **case,
                      **cs.time_ms(launches[label])})
-        del rows, alive, seq_e, pad, ps, ph, outs
+        by, op = cs.k3_bound(b, beam, l, e, dt)
+        cs.emit({"bound": "packed_level", **case, "bound_ms": by, "bound_by": op})
+        del rows, alive, seq_e, pad, ps, ph, outs, launches
 
 
-def sass_outside_wide_k1(old: dict, new: dict) -> bool:
-    """Whether every kernel of the base library but the wide K1 and its
-    prologue (K1 at E <= 32, every K3 instance, K2's write_kernel) has the
-    same SASS in the new one; the first differing instruction of each that
-    differs is printed."""
+def sass_equal_outside(old: dict, new: dict, redesigned: str) -> bool:
+    """Whether every kernel of the base library (K1, K3 and K2's
+    write_kernel, the write and the add) but those of the redesigned
+    instances ("K1": the wide K1 and its prologue; "K3": the wide K3) has
+    the same SASS in the new one; the first differing instruction of each
+    that differs is printed."""
     groups, diffs = {}, {}
     for name, ins in old.items():
         inst = cs.instance_name(name)
-        if inst and inst.startswith("K1") and int(inst.split("=")[1]) >= 64:
+        if inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) >= 64:
             continue
         group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
         if group is None:
@@ -359,6 +414,7 @@ def sass_outside_wide_k1(old: dict, new: dict) -> bool:
                            "base": ins[i:i + 2], "new": other[i:i + 2]}
     same = set(groups) == {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
     cs.emit({"sass_identical": {g: all(v) for g, v in groups.items()}, "all": same,
+             "outside": f"the wide {redesigned}",
              "functions": {g: len(v) for g, v in groups.items()},
              "first_diffs": dict(list(diffs.items())[:4])})
     return same
@@ -480,7 +536,7 @@ def main() -> int:
     ap.add_argument("--base", type=Path, help="directory holding another version's *.cu")
     ap.add_argument("--probe", action="store_true", help="time K1 and K3 probe variants too")
     ap.add_argument("--wide", action="store_true",
-                    help="time K3 at E = 64, 96 and 128 against its one-pass grid instead")
+                    help="time K3 at E = 64, 96 and 128 and its variants instead")
     ap.add_argument("--wide-k1", action="store_true",
                     help="time K1 at E = 64, 96 and 128 and its probes instead")
     ap.add_argument("--k3-e32-draws", type=int, metavar="N",
@@ -515,14 +571,15 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
-                 **{f"k3{k}": cs.ptxas_usage(log, f"packed_level_kernel{k}")
-                    for k in ("", "ILb1E", "ILb0E", "ILb1EfE", "ILb1E13__nv_bfloat16E",
-                              "ILb1EfLi16EE", "ILb1E13__nv_bfloat16Li16EE")},
-                 **{f"k1_wide_e{e}": cs.ptxas_usage(log, f"din_score_wide_kernelILi{e}E")
-                    for e in (64, 96, 128)}})
+                 **cs.instance_usage(log)})
     libs = {label: load(label) for label in sources}
     if args.wide:
+        tc = {k: v for k, v in cs.mma_counts(OUT / "new" / "lib.so").items()
+              if k.startswith("K3") and int(k.split()[1][2:]) >= 64}
+        cs.emit({"sass_mma": "new", **tc})
+        same = sass_equal_outside(sass("base"), sass("new"), "K3") if args.base else True
         wide(libs)
+        cs.check(same, "SASS outside the wide K3 differs from the base's")
         return 0
     if args.wide_k1:
         ops = {}
@@ -532,7 +589,7 @@ def main() -> int:
                 ops[m[1]] = dict(collections.Counter(
                     i.split()[i.startswith("@")].split(".")[0] for i in ins if i).most_common())
         cs.emit({"sass_opcodes": "din_score_wide_kernel", **ops})
-        same = sass_outside_wide_k1(sass("base"), sass("new")) if args.base else True
+        same = sass_equal_outside(sass("base"), sass("new"), "K1") if args.base else True
         wide_k1(libs)
         cs.check(same, "SASS outside the wide K1 differs from the base's")
         return 0
