@@ -4,7 +4,9 @@
 Phases, one JSON line each; any failed check raises and fails the run:
   1. environment: CUDA required; the card's name and power limit as
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
-  2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a;
+  2. build: the kernels of ``dismember_tpu_torch/csrc`` with nvcc for sm_90a,
+     and the port's host library (``csrc/host_ops.cc``) with g++ (a missing
+     one fails the run: no Python fallback here);
      ptxas's registers and spills of every K1 and K3 instance (E = 8, 16,
      32, 64, 96 and 128; K3 one-tile and multi-tile over f32 and bf16 rows;
      K1 past E = 32 its wide kernel with its prologue) against its
@@ -92,6 +94,7 @@ Phases, one JSON line each; any failed check raises and fails the run:
      pmv trainers on one repeated batch (losses and params within the
      dense tolerances, the first pmv E-step's three K2 calls audited) and
      timed E-steps of each route; the CLI path (dense) launches no kernel;
+     coordinate descent's greedy route, which must be the native select;
   dr_deep: bench.py's DR cells: 1M items served on the block route (auto),
      ms a 4096-window call and the top-10 overlap with the exact route on
      256 queries; the E-step at 10M items (auto route pmv, three K2
@@ -110,6 +113,16 @@ Phases, one JSON line each; any failed check raises and fails the run:
      and pmv) against an uninterrupted run, bitwise; a bf16 embedding table
      (example catalog, mv) twice from one seed, bitwise, with every bf16
      add checked against its plain version and timed beside ``index_add_``;
+  native: the port's host library against the Python forms, host time on
+     the card machine's CPU: bench.py's index-learning cell (100k items,
+     400k rows, streaming coordinate descent) with the native and the
+     Python greedy on one trainer, equal paths, each run's wall and the
+     greedy's share; the tree codec (the example catalog's tree and a
+     2^17-item synthetic one, native and Python writers byte-equal, both
+     readers' arrays equal; the native write and read of the 1M and 10M
+     catalogs' trees timed); example_data.csv through both parsers (equal
+     fields and interactions); the co-occurrence pass against numpy's
+     ``reduceat`` at 200k items x 32, then timed at 1M;
   widths: DIN at E = 32 on the 1M catalog (``recommend_batch(4096)`` on
      the packed route from an f32 and a bf16 pair table, equal lists, every
      K3 level of the f32 route audited, ``predict`` over the catalog; then
@@ -162,8 +175,16 @@ Phases, one JSON line each; any failed check raises and fails the run:
      catalog (every K1 call on the rank's score rows and every add
      audited; projection equal to the single-device sweep's) and,
      at (1, 2), ``DRTrainer(mesh=)``'s E-step bit for bit against the
-     single-device pmv E-step with its three K2 commits audited.  Each
+     single-device pmv E-step with its three K2 commits audited, and the
+     step snapshots of a (1, 2) mv trainer: a run killed after a snapshot
+     and resumed equals the uninterrupted one bit for bit, and rank 0's
+     snapshot equals the single-device trainer's at the same step.  Each
      rank's launches, ms a step and a serving batch, the transport;
+  trace (after every timed phase, so that whatever the profiler leaves
+     behind reaches no other number): one more 1M ``recommend_batch
+     (4096)`` inside ``core.profiling.trace(chiprun_out/trace_torch)``,
+     whose Chrome trace must name K3's kernel; the batch and the host's
+     launch rate timed just before and just after it;
   6. the ``{"kernels": [...]}`` summary: every instance, E = 8, 32, 64, 96
      and 128 among them;
   7. last line ``{"ok": true, "device": {...}}``.
@@ -182,6 +203,7 @@ import contextlib
 import copy
 import json
 import logging
+import os
 import re
 import shutil
 import subprocess
@@ -206,6 +228,8 @@ from dismember_tpu_torch.core.checkpoint import (  # noqa: E402
     save_pytree,
 )
 from dismember_tpu_torch.core import mesh as meshlib, multihost  # noqa: E402
+from dismember_tpu_torch.core import profiling  # noqa: E402
+from dismember_tpu_torch.data import native as host  # noqa: E402
 from dismember_tpu_torch.data.dr_dataset import DRData, build_dr_data  # noqa: E402
 from dismember_tpu_torch.data.ingest import (  # noqa: E402
     read_csv,
@@ -224,6 +248,7 @@ from dismember_tpu_torch.index.paths import PathIndex  # noqa: E402
 from dismember_tpu_torch.index.tree_io import (  # noqa: E402
     build_tree,
     category_sorted_codes,
+    read_tree,
     sink_leaf_codes,
     write_tree,
 )
@@ -262,6 +287,7 @@ from dismember_tpu_torch.train import multiproc, spmd, spmd_sparse  # noqa: E402
 from dismember_tpu_torch.train import otm as otm_train  # noqa: E402
 from dismember_tpu_torch.train import sparse_adam  # noqa: E402
 from dismember_tpu_torch.train.dr import DRTrainer  # noqa: E402
+from dismember_tpu_torch.train.dr_coordinate import coordinate_descent  # noqa: E402
 from dismember_tpu_torch.train.jtm import TreeLearner  # noqa: E402
 from dismember_tpu_torch.train.otm import OTMTrainer  # noqa: E402
 from dismember_tpu_torch.train.tdm import (  # noqa: E402
@@ -435,6 +461,19 @@ JAX_RECALL_E64 = 0.018937993223878267
 # two gloo ranks; the two ranks' time limit
 MESH_PARITY_STEPS, MESH_STEPS, MESH_SERVE_CALLS = 3, 20, 3
 MESH_EXAMPLE_STEPS, MESH_DR_STEPS, MESH_TIMEOUT_S = 5, 5, 600
+# (b)'s step snapshots: a (1, 2) mv run on the example catalog killed after
+# its snapshot at MESH_SNAP_EVERY steps and resumed
+MESH_SNAP_ITERS, MESH_SNAP_KILL, MESH_SNAP_EVERY = 12, 9, 6
+# the native phase: bench.py's index-learning cell (bench.py:387-405: 100k
+# items, 400k rows, 20 candidate paths, batch 8192, streaming); a synthetic
+# 2^17-item tree for the codec's byte check; the co-occurrence pass at
+# scripts/cooc_recall_200k.py's 200k items x 32 (held to the JAX package's
+# test's rtol 1e-4, atol 1e-5: sequential against pairwise sums), then
+# timed at 1M items, on uniform edges, 16 an item
+CD_ITEMS, CD_ROWS, CD_CANDIDATES = 100_000, 400_000, 20
+CODEC_ITEMS = 1 << 17
+COOC_ITEMS, COOC_TIMED_ITEMS, COOC_DIM, COOC_EDGES_PER_ITEM = 200_000, 1_000_000, 32, 16
+COOC_RTOL, COOC_ATOL = 1e-4, 1e-5
 
 
 def emit(obj) -> None:
@@ -2137,7 +2176,11 @@ def dr_example(dev) -> dict:
     with contextlib.chdir(wd):
         run("dr-train-deep-model", "dr-train-deep-model")
         first, ids = PathIndex.read("data/dr_mapping.bin", DR_CONF["num_nodes"])
-        run("dr-coordinate-descent", "dr-coordinate-descent")
+        with log_lines("dismember_tpu_torch.dr_cd") as lines:
+            run("dr-coordinate-descent", "dr-coordinate-descent")
+        cd = cd_walls(lines)
+        check(cd["greedy_route"] == "native",
+              f"dr-coordinate-descent: greedy 'auto' took the {cd['greedy_route']} select")
         learned, ids2 = PathIndex.read("data/dr_mapping.bin", DR_CONF["num_nodes"])
         ip = learned.item_paths
         check(ids2 == ids and ip.shape == first.item_paths.shape
@@ -2195,6 +2238,7 @@ def dr_example(dev) -> dict:
             "items": d.num_items, "train_windows": int(len(d.train_seqs)),
             "eval_windows": int(len(d.eval_seqs)), "auto_route": "dense",
             "stage_seconds": stages, "total_seconds": sum(stages.values()),
+            "coordinate_descent": cd,
             "items_moved_by_cd": int((first.item_paths != ip).any(axis=(1, 2)).sum()),
             "serving": {"windows": BATCH, "host_route_s": host_s, **routes},
             "eval": {"layer_loss": ev.layer_loss, "rerank_loss": ev.rerank_loss,
@@ -2602,9 +2646,10 @@ def bf16_tables(dev, tree_path: str, samples, flush) -> dict:
 
 
 def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, samples,
-            weights) -> dict:
-    """The 10M-item phase; the caller zeroes and reads the launch counts
-    around it.  ``weights``: phase 3's O(1)-scale scorer weights."""
+            weights) -> tuple[dict, ArrayTree]:
+    """The 10M-item phase and its tree; the caller zeroes and reads the
+    launch counts around it.  ``weights``: phase 3's O(1)-scale scorer
+    weights."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2625,7 +2670,7 @@ def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, sample
            "resume": resume_on_card(dev, tree_path, samples),
            "bf16_tables": bf16_tables(dev, tree_path, samples, flush)}
     out["seconds"] = time.perf_counter() - t_phase
-    return out
+    return out, tree
 
 
 # ---------------------------------------------------------------- widths
@@ -3221,6 +3266,78 @@ def mesh_tdm_example(dev, tree: ArrayTree, samples, mesh, rank: int) -> dict:
     return out
 
 
+def snapshot_leaves(path: Path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k].copy() for k in z.files}
+
+
+def same_leaves(a: dict, b: dict) -> bool:
+    """Key for key, dtype, shape and bit for bit."""
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and np.atleast_1d(a[k]).tobytes() == np.atleast_1d(b[k]).tobytes() for k in a)
+
+
+def mesh_snapshots(dev, tree: ArrayTree, samples, mesh, rank: int) -> dict:
+    """(b) at (1, 2): the sharded mv trainer's step snapshots.  A run killed
+    after its snapshot at MESH_SNAP_EVERY steps and resumed in a fresh
+    trainer ends bit for bit where an uninterrupted run ends; rank 0 holds
+    the snapshot against the single-device mv trainer's at the same step
+    (from the mesh trainer's init, drawing the (1, 2) mesh's negatives:
+    data shard 0's stream draws the whole batch), key for key and bit for
+    bit."""
+    kw = dict(TDM_CONF, sparse_embed_update=True, sparse_format="mv", seed=SEED, device=dev)
+    seqs, targets = samples.train_seqs, samples.train_targets
+    ckpt = str(OUT / "mesh_snapshot")
+
+    def train(tr, iters, path=None):
+        tr.train(seqs, targets, iterations=iters, progress_interval=10**9,
+                 checkpoint_path=path, checkpoint_every=MESH_SNAP_EVERY if path else 0)
+        return tr
+
+    full = train(TDMTrainer(tree=tree, mesh=mesh, **kw), MESH_SNAP_ITERS)
+    init = copy.deepcopy(multihost.gather_to_host(TDMTrainer(tree=tree, mesh=mesh, **kw).params))
+    if rank == 0:
+        Path(ckpt + ".npz").unlink(missing_ok=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    train(TDMTrainer(tree=tree, mesh=mesh, **kw), MESH_SNAP_KILL, ckpt)
+    kill_s = time.perf_counter() - t0
+    kept = snapshot_leaves(Path(ckpt + ".npz"))
+    resumed = train(TDMTrainer(tree=tree, mesh=mesh, **kw), MESH_SNAP_ITERS, ckpt)
+    got, want = flatten(resumed.params), flatten(full.params)  # gathered on every rank
+    check(sorted(got) == sorted(want) and all(torch.equal(bits(got[n]), bits(want[n]))
+                                               for n in got),
+          "mesh (1, 2): the resumed run differs from the uninterrupted one")
+    check(resumed.adam["count"] == full.adam["count"] and resumed.emb_state["count"]
+          == full.emb_state["count"], "mesh (1, 2): the resumed run's step counts differ")
+    out = {"iterations": MESH_SNAP_ITERS, "killed_after": MESH_SNAP_KILL,
+           "snapshot_every": MESH_SNAP_EVERY, "snapshot_keys": len(kept),
+           "snapshot_mb": sum(v.nbytes for v in kept.values()) / 1e6,
+           "killed_run_s": kill_s, "resumed_equals_uninterrupted": True}
+    dist.barrier()
+    if rank == 0:
+        with uncounted():
+            ref = TDMTrainer(tree=tree, **kw)
+            v = ref.model.embedding.shape[0]
+            ref.model.load_numpy(dict(init, embedding=init["embedding"][:v]))
+            step = [0]
+
+            def sample(target_codes):
+                g = spmd_sparse.shard_generator(SEED, step[0], 0, dev)
+                step[0] += 1
+                return ref.sampler.sample(g, target_codes)
+
+            ref.sample = sample
+            single = OUT / "single_snapshot"
+            Path(str(single) + ".npz").unlink(missing_ok=True)
+            train(ref, MESH_SNAP_KILL, str(single))
+        check(same_leaves(kept, snapshot_leaves(Path(str(single) + ".npz"))),
+              "mesh (1, 2): rank 0's snapshot differs from the single-device trainer's")
+        out["equals_single_device_snapshot"] = True
+    return out
+
+
 def mesh_serving_deep(dev, tree: ArrayTree, model: DIN, seqs: np.ndarray, mesh) -> dict:
     """(b): sharded packed serving of 4096 windows on the 1M catalog; the
     lists go to the parent, which holds them against TDMServing's."""
@@ -3328,6 +3445,7 @@ def mesh_ranks(dev, tree_path: str, seqs_path: str) -> dict:
             "serving_1m": mesh_serving_deep(dev, deep, deep_model, np.load(seqs_path), mesh),
             "jtm_sweep": mesh_sweep_example(dev, tree, samples, model, mesh, rank)}
     out["dr_example_1x2"] = mesh_dr_example(dev, dr_data, meshes[(1, 2)], rank)
+    out["snapshots_1x2"] = mesh_snapshots(dev, tree, samples, meshes[(1, 2)], rank)
     out["launches"] = read_launches()
     return out
 
@@ -3361,6 +3479,216 @@ def mesh(dev, deep: TDMServing, deep_seqs: np.ndarray, deep_lists: list, tree_pa
                                "transport": "gloo (CUDA buffers staged through host memory)",
                                "ranks": ranks},
             "launches": launches}
+
+
+# ---------------------------------------------------------------- native
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def log_lines(name: str):
+    """The messages logger ``name`` emits at INFO and up inside the block."""
+    logger, handler = logging.getLogger(name), _Lines()
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def cd_walls(lines: list[str]) -> dict:
+    """coordinate_descent's phase walls and greedy route, from its log line."""
+    m = re.search(r"collect\(beam\+aggregate\) ([\d.]+)s, greedy\[(\w+)\] ([\d.]+)s",
+                  "\n".join(lines))
+    check(m is not None, f"coordinate descent logged no phase walls: {lines}")
+    return {"collect_s": float(m[1]), "greedy_route": m[2], "greedy_s": float(m[3])}
+
+
+@contextlib.contextmanager
+def python_forms():
+    """The host library switched off (``DISMEMBER_NO_NATIVE``, read on
+    every ``get_lib`` call): the callers take their Python forms."""
+    old = os.environ.get("DISMEMBER_NO_NATIVE")
+    os.environ["DISMEMBER_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DISMEMBER_NO_NATIVE"]
+        else:
+            os.environ["DISMEMBER_NO_NATIVE"] = old
+
+
+def host_seconds(fn):
+    """(fn(), host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def native_cd(dev) -> dict:
+    """bench.py's index-learning cell through the port: streaming
+    coordinate descent on one untrained trainer, once with the native
+    greedy and once with the Python loop; equal paths."""
+    data = dr_data(CD_ITEMS, CD_ROWS, np.random.default_rng(SEED))
+    tr = DRTrainer(data, num_layers=3, num_nodes=100, num_paths_per_item=2, embed_size=E,
+                   train_batch_size=8192, num_sampled=DR_SAMPLED, seed=SEED, device=dev)
+    runs, paths = {}, {}
+    for greedy in ("native", "python"):
+        with log_lines("dismember_tpu_torch.dr_cd") as lines:
+            torch.cuda.synchronize()
+            idx, wall = host_seconds(lambda: coordinate_descent(  # noqa: B023
+                tr, data.train_seqs, data.train_targets, num_candidate_path=CD_CANDIDATES,
+                batch_size=8192, mode="streaming", seed=SEED, greedy=greedy))
+        walls = cd_walls(lines)
+        check(walls["greedy_route"] == greedy, f"greedy={greedy!r} ran {walls}")
+        runs[greedy] = {"wall_s": wall, **walls, "greedy_share": walls["greedy_s"] / wall}
+        paths[greedy] = idx.item_paths
+    check(np.array_equal(paths["native"], paths["python"]),
+          "coordinate descent: the native greedy's paths differ from the Python loop's")
+    return {"items": CD_ITEMS, "rows": CD_ROWS, "candidates": CD_CANDIDATES,
+            "mode": "streaming", "paths_equal": True, **runs}
+
+
+def codec_case(name: str, ids: np.ndarray, codes: np.ndarray, stat) -> dict:
+    """One tree through the native and the Python codec: equal bytes, then
+    equal arrays read back."""
+    paths = {r: OUT / f"codec_{name}_{r}.bin" for r in ("native", "python")}
+    out = {"items": int(len(ids))}
+    write = lambda r: write_tree(str(paths[r]), ids, codes, stat)  # noqa: E731
+    _, out["native_write_s"] = host_seconds(lambda: write("native"))
+    with python_forms():
+        _, out["python_write_s"] = host_seconds(lambda: write("python"))
+    check(paths["native"].read_bytes() == paths["python"].read_bytes(),
+          f"codec {name}: the native writer's bytes differ from the Python codec's")
+    got, out["native_read_s"] = host_seconds(lambda: read_tree(str(paths["native"])))
+    with python_forms():
+        ref, out["python_read_s"] = host_seconds(lambda: read_tree(str(paths["native"])))
+    check(got.max_level == ref.max_level and all(
+        np.array_equal(getattr(got, f), getattr(ref, f))
+        for f in ("item_ids", "leaf_codes", "node_codes", "node_ids", "node_probs",
+                  "node_is_leaf")), f"codec {name}: the native reader's arrays differ")
+    out["file_mb"] = paths["native"].stat().st_size / 1e6
+    for p in paths.values():
+        p.unlink()
+    return dict(out, bytes_equal=True, arrays_equal=True)
+
+
+def codec_timed(name: str, tree: ArrayTree) -> dict:
+    """The native write and read of a catalog's tree (its leaves as they
+    sit), the read-back checked against the tree."""
+    path = OUT / f"codec_{name}.bin"
+    _, write_s = host_seconds(lambda: write_tree(str(path), tree.item_ids, tree.item_codes))
+    got, read_s = host_seconds(lambda: read_tree(str(path)))
+    check(got.max_level == tree.max_level
+          and np.array_equal(np.sort(got.item_ids), tree.item_ids.astype(np.int64)),
+          f"codec {name}: the tree read back differs")
+    out = {"items": tree.num_items, "native_write_s": write_s, "native_read_s": read_s,
+           "file_mb": path.stat().st_size / 1e6}
+    path.unlink()
+    return out
+
+
+def native_csv() -> dict:
+    """data/example_data.csv through the native parser and the Python one:
+    equal fields, equal per-user interactions."""
+    path = str(ROOT / "data" / "example_data.csv")
+    got, native_s = host_seconds(lambda: read_csv(path))
+    ui, ui_native_s = host_seconds(lambda: user_interactions(got))
+    with python_forms():
+        ref, python_s = host_seconds(lambda: read_csv(path))
+        ui_ref, ui_python_s = host_seconds(lambda: user_interactions(ref))
+    check(all(np.array_equal(getattr(got, f), getattr(ref, f)) and
+              getattr(got, f).dtype == getattr(ref, f).dtype
+              for f in ("user", "item", "category", "label", "timestamp"))
+          and got.category_names == ref.category_names, "csv: the native parser's fields differ")
+    check(list(ui) == list(ui_ref) and all(np.array_equal(ui[u], ui_ref[u]) for u in ui),
+          "csv: the native user_interactions differ")
+    return {"rows": int(len(got.user)), "users": len(ui), "native_parse_s": native_s,
+            "python_parse_s": python_s, "native_interactions_s": ui_native_s,
+            "python_interactions_s": ui_python_s, "fields_equal": True,
+            "interactions_equal": True}
+
+
+def cooc_inputs(n_items: int, rng: np.random.Generator):
+    n_edges = n_items * COOC_EDGES_PER_ITEM
+    dst = np.sort(rng.integers(0, n_items, n_edges))
+    src = rng.integers(0, n_items, n_edges)
+    wn = rng.random(n_edges, dtype=np.float32)
+    f = rng.standard_normal((n_items, COOC_DIM), dtype=np.float32)
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(dst)) + 1])
+    return starts, dst[starts], src, wn, f
+
+
+def native_cooc() -> dict:
+    """cooc_apply_native against numpy's reduceat form at COOC_ITEMS (within
+    COOC_RTOL/COOC_ATOL), then the native pass alone at COOC_TIMED_ITEMS."""
+    rng = np.random.default_rng(SEED + 21)
+    starts, segs, src, wn, f = cooc_inputs(COOC_ITEMS, rng)
+    got = np.zeros_like(f)
+    ok, native_s = host_seconds(lambda: host.cooc_apply_native(starts, segs, src, wn, f, got))
+    check(ok, "cooc_apply_native did not run")
+    ref = np.zeros_like(f)
+
+    def numpy_form():
+        ref[segs] = np.add.reduceat(f[src] * wn[:, None], starts, axis=0)
+
+    _, numpy_s = host_seconds(numpy_form)
+    err = np.abs(got - ref)
+    check(bool((err <= COOC_ATOL + COOC_RTOL * np.abs(ref)).all()),
+          f"cooc: the native pass is beyond rtol {COOC_RTOL}, atol {COOC_ATOL}: "
+          f"{float(err.max())}")
+    del ref, got
+    starts, segs, src, wn, f = cooc_inputs(COOC_TIMED_ITEMS, rng)
+    g = np.zeros_like(f)
+    _, big_s = host_seconds(lambda: host.cooc_apply_native(starts, segs, src, wn, f, g))
+    # the timed pass did the work: 1,000 segments summed by numpy
+    ends = np.append(starts[1:], len(src))
+    sample = rng.choice(len(segs), 1000, replace=False)
+    want = np.stack([(f[src[starts[i] : ends[i]]] * wn[starts[i] : ends[i], None]).sum(0)
+                     for i in sample])
+    check(np.allclose(g[segs[sample]], want, rtol=COOC_RTOL, atol=COOC_ATOL),
+          f"cooc at {COOC_TIMED_ITEMS}: sampled segments differ from numpy's sums")
+    return {"threads": os.cpu_count(), "dim": COOC_DIM, "edges_per_item": COOC_EDGES_PER_ITEM,
+            f"check_{COOC_ITEMS}": {"native_s": native_s, "numpy_reduceat_s": numpy_s,
+                                    "max_abs_err": float(err.max()),
+                                    "tolerance": [COOC_RTOL, COOC_ATOL]},
+            f"timed_{COOC_TIMED_ITEMS}": {"native_s": big_s}}
+
+
+def native_phase(dev, smi: str, samples, tree_1m: ArrayTree, tree_10m: ArrayTree) -> dict:
+    """The port's host library: built here (no fallback: a missing library
+    fails the run), then bench.py's index-learning cell, the tree codec,
+    CSV ingest and the co-occurrence pass against their Python forms.
+    Every time is host time on the card machine's CPU."""
+    t_phase = time.perf_counter()
+    check(host.get_lib() is not None, "native: the port's host library is not loaded")
+    out = {"nvidia_smi": smi, "library": str(host.library_path().relative_to(ROOT)),
+           "coordinate_descent": native_cd(dev)}
+    raw = read_csv(str(ROOT / "data" / "example_data.csv"))
+    ids, cats = unique_items_with_category(raw)
+    sid, codes = category_sorted_codes(ids, cats)
+    rng = np.random.default_rng(SEED + 20)
+    syn = np.arange(1, CODEC_ITEMS + 1)
+    syn_sid, syn_codes = category_sorted_codes(syn, syn % 97)
+    syn_stat = {int(i): int(c) for i, c in zip(syn, rng.integers(0, 50, CODEC_ITEMS)) if c}
+    out["tree_codec"] = {"example": codec_case("example", sid, codes, samples.stat),
+                         "synthetic": codec_case("synthetic", syn_sid, syn_codes, syn_stat),
+                         "catalog_1m": codec_timed("1m", tree_1m),
+                         "catalog_10m": codec_timed("10m", tree_10m)}
+    out["csv"] = native_csv()
+    out["cooc"] = native_cooc()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # ---------------------------------------------------------------- reference recall
@@ -3469,6 +3797,49 @@ def wide(dev, tree_path: str, samples, deep: TDMServing, deep_seqs: np.ndarray) 
     return out
 
 
+def launch_us(dev, n: int = 2000) -> float:
+    """Host microseconds a launch: ``n`` in-place adds on a small tensor,
+    ended by a synchronize (after a warm-up)."""
+    x = torch.zeros(16, device=dev)
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def traced_batch(dev, deep: TDMServing, seqs: np.ndarray, calls: int, ms_phase5: float) -> dict:
+    """One 1M ``recommend_batch`` inside ``core.profiling.trace``, whose
+    Chrome trace must name K3's kernel; ``calls`` batches and the host's
+    launch rate timed just before the trace and just after it (the
+    profiler's after-effect), beside phase 5's time of the same batch."""
+    def batch_ms() -> float:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            deep.recommend_batch(seqs)
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    before = {"ms_per_batch": batch_ms(), "us_per_launch": launch_us(dev)}
+    trace_dir = ROOT / "chiprun_out" / "trace_torch"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(str(trace_dir)):
+        deep.recommend_batch(seqs)
+    traced_s = time.perf_counter() - t0
+    after = {"ms_per_batch": batch_ms(), "us_per_launch": launch_us(dev)}
+    (trace_path,) = trace_dir.glob("trace_*.json")
+    k3_events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+                 if e.get("cat") == "kernel" and "packed_level" in e.get("name", "")]
+    check(len(k3_events) > 0, f"the trace {trace_path} names no K3 kernel")
+    return {"path": str(trace_path.relative_to(ROOT)), "traced_call_s": traced_s,
+            "mb": trace_path.stat().st_size / 1e6, "k3_kernel_events": len(k3_events),
+            "k3_kernel_name": k3_events[0]["name"], "calls": calls,
+            "phase5_ms_per_batch": ms_phase5, "before_trace": before, "after_trace": after}
+
+
 def main() -> int:
     # ---- 1. environment
     if not torch.cuda.is_available():
@@ -3495,6 +3866,9 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     usage = instance_usage(log)
+    # the port's host library (csrc/host_ops.cc, g++): no fallback here
+    host_lib, host_build_s = host_seconds(host.get_lib)
+    check(host_lib is not None, "the port's host library did not build")
     # template arguments as nvcc mangles them: <kAdd, T>
     add_usage = {dt: ptxas_usage(log, f"write_kernelILb1E{m}E")
                  for dt, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"))}
@@ -3502,7 +3876,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
           "instances": {n: {**u, "register_cap": reg_cap(n)} for n, u in sorted(usage.items())},
-          "add_ptxas": add_usage, "sass_mma": mma})
+          "add_ptxas": add_usage, "sass_mma": mma,
+          "host_library": str(host.library_path().relative_to(ROOT)),
+          "host_library_s": host_build_s})
     # every K1 and K3 instance within its register cap (K1 and the one-tile
     # K3 at E <= 16: 64, so the serving batch's blocks fit the card in one
     # wave) and no spill; every K3 instance on the tensor cores
@@ -3699,7 +4075,7 @@ def main() -> int:
     # serving, resume and bf16 tables; launch counts zeroed just before,
     # read just after
     zero_launches()
-    facts_10m = tdm_10m(dev, deep, deep_seqs, tree_path, samples, weights)
+    facts_10m, tree_10m = tdm_10m(dev, deep, deep_seqs, tree_path, samples, weights)
     facts_10m["launches"] = read_launches()
     check(all(facts_10m["launches"][k] > 0
               for k in ("packed_level_bf16_rows", "add_rows_bf16", "write_rows")),
@@ -3709,6 +4085,16 @@ def main() -> int:
     emit({"phase": "tdm_10m", **facts_10m})
     for name in launches:
         launches[name] += facts_10m["launches"][name]
+
+    # ---- the port's host library (csrc/host_ops.cc) against the Python
+    # forms: launch counts zeroed just before, read just after
+    zero_launches()
+    facts_native = native_phase(dev, smi, samples, deep.tree, tree_10m)
+    facts_native["launches"] = read_launches()
+    del tree_10m
+    emit({"phase": "native", **facts_native})
+    for name in launches:
+        launches[name] += facts_native["launches"][name]
 
     # ---- DIN at E = 8 and 32, DeepFM on every path, and item 5's recall
     # check: launch counts zeroed just before each, read just after
@@ -3776,6 +4162,17 @@ def main() -> int:
           f"mesh: {facts_mesh['launches']}")
     for name in launches:
         launches[name] += facts_mesh["launches"][name]
+
+    # ---- trace: last, as the profiler leaves every later host launch
+    # slower; launch counts zeroed just before, read just after
+    zero_launches()
+    facts_tr = traced_batch(dev, deep, deep_seqs, calls, facts5["ms_per_batch"])
+    facts_tr["launches"] = read_launches()
+    check(facts_tr["launches"]["packed_level"] == dlevels * (2 * calls + 1),
+          f"trace: {facts_tr['launches']}, not {dlevels} x {2 * calls + 1} K3 launches")
+    emit({"phase": "trace", **facts_tr})
+    for name in launches:
+        launches[name] += facts_tr["launches"][name]
 
     # ---- 6. kernel summary
     src = {"din_score": "dismember_tpu_torch/csrc/din_kernels.cu",

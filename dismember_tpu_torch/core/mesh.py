@@ -188,6 +188,19 @@ def full_rows(shard: torch.Tensor, mesh: DeviceMesh, axis: str = MODEL_AXIS) -> 
     return all_gather_rows(shard, mesh, axis)
 
 
+def set_local_rows(shard: torch.Tensor, whole, mesh: DeviceMesh,
+                   axis: str = MODEL_AXIS) -> None:
+    """Copy this rank's row block of ``whole`` (a tensor or array holding
+    the first rows of the whole tensor, as :func:`local_rows` splits it)
+    into ``shard`` in place; rows past ``whole``'s end (padding) keep their
+    values."""
+    per = shard.shape[0]
+    lo = axis_index(mesh, axis) * per
+    rows = whole[lo : lo + per]
+    if len(rows):
+        shard[: len(rows)] = torch.as_tensor(rows).to(shard.device, shard.dtype)
+
+
 def with_whole_table(method):
     """Run a trainer method inside the trainer's ``whole_table()`` block:
     on a mesh the row-sharded tables are gathered whole for the call and

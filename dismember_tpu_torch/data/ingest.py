@@ -1,10 +1,11 @@
 """CSV ingestion and per-user interaction extraction.
 
-Port of ``dismember_tpu/data/ingest.py`` (Python parser; the native parser
-is not bound yet): rows are ``user,item,label,timestamp,category``; rows
-whose first field is non-numeric (the header) are skipped; per user the items
-are sorted by timestamp (stable) and de-duplicated keeping the first
-occurrence.
+Port of ``dismember_tpu/data/ingest.py``: rows are
+``user,item,label,timestamp,category``; rows whose first field is
+non-numeric (the header) are skipped; per user the items are sorted by
+timestamp (stable) and de-duplicated keeping the first occurrence.  Parsing
+and grouping run in the native host library (``data/native.py``) when it
+loads, else in the Python forms here, which give the same arrays.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 
 from dismember_tpu_torch.core.io import open_file, stage_in
+from dismember_tpu_torch.data.native import parse_csv_native, user_interactions_native
 
 
 @dataclasses.dataclass
@@ -38,6 +40,16 @@ def _is_number(s: str) -> bool:
 
 def read_csv(path: str) -> InitSamples:
     """CSV ingest (local or remote URL)."""
+    with stage_in(path) as local:
+        native = parse_csv_native(local)
+        if native is not None:
+            users, items, cats, labels, timestamps, cat_names = native
+            return InitSamples(user=users, item=items, category=cats, label=labels,
+                               timestamp=timestamps, category_names=cat_names)
+        return _read_csv_python(local)
+
+
+def _read_csv_python(path: str) -> InitSamples:
     users: list[int] = []
     items: list[int] = []
     cats: list[int] = []
@@ -45,7 +57,7 @@ def read_csv(path: str) -> InitSamples:
     times: list[int] = []
     cat_dict: dict[str, int] = {}
     label_dict: dict[str, float] = {}
-    with stage_in(path) as local, open_file(local, "r", encoding="utf-8") as f:
+    with open_file(path, "r", encoding="utf-8") as f:
         for line in f:
             arr = line.strip().split(",")
             if len(arr) != 5 or not _is_number(arr[0]):
@@ -73,6 +85,9 @@ def user_interactions(samples: InitSamples) -> dict[int, np.ndarray]:
     """user -> time-sorted distinct item sequence (first occurrence kept),
     mirroring TreeInit.getUserInteracted: a stable sort by timestamp within
     each user, then ``distinct``."""
+    native = user_interactions_native(samples.user, samples.item, samples.timestamp)
+    if native is not None:
+        return native
     order = np.argsort(samples.timestamp, kind="stable")
     users = samples.user[order]
     items = samples.item[order]

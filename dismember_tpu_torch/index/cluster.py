@@ -33,6 +33,7 @@ import torch
 
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
+from dismember_tpu_torch.data.native import cooc_apply_native
 from dismember_tpu_torch.index.tree_io import write_tree
 
 
@@ -327,9 +328,13 @@ def cooccurrence_embeddings(
 
     ``train_seqs`` [R, L] / ``train_targets`` [R] hold item POSITIONS in
     [0, num_items) (-1 = padding).  Returns [num_items, dim] float32,
-    row-normalized; items never seen keep their random init.  The JAX
-    package may run the per-iteration pass through its native library; this
-    is its numpy form, which that library matches bit for bit.
+    row-normalized; items never seen keep their random init.  Each
+    iteration's operator pass runs in the native host library
+    (``data/native.py`` ``cooc_apply_native``) when it loads, else in the
+    numpy ``reduceat`` form.  The two differ by ~1 ulp (the native pass sums
+    a segment's edges in order, ``reduceat`` pairwise); the native pass is
+    the JAX package's, so with both libraries loaded the two packages agree
+    bit for bit.
     """
     rng = np.random.default_rng(seed)
     f = rng.standard_normal((num_items, dim), dtype=np.float32)
@@ -349,13 +354,15 @@ def cooccurrence_embeddings(
     segs = dst[starts]
     deg = np.zeros(num_items, np.float32)
     np.add.at(deg, dst, w)
-    wn = (w / (np.sqrt(deg[src]) * np.sqrt(deg[dst]) + 1e-12)).astype(np.float32)[:, None]
+    wn_flat = (w / (np.sqrt(deg[src]) * np.sqrt(deg[dst]) + 1e-12)).astype(np.float32)
+    wn = wn_flat[:, None]
     touched = np.zeros(num_items, bool)
     touched[segs] = True
 
     for _ in range(n_iters):
         g = np.zeros_like(f)
-        g[segs] = np.add.reduceat(f[src] * wn, starts, axis=0)
+        if not cooc_apply_native(starts, segs, src, wn_flat, f, g):
+            g[segs] = np.add.reduceat(f[src] * wn, starts, axis=0)
         # column orthonormalization via the Gram matrix (symmetric /
         # Loewdin orthogonalization): basis-invariant like QR's Q, and
         # k-means + the final row normalization are rotation-invariant;

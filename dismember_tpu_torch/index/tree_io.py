@@ -1,10 +1,12 @@
 """Tree persistence: the reference's length-prefixed KV protobuf format.
 
-Port of ``dismember_tpu/index/tree_io.py`` (pure-Python codec; the native
-codec is not bound yet).  A file is a stream of records, each a 4-byte
-big-endian length followed by a ``KVItem``; keys are UTF-8 strings: a
-numeric node code, ``Part_i`` (id/code pairs, 512 per part), or
-``tree_meta``.  The bytes equal those the JAX package writes.
+Port of ``dismember_tpu/index/tree_io.py``.  A file is a stream of records,
+each a 4-byte big-endian length followed by a ``KVItem``; keys are UTF-8
+strings: a numeric node code, ``Part_i`` (id/code pairs, 512 per part), or
+``tree_meta``.  The bytes equal those the JAX package writes.  Reads and
+writes go through the native host library (``data/native.py``) when it
+loads, else through the Python codec here, which gives the same bytes and
+arrays.
 
 :func:`build_tree` computes the tree in memory (leaf sinking, ancestor
 records and probabilities) and :func:`write_tree` serializes it, so a large
@@ -21,6 +23,7 @@ import struct
 import numpy as np
 
 from dismember_tpu_torch.core.io import stage_in, stage_out
+from dismember_tpu_torch.data.native import read_tree_native, write_tree_native
 from dismember_tpu_torch.index.proto import (
     IdCodePair,
     IdCodePart,
@@ -58,6 +61,17 @@ def sink_leaf_codes(codes: np.ndarray, max_level: int) -> np.ndarray:
         if not mask.any():
             return out
         out[mask] = out[mask] * 2 + 1
+
+
+def ancestors_of(code: int, max_level: int) -> list[int]:
+    """All ancestors up to (and including) the root, mirroring
+    TreeBuilder.getAncestors: exactly ``max_level`` hops of (c-1)//2."""
+    out = []
+    c = code
+    for _ in range(max_level):
+        c = (c - 1) // 2
+        out.append(c)
+    return out
 
 
 def build_tree(
@@ -132,8 +146,20 @@ def write_tree(
     then internal-node records, then the Part_i id/code chunks and the
     tree_meta record."""
     tree = build_tree(tree_ids, tree_codes, stat)
+    n_anc = len(tree.node_codes) - len(tree.item_ids)  # ancestors come first
+    with stage_out(path) as local:
+        if write_tree_native(
+            local, tree.item_ids, tree.leaf_codes, tree.node_probs[n_anc:],
+            tree.node_codes[:n_anc], tree.node_ids[:n_anc], tree.node_probs[:n_anc],
+            tree.max_level,
+        ):
+            return
+        _write_tree_python(local, tree)
+
+
+def _write_tree_python(path: str, tree: LoadedTree) -> None:
     leaf = tree.node_is_leaf
-    with stage_out(path) as local, open(local, "wb") as f:
+    with open(path, "wb") as f:
 
         def write_kv(key: str, value: bytes) -> None:
             rec = KVItem(key=key.encode("utf-8"), value=value).encode()
@@ -173,7 +199,20 @@ def write_tree(
 def read_tree(path: str) -> LoadedTree:
     """Load a KV tree file (local or remote URL), mirroring
     DistTree.loadData/loadItems."""
-    with stage_in(path) as local, open(local, "rb") as f:
+    with stage_in(path) as local:
+        native = read_tree_native(local)
+        if native is None:
+            return _read_tree_python(local)
+    # the native reader keeps file order (leaves, then internal nodes, each
+    # ascending): a stable sort merges the two runs in linear time
+    order = np.argsort(native["node_codes"], kind="stable")
+    for k in ("node_codes", "node_ids", "node_probs", "node_is_leaf"):
+        native[k] = native[k][order]
+    return LoadedTree(**native)
+
+
+def _read_tree_python(path: str) -> LoadedTree:
+    with open(path, "rb") as f:
         data = f.read()
 
     code_nodes: dict[int, Node] = {}

@@ -506,22 +506,52 @@ class DRTrainer:
     # -- step-level snapshots (train/step_resume.py) ----------------------
     _MIRROR_KEYS = ("embedding", "softmax_w", "softmax_b")
 
-    def _step_state(self) -> dict:
-        """The loop state a within-stage snapshot holds.  In pmv mode the
-        packed p|m|v states own the item tables, so the [V, E] mirrors
-        (layer and rerank embeddings, softmax w and b) are left out."""
-        if self.mesh is not None:
-            raise ValueError("step snapshots are single-device; a mesh trainer has none")
+    _OPT_KEYS = ("layer_opt_state", "rerank_opt_state")
+
+    def _local_step_state(self) -> dict:
+        """The loop state a within-stage snapshot holds, as this rank holds
+        it.  In pmv mode the packed p|m|v states own the item tables, so the
+        [V, E] mirrors (layer and rerank embeddings, softmax w and b) are
+        left out; on a mesh each packed state is the rank's slice."""
         lp, rp = self.layer_params, self.rerank_params
         if self._pmv:
             lp = {k: v for k, v in lp.items() if k != "embedding"}
             rp = {k: v for k, v in rp.items() if k not in self._MIRROR_KEYS}
-        return {"layer_params": lp, "layer_opt_state": self.layer_opt_state,
-                "rerank_params": rp, "rerank_opt_state": self.rerank_opt_state,
+        local = lambda opt: opt if self.mesh is None else tuple(  # noqa: E731
+            x.state if isinstance(x, spmd_dr.ShardedPmv) else x for x in opt)
+        return {"layer_params": lp, "layer_opt_state": local(self.layer_opt_state),
+                "rerank_params": rp, "rerank_opt_state": local(self.rerank_opt_state),
                 "gen": step_resume.generator_state(self._gen)}
 
+    def _step_state(self) -> dict:
+        """:meth:`_local_step_state`; on a mesh with each row-sharded packed
+        state gathered over "model" into the layout of a single-device
+        trainer's (a collective: every rank calls it)."""
+        st = self._local_step_state()
+        if self.mesh is not None:
+            for k in self._OPT_KEYS:
+                st[k] = tuple(
+                    spmd_sparse.whole_state(x.state, x.v_rows, x.e, self.mesh)
+                    if isinstance(x, spmd_dr.ShardedPmv) else part
+                    for x, part in zip(getattr(self, k), st[k]))
+        return st
+
     def _restore_step_state(self, loaded: dict) -> None:
-        st = step_resume.to_torch(loaded, self._step_state())
+        """Take a snapshot's state (numpy leaves in the layout of
+        :meth:`_step_state`); on a mesh each rank takes its rows of the
+        packed states."""
+        like = self._local_step_state()
+        st = {k: step_resume.to_torch(loaded[k], v) for k, v in like.items()
+              if k not in self._OPT_KEYS or self.mesh is None}
+        for k in self._OPT_KEYS if self.mesh is not None else ():
+            parts = []
+            for x, part, got in zip(getattr(self, k), like[k], loaded[k]):
+                if isinstance(x, spmd_dr.ShardedPmv):
+                    spmd_sparse.restore_state(x.state, got, self.mesh)
+                    parts.append(x)
+                else:
+                    parts.append(step_resume.to_torch(got, part))
+            st[k] = type(like[k])(parts)
         self.layer_opt_state = st["layer_opt_state"]
         self.rerank_opt_state = st["rerank_opt_state"]
         step_resume.set_generator_state(self._gen, st["gen"])
@@ -558,12 +588,13 @@ class DRTrainer:
         rerank_stop = rerank_epochs if rerank_epochs is not None else num_epochs
         start_epoch, start_s = 1, 0
         if checkpoint_path:
-            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            loaded = step_resume.load_step_state(checkpoint_path, self._local_step_state())
             if loaded is not None:
                 st, meta = loaded
                 self._restore_step_state(st)
                 step_resume.rng_state_from_json(rng, meta["rng_before_perm"])
                 start_epoch, start_s = int(meta["epoch"]), int(meta["s"]) + bsz
+                self._mesh_steps = step_resume.saved_steps(meta, self.mesh)
                 logger.info(f"resumed step checkpoint {checkpoint_path} at epoch "
                             f"{start_epoch} offset {meta['s']}")
         for epoch in range(start_epoch, num_epochs + 1):
@@ -598,7 +629,8 @@ class DRTrainer:
                         and s + bsz < n:
                     step_resume.save_step_state(
                         checkpoint_path, self._step_state(),
-                        {"epoch": epoch, "s": s, "rng_before_perm": rng_before_perm})
+                        {"epoch": epoch, "s": s, "rng_before_perm": rng_before_perm,
+                         "steps": self._mesh_steps}, self.mesh)
                     logger.info(f"step checkpoint saved at epoch {epoch} offset {s}")
                 if progress_interval > 0 and it % progress_interval == 0:
                     ll = ", ".join(f"{float(x):.4f}" for x in losses)

@@ -1,9 +1,8 @@
 """Deep Retrieval M-step: coordinate-descent path re-assignment.
 
 Copy of ``dismember_tpu/train/dr_coordinate.py`` (host numpy, the beam
-search on the trainer's device) without the native greedy: ``greedy=
-"native"`` raises (ROADMAP item e) and ``"auto"`` takes the Python loop,
-which selects exactly what the native one does.
+search on the trainer's device; the greedy select in the port's native host
+library, ``data/native.py``, when it loads).
 
 Parity with deep-retrieval/.../optim/CoordinateDescent.scala:12-219:
 - per training sample, beam-search the top ``num_candidate_path`` paths with
@@ -42,6 +41,7 @@ import logging
 
 import numpy as np
 
+from dismember_tpu_torch.data.native import dr_greedy_select_native
 from dismember_tpu_torch.index.paths import PathIndex
 
 logger = logging.getLogger("dismember_tpu_torch.dr_cd")
@@ -346,21 +346,17 @@ def coordinate_descent(
 ) -> PathIndex:
     """Run the M-step; returns a new PathIndex.
 
-    ``greedy``: "python" (and "auto") runs the item-sequential J-path
-    selection as a numpy loop, O(num_items * J) interpreter iterations;
-    "native" (the JAX package's C++ select, bit-identical to the loop) is
-    not ported and raises."""
+    ``greedy``: "native" runs the item-sequential J-path selection in C++
+    (``csrc/host_ops.cc`` ``dm_dr_greedy_select``, an exact port: same libm
+    calls, numpy argmax/NaN semantics and processing order, bit-identical
+    selections on the same host) and raises when the library is unavailable
+    or a row has more than 64 candidates; "python" keeps the numpy loop (the
+    parity twin); "auto" uses native when it can, else the loop.  The loop
+    is O(num_items * J) interpreter iterations."""
     import time as _time
 
     if greedy not in ("auto", "native", "python"):
         raise ValueError(f"unknown greedy mode {greedy!r}")
-    if greedy == "native":
-        raise NotImplementedError(
-            "greedy='native' is not ported yet (ROADMAP queue 1 item e: the native "
-            "codec binding)")
-    if greedy == "auto":
-        logger.info("greedy='auto': the native select is not ported (item e); "
-                    "taking the Python loop, which selects the same paths")
     num_items = trainer.data.num_items
     num_layers = trainer.num_layers
     num_nodes = trainer.num_nodes
@@ -403,7 +399,27 @@ def coordinate_descent(
     sel_idx = np.full((len(items_u), j_paths), -1, np.int64)
     random_paths: dict[int, np.ndarray] = {}
 
-    for t in range(1, num_iteration + 1):
+    use_native = False
+    if greedy in ("auto", "native"):
+        use_native = dr_greedy_select_native(
+            np.ascontiguousarray(cand_idx, np.int64),
+            np.ascontiguousarray(cand_scores, np.float64),
+            np.ascontiguousarray(occ[items_u], np.int64), path_size, sel_idx,
+            num_iteration, penalty_factor, q,
+        )
+        if greedy == "native" and not use_native:
+            raise RuntimeError(
+                "greedy='native': the native host library is unavailable or a row has "
+                f"more than 64 candidates ({cand_idx.shape[1]})")
+    if use_native:
+        # rng draws for unscored items happen in the same (t, v) order as
+        # the Python loop, so the random paths are bit-identical too
+        for t in range(1, num_iteration + 1):
+            for v in np.flatnonzero((occ == 0) | (row_of_item < 0)):
+                random_paths[int(v)] = rng.integers(
+                    0, num_nodes, size=(j_paths, num_layers)
+                ).astype(np.int32)
+    for t in [] if use_native else range(1, num_iteration + 1):
         for v in range(num_items):
             r = row_of_item[v]
             if occ[v] == 0 or r < 0:
@@ -442,9 +458,9 @@ def coordinate_descent(
             sel_idx[r] = chosen
 
     logger.info(
-        f"CD phase walls: collect(beam+aggregate) {_t_collect:.1f}s, "
-        f"greedy[python] "
-        f"{_time.perf_counter() - _t0 - _t_collect:.1f}s"
+        f"CD phase walls: collect(beam+aggregate) {_t_collect:.3f}s, "
+        f"greedy[{'native' if use_native else 'python'}] "
+        f"{_time.perf_counter() - _t0 - _t_collect:.3f}s"
     )
     item_paths = np.zeros((num_items, j_paths, num_layers), dtype=np.int32)
     scored_mask = row_of_item >= 0

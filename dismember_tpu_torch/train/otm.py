@@ -208,7 +208,7 @@ class OTMTrainer(RowStepTrainer):
                     else spmd.padded_num_index(num_index, mesh))
             self.model.embedding = torch.nn.Parameter(
                 spmd.pad_embedding_rows(self.model.embedding.detach(), rows))
-        self._init_optimizer(sparse, sparse_format)
+        self._init_optimizer(sparse, sparse_format, logical_rows=num_index)
         self._batch_fn = (self._train_batch if mesh is None
                           else spmd.make_sharded_otm_train_batch(self))
         self._packed_cache = None
@@ -341,7 +341,7 @@ class OTMTrainer(RowStepTrainer):
         self._adopt_mirrors()
         start_epoch, start_bi = 1, 0
         if checkpoint_path:
-            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            loaded = step_resume.load_step_state(checkpoint_path, self._local_step_state())
             if loaded is not None:
                 st, meta = loaded
                 self._restore_step_state(st)
@@ -385,7 +385,8 @@ class OTMTrainer(RowStepTrainer):
                         and (bi + 1) % checkpoint_every == 0 and bi + 1 < num_batches:
                     step_resume.save_step_state(
                         checkpoint_path, self._step_state(),
-                        {"epoch": epoch, "batch": bi, "rng_before_perm": rng_before_perm})
+                        {"epoch": epoch, "batch": bi, "rng_before_perm": rng_before_perm},
+                        self.mesh)
                 if progress_interval > 0 and (bi + 1) % progress_interval == 0:
                     if not epoch_losses:
                         drain()

@@ -44,7 +44,7 @@ import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core import mesh as meshlib
-from dismember_tpu_torch.core.checkpoint import flatten, to_tensor
+from dismember_tpu_torch.core.checkpoint import flatten, to_numpy, to_tensor
 from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.models.scorer import TreeScorer
 from dismember_tpu_torch.train import sparse_adam, spmd, spmd_sparse, step_resume
@@ -75,13 +75,15 @@ class RowStepTrainer:
     # with it on a mesh)
     _table_caches: tuple[str, ...] = ()
 
-    def _init_optimizer(self, sparse: bool, sparse_format: str) -> None:
+    def _init_optimizer(self, sparse: bool, sparse_format: str,
+                        logical_rows: int | None = None) -> None:
         """Dense Adam, or lazy sparse Adam on the embedding in the mv or pmv
         format ("auto": pmv when the width packs, 3E <= 128, and the table
         is f32; mv for a bf16 table).  On a mesh the table is row-sharded:
         the rank keeps its rows in ``_shard`` and the model's embedding is
         dropped (:meth:`whole_table`); the sparse mode takes the sharded mv
-        state, never pmv."""
+        state, never pmv.  ``logical_rows``: the table's rows before a
+        mesh's padding (snapshots hold those)."""
         self._sparse = sparse
         self._pmv = False
         self._mirrors_stale = False
@@ -99,6 +101,7 @@ class RowStepTrainer:
                     f"pmv needs a packable width (3*E <= 128; E={self.embed_size}) "
                     "and an f32 table")
         table = self.model.embedding.detach()
+        self._logical_rows = logical_rows or table.shape[0]
         if self.mesh is not None:
             self._shard = meshlib.local_rows(table, self.mesh).clone()
             self._table_rows = table.shape[0]
@@ -243,14 +246,13 @@ class RowStepTrainer:
         return t if self._shard is None else meshlib.local_rows(t, self.mesh).clone()
 
     # -- step-level snapshots (train/step_resume.py) ----------------------
-    def _step_state(self) -> dict:
-        """The loop state a within-stage snapshot holds: the parameters (in
-        pmv mode without the [V, E] mirror, which the packed state owns and
-        which would double a deep catalog's snapshot), the Adam state, the
-        embedding's sparse state and the trainer's generator, if any."""
-        if self.mesh is not None:
-            raise ValueError("step snapshots are single-device; a mesh trainer has none")
-        st = {"params": {n: p.detach() for n, p in self._named_params().items()
+    def _local_step_state(self) -> dict:
+        """The loop state a within-stage snapshot holds, as this rank holds
+        it: the parameters (in pmv mode without the [V, E] mirror, which the
+        packed state owns and which would double a deep catalog's snapshot;
+        on a mesh the embedding is the rank's table shard), the Adam state,
+        the embedding's sparse state and the trainer's generator, if any."""
+        st = {"params": {n: p.detach() for n, p in self._shard_params().items()
                          if not (self._pmv and n == "embedding")},
               "adam": self.adam}
         if self.emb_state is not None:
@@ -259,13 +261,35 @@ class RowStepTrainer:
             st["gen"] = step_resume.generator_state(self._gen)
         return st
 
+    def _step_state(self) -> dict:
+        """:meth:`_local_step_state`; on a mesh with the table's row blocks
+        (the shard, its moments or sparse state) gathered over "model" and
+        cut to the table's logical rows, the layout a single-device trainer
+        saves (a collective: every rank calls it)."""
+        st = self._local_step_state()
+        if self._shard is None:
+            return st
+        n = self._logical_rows
+        st["params"]["embedding"] = meshlib.full_rows(self._shard, self.mesh)[:n]
+        if "embedding" in self.adam["mu"]:
+            st["adam"] = dict(self.adam, **{
+                k: dict(self.adam[k], embedding=meshlib.full_rows(
+                    self.adam[k]["embedding"], self.mesh)[:n]) for k in ("mu", "nu")})
+        if self.emb_state is not None:
+            st["emb_state"] = spmd_sparse.whole_state(self.emb_state, n, self.embed_size,
+                                                      self.mesh)
+        return st
+
     @torch.no_grad()
     def _restore_step_state(self, loaded: dict) -> None:
-        """Take a snapshot's state (numpy leaves); in pmv mode the mirror is
-        marked stale and re-read from the packed state at the next sync."""
-        like = {k: v for k, v in self._step_state().items() if k in loaded}
+        """Take a snapshot's state (numpy leaves in the layout of
+        :meth:`_step_state`); in pmv mode the mirror is marked stale and
+        re-read from the packed state at the next sync."""
+        if self._shard is not None:
+            loaded = self._local_rows_of(loaded)
+        like = {k: v for k, v in self._local_step_state().items() if k in loaded}
         st = step_resume.to_torch(loaded, like)
-        named = self._named_params()
+        named = self._shard_params()
         for n, t in st["params"].items():
             named[n].copy_(t)
         self.adam = st["adam"]
@@ -276,6 +300,29 @@ class RowStepTrainer:
         if self._pmv:
             self._mirrors_stale = True
             self._record_mirror_id()
+
+    def _local_rows_of(self, loaded: dict) -> dict:
+        """On a mesh: a whole snapshot's table, its moments and its sparse
+        state cut to this rank's rows (numpy leaves); the padding rows past
+        the logical ones keep the trainer's values."""
+        def local(cur: torch.Tensor, whole) -> np.ndarray:
+            out = cur.detach().clone()
+            meshlib.set_local_rows(out, to_tensor(whole), self.mesh)
+            return to_numpy(out)
+
+        out = dict(loaded, params=dict(loaded["params"], embedding=local(
+            self._shard, loaded["params"]["embedding"])))
+        if "embedding" in self.adam["mu"]:
+            out["adam"] = dict(loaded["adam"], **{
+                k: dict(loaded["adam"][k], embedding=local(
+                    self.adam[k]["embedding"], loaded["adam"][k]["embedding"]))
+                for k in ("mu", "nu")})
+        if "emb_state" in loaded:
+            state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in self.emb_state.items()}
+            spmd_sparse.restore_state(state, loaded["emb_state"], self.mesh)
+            out["emb_state"] = {k: to_numpy(v) for k, v in state.items()}
+        return out
 
     def _codes(self, codes: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(codes, dtype=torch.long, device=self.device)

@@ -64,6 +64,40 @@ def sharded_state_zeros(v_rows: int, embed_dim: int, n_model: int,
             "v": torch.zeros(v_shard, embed_dim, device=device), "count": 0}
 
 
+def whole_state(state: dict, v_rows: int, embed_dim: int, mesh) -> dict:
+    """This rank's slice of a row-sharded lazy-Adam or p|m|v state (``mv``,
+    ``pmv`` or ``m``/``v``, and ``count``) in the layout a single-device
+    trainer holds for a ``v_rows``-row table: the slices gathered over
+    "model" (a collective), a packed table's without their scratch rows,
+    cut to the rows ``v_rows`` needs, and one zero scratch row appended (a
+    single-device packed table's stays zero)."""
+    out = {}
+    for k, t in state.items():
+        if k == "count":
+            out[k] = t
+        elif k in ("mv", "pmv"):
+            s = (sparse_adam._packed_slots(embed_dim) if k == "mv"
+                 else sparse_adam.pmv_slots(embed_dim))
+            body = meshlib.full_rows(t[:-1], mesh)[: -(-v_rows // s)]
+            out[k] = torch.cat([body, body.new_zeros(1, body.shape[1])])
+        else:
+            out[k] = meshlib.full_rows(t, mesh)[:v_rows]
+    return out
+
+
+def restore_state(state: dict, whole: dict, mesh) -> None:
+    """The inverse of :func:`whole_state`, in place on this rank's slices:
+    ``whole`` (tensors or arrays in the single-device layout) gives each
+    slice its rows; padding rows and scratch rows keep their values."""
+    for k, t in state.items():
+        if k == "count":
+            state[k] = int(np.asarray(whole[k]))
+        elif k in ("mv", "pmv"):
+            meshlib.set_local_rows(t[:-1], whole[k][:-1], mesh)
+        else:
+            meshlib.set_local_rows(t, whole[k], mesh)
+
+
 def state_moments(state: dict, v_rows: int, embed_dim: int, n_model: int, mesh=None):
     """(m, v) as [V, E] numpy arrays, for parity checks against a
     single-device state.  ``state`` is the stacked state (every shard's

@@ -19,6 +19,14 @@ seeks.  The JAX package's PRNG key has its counterpart in the trainer's
 generator on the card is saved the same way.  Leaves are flattened with
 ``core/checkpoint.flatten``'s key paths; bf16 leaves are stored as their
 bits.
+
+Mesh trainers: every rank gathers its row blocks into the layout a
+single-device trainer saves (the same keys and arrays; padding rows cut),
+rank 0 writes it, and on resume each rank takes its rows back.  A mesh's
+snapshot thus equals the single-device trainer's at the same step (at a
+(1, N) mesh, whose steps are the single-device ones) and loads on either.
+The loop meta holds the trainer's step count (``"steps"``), which names
+the sampling stream of a mesh trainer's next step.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dismember_tpu_torch.core.checkpoint import flatten, to_numpy, to_tensor
 
@@ -39,9 +48,18 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_step_state(path: str, tree: Any, meta: dict) -> None:
+def save_step_state(path: str, tree: Any, meta: dict, mesh=None) -> None:
     """Atomically persist nested dicts and lists of arrays (tensors, numpy
-    arrays or Python numbers) and JSON-able loop meta."""
+    arrays or Python numbers) and JSON-able loop meta.  With a ``mesh``
+    every rank calls it with the same whole ``tree``: rank 0 writes the
+    file, and every rank waits at a barrier until it is in place."""
+    if mesh is None or dist.get_rank() == 0:
+        _write(path, tree, meta)
+    if mesh is not None:
+        dist.barrier()
+
+
+def _write(path: str, tree: Any, meta: dict) -> None:
     arrays = {k: to_numpy(v) for k, v in flatten(tree).items()}
     if _META_KEY in arrays:
         raise ValueError(f"leaf name collides with {_META_KEY}")
@@ -62,6 +80,18 @@ def load_step_state(path: str, like: Any) -> tuple[Any, dict] | None:
     with np.load(dest) as data:
         meta = json.loads(bytes(data[_META_KEY]).decode("utf-8"))
         return _fill(like, "", data), meta
+
+
+def saved_steps(meta: dict, mesh=None) -> int:
+    """The trainer's step count a snapshot's meta holds (``"steps"``): a
+    mesh trainer draws each step's samples from that step's stream.  A
+    snapshot without it (the JAX package's) resumes a single-device
+    trainer, which draws from its generator and needs no count."""
+    if "steps" in meta:
+        return int(meta["steps"])
+    if mesh is not None:
+        raise ValueError("the snapshot holds no step count; a mesh trainer cannot resume it")
+    return 0
 
 
 def _fill(node, prefix: str, data):

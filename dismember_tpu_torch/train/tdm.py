@@ -214,7 +214,7 @@ class TDMTrainer(RowStepTrainer):
             self.model.embedding.data = self.model.embedding.data.to(torch.bfloat16)
         # pmv mode: the embedding is a MIRROR of the packed p|m|v state,
         # re-materialized by _sync_mirrors at eval/train boundaries
-        self._init_optimizer(sparse, self.sparse_format)
+        self._init_optimizer(sparse, self.sparse_format, logical_rows=base_num_index)
         self._gen = torch.Generator(device=self.device)
         self._mesh_steps = 0
         self._beam_fn = None
@@ -232,17 +232,17 @@ class TDMTrainer(RowStepTrainer):
         generator (the single-device draws) and keeps its rows, the sparse
         step samples its rows from the (seed, step, data index) stream
         (``spmd_sparse.shard_generator``)."""
+        step = self._mesh_steps
+        self._mesh_steps += 1
         if self.mesh is None:
             return self.step_from_samples(seq_codes, *self.sample(target_codes))
         rows = lambda t: meshlib.data_rows(t, self.mesh)  # noqa: E731
         if self._sparse:
             gen = spmd_sparse.shard_generator(
-                self.seed, self._mesh_steps, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS),
-                self.device)
+                self.seed, step, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS), self.device)
             samples = self.sampler.sample(gen, rows(target_codes))
         else:
             samples = [rows(t) for t in self.sample(target_codes)]
-        self._mesh_steps += 1
         return self.step_from_samples(rows(seq_codes), *samples)
 
     @torch.inference_mode()
@@ -286,7 +286,7 @@ class TDMTrainer(RowStepTrainer):
         self._mesh_steps = 0
         start_it, pos = 1, 0
         if checkpoint_path:
-            loaded = step_resume.load_step_state(checkpoint_path, self._step_state())
+            loaded = step_resume.load_step_state(checkpoint_path, self._local_step_state())
             if loaded is not None:
                 st, meta = loaded
                 self._restore_step_state(st)
@@ -295,6 +295,7 @@ class TDMTrainer(RowStepTrainer):
                 perm = rng.permutation(n) if shuffle else np.arange(n)
                 pos = int(meta["pos"])
                 start_it = int(meta["iteration"]) + 1
+                self._mesh_steps = step_resume.saved_steps(meta, self.mesh)
                 logger.info(f"resumed step checkpoint {checkpoint_path} at iteration "
                             f"{meta['iteration']} (pos {pos})")
         logs: list[dict] = []
@@ -330,7 +331,8 @@ class TDMTrainer(RowStepTrainer):
                     and it < iterations:
                 step_resume.save_step_state(
                     checkpoint_path, self._step_state(),
-                    {"iteration": it, "pos": pos, "rng_before_perm": rng_before_perm})
+                    {"iteration": it, "pos": pos, "rng_before_perm": rng_before_perm,
+                     "steps": self._mesh_steps}, self.mesh)
                 logger.info(f"step checkpoint saved at iteration {it}")
         self._sync_mirrors()
         return logs

@@ -141,6 +141,26 @@ def test_cooccurrence_embeddings_match_jax_numpy_path(monkeypatch, n_iters):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("n_iters", [1, 6])
+def test_cooccurrence_embeddings_equal_jax_with_both_native_libraries(n_iters):
+    """Both packages' native operator passes loaded: the two packages'
+    features are equal bit for bit (each pass sums a segment's edges in
+    order; numpy's ``reduceat`` would differ from it by ~1 ulp)."""
+    import dismember_tpu.data.native as jnative
+    from dismember_tpu_torch.data import native
+
+    assert native.get_lib() is not None and jnative.get_lib() is not None
+    rng = np.random.default_rng(1)
+    n_items, per = 600, 20
+    g = rng.integers(0, n_items // per, size=4000)
+    seqs = g[:, None] * per + rng.integers(0, per, size=(4000, 8))
+    seqs[rng.random(seqs.shape) < 0.1] = -1
+    targets = g * per + rng.integers(0, per, size=4000)
+    got = T.cooccurrence_embeddings(seqs, targets, n_items, dim=16, n_iters=n_iters)
+    ref = J.cooccurrence_embeddings(seqs, targets, n_items, dim=16, n_iters=n_iters)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
 def test_tree_cluster_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ids, x = np.arange(1, 6), blobs(5)

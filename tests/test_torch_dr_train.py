@@ -240,8 +240,10 @@ def test_aggregation_and_greedy_match_jax_bit_for_bit(mode, iters):
     for a, b in zip(agg(_Beam(n_items, paths, probs), seqs, targets, c, 128),
                     jagg(_Beam(n_items, paths, probs), seqs, targets, c, 128)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item e"):
-        dc.coordinate_descent(_Beam(n_items, paths, probs), seqs, targets, greedy="native")
+    # the native select (the port's host library) picks the Python loop's paths
+    native = dc.coordinate_descent(_Beam(n_items, paths, probs), seqs, targets,
+                                   greedy="native", **kw)
+    np.testing.assert_array_equal(native.item_paths, got.item_paths)
 
 
 def test_coordinate_descent_keeps_a_valid_assignment(datas):

@@ -192,7 +192,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tree_path, tmp_path, monkeyp
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "dismember_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "dismember_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "examples" / "recommend_demo_torch.py"]
     assert len(files) > 10
     banned = ("jax", "jaxlib", "dismember_tpu", "ml_dtypes")
     for f in files:
