@@ -29,7 +29,7 @@ Phases, one JSON line each; any failed check raises and fails the run:
      E = 8 and 32 (``kernels_at_width``: K1 at [4096, 40], [8192, 4],
      [8192, 2] and predict's row, K3 at [4096, 20] on f32 and bf16 rows
      with the control at each width, at E = 32 also beam 110, beam 1,000
-     past one launch and L = 24), timed as at E = 16;
+     in one launch and L = 24), timed as at E = 16;
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -416,19 +416,22 @@ RESUME_ITERS, RESUME_EVERY, RESUME_KILLED_AT = 40, 10, 25
 BF16_ITERS = 30
 # the widths K1 and K3 are built for beside E (8: the JAX package's kernel
 # and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
-# scripts/quality_push.py's, the wide phase's), and the registers a thread
-# of each instance may use (their launch bounds): K1 and the one-tile K3 64
-# at E = 8 and 16, 128 at E = 32; the wide K1 128 at E = 64 (two blocks
-# of 256 threads an SM) and 255 past it (one block an SM, by its shared
-# memory: 135 and 211 KB at E = 96 and 128); the multi-tile K3 255 up to
-# E = 32; past it K3's warpgroup plan 168 where a block holds three
-# warpgroups (one sequence tile at E = 96 and, on bf16 rows, at 128; more
-# at E = 64), else 255; a key with the row type overrides one without
+# scripts/quality_push.py's, the wide phase's), the widths whose K3 runs
+# on the warpgroup plan (wgmma), and the registers a thread of each
+# instance may use (their launch bounds): K1 and the one-tile K3 64 at E =
+# 8 and 16, K1 128 at E = 32; the wide K1 128 at E = 64 (two blocks of 256
+# threads an SM) and 255 past it (one block an SM, by its shared memory:
+# 135 and 211 KB at E = 96 and 128); the multi-tile K3 255 at E = 8 and
+# 16; K3's warpgroup plan 168 where a block holds three warpgroups (one
+# sequence tile at E = 32, 96 and, on bf16 rows, 128; more at E = 64), else
+# 255 (two warpgroups a block); a key with the row type overrides one
+# without
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
+K3_WGMMA = (32, *WIDE)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
             ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
-            **{("one-tile", e): 64 if e <= 16 else 128 if e == 32 else 168 if e == 96 else 255
+            **{("one-tile", e): 64 if e <= 16 else 168 if e in (32, 96) else 255
                for e in (8, 16, 32, *WIDE)},
             ("one-tile", 128, "bf16"): 168,
             **{("tiles", e): 168 if e == 64 else 255 for e in (8, 16, 32, *WIDE)}}
@@ -719,14 +722,14 @@ def mma_counts(lib_path: Path) -> dict:
 def tensor_core_gate(counts: dict) -> list[str]:
     """The instances that fail the build's tensor-core gate (mma_counts):
     every K3 instance and every wide K1 (E >= 64, its h product in 3xTF32)
-    must hold HMMA or HGMMA, and every wide K3 instance HGMMA (its weight
-    products on wgmma)."""
+    must hold HMMA or HGMMA, and every K3 instance of the warpgroup plan
+    (K3_WGMMA: E >= 32) HGMMA (its weight products on wgmma)."""
     expected = {f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
                 for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in WIDE}
     none = {"HMMA": 0, "HGMMA": 0}
     return sorted(n for n in expected
                   if not sum(counts.get(n, none).values())
-                  or n.startswith("K3") and int(n.split()[1][2:]) in WIDE
+                  or n.startswith("K3") and int(n.split()[1][2:]) in K3_WGMMA
                   and not counts.get(n, none)["HGMMA"])
 
 
@@ -2681,8 +2684,8 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
     the sweep's [8192, 4] and [8192, 2] and predict's one row of every
     catalog item (past E = 32 also [4096, 40] at L = 24); K3 at [4096, 20]
     on f32 and bf16 rows, each with the f32-scorer control, which must fail
-    K3's check; k3_wide_cases at E = 32 on f32 rows and past E = 32 on
-    both row types.  The serving and sweep shapes (past E
+    K3's check; k3_wide_cases from E = 32 on (K3_WGMMA) on both row
+    types.  The serving and sweep shapes (past E
     = 32 also L = 24) are timed warm and cold, beside the plain version and
     the bound."""
     g = torch.Generator().manual_seed(SEED + 40 + e)
@@ -2719,7 +2722,7 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
                         shape=[b, BEAM, rows.shape[2], l, e], control_f32_scorer=control)
         del rows, alive, blk
     for dt, name in K3_ROWS.items():
-        if e == 32 and dt == torch.float32 or e in WIDE:
+        if e in K3_WGMMA:
             k3[name].update(k3_wide_cases(dev, g, e, dt, weights, flush))
     torch.cuda.synchronize()
     return {"din_score": k1, **k3}
@@ -2729,10 +2732,9 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
                   flush: torch.Tensor) -> dict:
     """K3 at width ``e`` on ``dt`` rows past the serving shape, against its
     plain version: beam 110 (the example catalog's widest recommend) and L =
-    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000]: at E
-    = 32 in two launches (~746 f32 parents fit one launch at L <= 16 on an
-    H100), past it in one (the warpgroup plan's shared memory does not grow
-    with the beam), with the single-launch limit."""
+    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000] in
+    one launch (from E = 32 on the warpgroup plan's shared memory does not
+    grow with the beam), with the single-launch limit."""
     lib = _cuda.library()
     limit = (lib.packed_level_max_beam_bf16rows if dt == torch.bfloat16
              else lib.packed_level_max_beam)(SEQ_LEN, e)
@@ -2751,7 +2753,7 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
             **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
         del rows, alive, s_e, s_pad
     launches = wide[f"beam{past}_l{SEQ_LEN}"]["launches"]
-    check(launches == -(-past // limit) and (launches == 1) == (e in WIDE),
+    check(launches == -(-past // limit) and (launches == 1) == (e in K3_WGMMA),
           f"beam {past} at E={e}: {launches} launches at the width's limit ({limit})")
     return {"wide": wide, "max_beam_l10": limit}
 
@@ -3891,7 +3893,7 @@ def main() -> int:
     check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
-    # K3 and the wide K1 on the tensor cores, the wide K3 on wgmma
+    # K3 and the wide K1 on the tensor cores, K3 from E = 32 on (K3_WGMMA) on wgmma
     no_mma = tensor_core_gate(mma)
     check(not no_mma, f"instances without their tensor-core instructions (HMMA, HGMMA): {no_mma}")
 

@@ -41,18 +41,18 @@ per probability instead of one reciprocal a row).  The probes other than
 ``div``, ``k1_regs48`` and ``k1_head_unroll2`` compute wrong scores and
 only split the time.
 
-``--wide`` instead times K3 at E = 64, 96 and 128 (WIDE_CASES: f32 and
-bf16 rows at [4096, 20, L 10], beam 110 and L = 24; chip_smoke.py's
-inputs and weights at each width) for ``base`` where given and this tree,
-in turns, warm and cold, after checking each against K3's plain version
-(K3's tolerance and flip share, id digits and the dead mask bit for bit;
-``bitwise_equal_to_...`` says whether the scores equal the first
-version's), then this tree's variants (WIDE_PROBES: two design steps,
-checked as the versions are, and probes that split the time), warm, and
-each case's bound.  With ``--base`` it first asserts that the SASS of K1
-(every width), of K3 at E <= 32 and of K2 (``write_kernel``, the write and
-the add) equals the base's; it prints the wide K3 instances' HMMA and
-HGMMA counts.
+``--wide`` instead times K3's warpgroup plan at E = 32, 64, 96 and 128
+(WIDE_CASES: f32 and bf16 rows at [4096, 20, L 10], beam 110 and L = 24;
+chip_smoke.py's inputs and weights at each width) for ``base`` where given
+and this tree, in turns, warm and cold, after checking each against K3's
+plain version (K3's tolerance and flip share, id digits and the dead mask
+bit for bit; ``bitwise_equal_to_...`` says whether the scores equal the
+first version's), then this tree's variants (WIDE_PROBES: design steps
+and E = 32's block sizes, checked as the versions are, and probes that
+split the time), warm, and each case's bound.  With ``--base`` it first
+asserts that the SASS of K1 (every width), of K3 at E <= 16 and of K2
+(``write_kernel``, the write and the add) equals the base's; it prints the
+warpgroup plan's K3 instances' HMMA and HGMMA counts.
 
 ``--wide-k1`` instead times K1 at E = 64, 96 and 128 (WIDE_K1_CASES: the
 serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
@@ -79,7 +79,7 @@ base's.
 
 ``--k3-e32-draws N`` instead holds this tree's K3 at E = 32 on f32 rows
 against its plain version over N fresh draws of the serving shape [4096,
-20] and of beam 1,000 ([256, 1000], two launches), with the scorer's
+20] and of beam 1,000 ([256, 1000], one launch), with the scorer's
 weights at N(0, 0.5) and at N(0, 0.5 sqrt(16 / 32)): per weight scale the
 largest error, the largest share beyond K1's tolerance, the largest error
 over K3's tolerance, the largest error by |logit| band, the logits' std,
@@ -152,17 +152,21 @@ PROBES = {
             ("for (int i = 0; i < 2; ++i) s[j][2 * h + i] *= inv;",
              "for (int i = 0; i < 2; ++i) s[j][2 * h + i] /= sum_q;")],
 }
-# --wide's variants of this tree's K3 at E >= 64 (packed_level_wgmma_kernel).
-# Two design steps taken back, computing K3 and checked as the versions
-# are: k3w_wg2, two warpgroups a block at every width; k3w_att_scalar,
-# att's B fragments read a lane at a time (no att_k order).  Probes that
+# --wide's variants of this tree's K3 at E >= 32 (packed_level_wgmma_kernel).
+# Design steps taken back, computing K3 and checked as the versions are:
+# k3w_wg2, two warpgroups a block at every width; k3w_att_scalar, att's B
+# fragments read a lane at a time (no att_k order); k3w_e32_g<G>b<M>, E =
+# 32's block at G warpgroups with its register cap set for M blocks an SM
+# (timed at E = 32 only; this tree's is g3b1 on one sequence tile, g2b1
+# past it).  Probes that
 # only split the time (wrong scores): k3w_empty, the weights filled and no
 # tile; k3w_loads_only, the tiles' loads and stores without the per-query
 # part or the weight products; k3w_no_attention, without the per-query
 # part (att zero, no sequence read); k3w_no_wgmma, without the weight
 # products (h zero).
-K3W_GROUPS = ("    kOneTile && (E == 96 || E == 128 && sizeof(Row) == 2) || E == 64 && !kOneTile "
-              "? 3 : 2;")
+K3W_GROUPS = ("    kOneTile && (E == 32 || E == 96 || E == 128 && sizeof(Row) == 2) || "
+              "E == 64 && !kOneTile\n        ? 3\n        : 2;")
+K3W_BOUNDS = "__global__ void __launch_bounds__(kWgThreads<kOneTile, Row, E>, 1)\n"
 K3W_ATTENTION = ("    tile_attention<kOneTile, E>(acc, a_item, seq_e + (size_t)b * L * E, "
                  "pad + (size_t)b * L, L,\n                                g, t);")
 K3W_PRODUCTS = "    wg_products<E>(h, ae, a_item, w);"
@@ -188,9 +192,14 @@ WIDE_PROBES = {
     "k3w_loads_only": [(K3W_ATTENTION, "    zero(acc);"), (K3W_PRODUCTS, K3W_NO_PRODUCTS)],
     "k3w_no_attention": [(K3W_ATTENTION, "    zero(acc);")],
     "k3w_no_wgmma": [(K3W_PRODUCTS, K3W_NO_PRODUCTS)],
+    **{f"k3w_e32_g{gr}b{mb}": [
+        (K3W_GROUPS, f"    E == 32 ? {gr} :{K3W_GROUPS[3:]}"),
+        (K3W_BOUNDS, K3W_BOUNDS.replace(", 1)", f", E == 32 ? {mb} : 1)"))]
+       for gr, mb in ((2, 1), (2, 2), (3, 1), (3, 2), (2, 3), (4, 1), (4, 2), (2, 4))},
 }
 # the design steps among them, held to K3's tolerance like the versions
-WIDE_CHECKED = ("k3w_wg2", "k3w_att_scalar")
+WIDE_CHECKED = ("k3w_wg2", "k3w_att_scalar",
+                *(p for p in WIDE_PROBES if p.startswith("k3w_e32_")))
 # --wide-k1's probes: this tree's wide K1 with a pass taken out
 WIDE_K1_PROBES = {
     "k1w_empty": [("  constexpr int kW = wide_weight_floats<E>(), R = kWideRow<E>, NB",
@@ -236,11 +245,11 @@ WIDE_K1_PROBES = {
 WIDE_K1_CASES = [(e, b, u, l) for e in (64, 96, 128)
                  for b, u, l in ((B, 2 * BEAM, L), (cs.SWEEP_ROWS, cs.SWEEP_U, L),
                                  (B, 2 * BEAM, 24))]
-# --k3-e32-draws: the beam past one launch (chip_smoke.k3_wide_cases's at E =
-# 32) and the |logit| bands the largest errors are read in
+# --k3-e32-draws: chip_smoke.k3_wide_cases's widest beam (one launch from E =
+# 32 on) and the |logit| bands the largest errors are read in
 K3_DRAW_PAST, K3_DRAW_BANDS = (256, 1000), (0.0, 1.0, 2.0, 5.0, 10.0, float("inf"))
 # --wide's K3 cases: (E, row dtype, batch, beam, L)
-WIDE_CASES = [(e, dt, B, beam, l) for e in (64, 96, 128) for dt in (torch.float32, torch.bfloat16)
+WIDE_CASES = [(e, dt, B, beam, l) for e in cs.K3_WGMMA for dt in (torch.float32, torch.bfloat16)
               for beam, l in ((20, 10), (110, 10), (20, 24))]
 
 
@@ -345,8 +354,9 @@ def wide(libs: dict) -> None:
     flush = torch.empty(64 << 20, device=dev)
     g = torch.Generator().manual_seed(cs.SEED + 8)
     versions = [v for v in ("base", "new") if v in libs]
-    variants = [v for v in libs if v in WIDE_PROBES]
     for e, dt, b, beam, l in WIDE_CASES:
+        variants = [v for v in libs if v in WIDE_PROBES
+                    and (e == 32 or not v.startswith("k3w_e32_"))]
         weights = tuple(t.detach() for t in params_from_numpy(
             cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
             .scorer_weights())
@@ -394,13 +404,14 @@ def wide(libs: dict) -> None:
 def sass_equal_outside(old: dict, new: dict, redesigned: str) -> bool:
     """Whether every kernel of the base library (K1, K3 and K2's
     write_kernel, the write and the add) but those of the redesigned
-    instances ("K1": the wide K1 and its prologue; "K3": the wide K3) has
-    the same SASS in the new one; the first differing instruction of each
-    that differs is printed."""
+    instances ("K1": the wide K1 and its prologue, E >= 64; "K3": K3 at E
+    >= 32, the warpgroup plan's widths) has the same SASS in the new one;
+    the first differing instruction of each that differs is printed."""
     groups, diffs = {}, {}
+    first = {"K1": 64, "K3": min(cs.K3_WGMMA)}[redesigned]
     for name, ins in old.items():
         inst = cs.instance_name(name)
-        if inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) >= 64:
+        if inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) >= first:
             continue
         group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
         if group is None:
@@ -414,7 +425,7 @@ def sass_equal_outside(old: dict, new: dict, redesigned: str) -> bool:
                            "base": ins[i:i + 2], "new": other[i:i + 2]}
     same = set(groups) == {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
     cs.emit({"sass_identical": {g: all(v) for g, v in groups.items()}, "all": same,
-             "outside": f"the wide {redesigned}",
+             "outside": f"{redesigned} from E = {first} on",
              "functions": {g: len(v) for g, v in groups.items()},
              "first_diffs": dict(list(diffs.items())[:4])})
     return same
@@ -476,8 +487,8 @@ def wide_k1(libs: dict) -> None:
 
 def k3_e32_draws(n: int) -> None:
     """--k3-e32-draws: K3 at E = 32 on f32 rows over ``n`` fresh draws a
-    weight scale, through its wrapper (beam 1,000 split at the card's
-    limit), against its plain version."""
+    weight scale, through its wrapper (beam 1,000 in one launch), against
+    its plain version."""
     from dismember_tpu_torch.ops import packed_level_kernel as plk
     from dismember_tpu_torch.ops.din_kernel import din_score
 
@@ -536,7 +547,7 @@ def main() -> int:
     ap.add_argument("--base", type=Path, help="directory holding another version's *.cu")
     ap.add_argument("--probe", action="store_true", help="time K1 and K3 probe variants too")
     ap.add_argument("--wide", action="store_true",
-                    help="time K3 at E = 64, 96 and 128 and its variants instead")
+                    help="time K3 at E = 32, 64, 96 and 128 and its variants instead")
     ap.add_argument("--wide-k1", action="store_true",
                     help="time K1 at E = 64, 96 and 128 and its probes instead")
     ap.add_argument("--k3-e32-draws", type=int, metavar="N",
@@ -575,11 +586,11 @@ def main() -> int:
     libs = {label: load(label) for label in sources}
     if args.wide:
         tc = {k: v for k, v in cs.mma_counts(OUT / "new" / "lib.so").items()
-              if k.startswith("K3") and int(k.split()[1][2:]) >= 64}
+              if k.startswith("K3") and int(k.split()[1][2:]) in cs.K3_WGMMA}
         cs.emit({"sass_mma": "new", **tc})
         same = sass_equal_outside(sass("base"), sass("new"), "K3") if args.base else True
         wide(libs)
-        cs.check(same, "SASS outside the wide K3 differs from the base's")
+        cs.check(same, "SASS outside K3's warpgroup plan differs from the base's")
         return 0
     if args.wide_k1:
         ops = {}

@@ -1,4 +1,4 @@
-"""K3's warpgroup plan at E = 64, 96 and 128, held on the CPU.
+"""K3's warpgroup plan at E = 32, 64, 96 and 128, held on the CPU.
 
 The CUDA kernel (``packed_level_wgmma_kernel`` in ``csrc/din_kernels.cu``)
 runs only on the card.  Here a plain-PyTorch emulation of its schedule
@@ -8,9 +8,9 @@ pairs in block order, four consecutive tiles gathered into one 64-row
 tile across query rows, each tile's scores, softmax and att against its
 own query row, then att_lin and h on the 64-row tiles with the contract's
 bf16 roundings and the item operand in the kernel's k order, masks and
-digits put back in block order.  Also the build gate that holds the wide
-K3 instances to wgmma, and the wrapper's single launch at a beam the
-E <= 32 plan had to split."""
+digits put back in block order.  Also the build gate that holds K3's
+instances from E = 32 on to wgmma, and the wrapper's single launch at a
+beam the narrow plan had to split."""
 
 import re
 from pathlib import Path
@@ -170,6 +170,8 @@ def _hold(got, want, rows):
 
 
 @pytest.mark.parametrize("e,beam,l,dtype", [
+    *((32, beam, l, dt) for dt in (torch.float32, torch.bfloat16)  # two k-steps, four n-tiles
+      for beam, l in ((1, 10), (20, 10), (110, 10), (20, 24))),
     (64, 1, 10, torch.float32),     # four query rows in one 64-row tile
     (64, 7, 24, torch.float32),     # one 16-row tile a row, two sequence tiles
     (128, 20, 10, torch.float32),   # 3 tiles a row: rows straddle 64-row tiles
@@ -188,7 +190,7 @@ def test_schedule_matches_the_plain_level(e, beam, l, dtype):
     _hold(got, want, rows)
 
 
-@pytest.mark.parametrize("e,beam", [(64, 7), (128, 20)])
+@pytest.mark.parametrize("e,beam", [(32, 20), (64, 7), (128, 20)])
 def test_schedule_matches_pallas(e, beam):
     """Against the JAX package's Pallas level body in interpret mode, as
     tests/test_torch_wide_widths.py runs it, on the JAX layout's f32 rows."""
@@ -223,65 +225,77 @@ def test_k_orders_are_the_fragment_layouts():
     assert "constexpr int att_k(int k) { return 2 * (k & 7) + (k >> 3); }" in src
 
 
-@pytest.mark.parametrize("bad", ["K3 E=64 f32 one-tile", "K3 E=128 bf16 tiles"])
+@pytest.mark.parametrize("bad", ["K3 E=64 f32 one-tile", "K3 E=128 bf16 tiles",
+                                 "K3 E=32 f32 one-tile", "K3 E=32 bf16 tiles"])
 def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
-    """chip_smoke's build gate: a wide K3 instance on mma.sync alone (HMMA,
-    no HGMMA) fails it, as does any K3 or wide K1 instance without either;
-    the E <= 32 K3 and the wide K1 pass on HMMA alone."""
+    """chip_smoke's build gate: a K3 instance of the warpgroup plan (E >=
+    32, E = 32 included since it moved onto that plan) on mma.sync alone
+    (HMMA, no HGMMA) fails it, as does any K3 or wide K1 instance without
+    either; K3 at E = 8 and 16 and the wide K1 pass on HMMA alone."""
     import chip_smoke
 
     mangled = {"K3 E=64 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi64EEvPKT0_",
                "K3 E=128 bf16 tiles":
-                   "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li128EEvPKT0_"}[bad]
+                   "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li128EEvPKT0_",
+               "K3 E=32 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi32EEvPKT0_",
+               "K3 E=32 bf16 tiles":
+                   "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li32EEvPKT0_"}[bad]
     assert chip_smoke.instance_name(f"_ZN12_GLOBAL__N_1{len('packed_level_wgmma_kernel')}"
                                     f"{mangled}") == bad
     counts = {n: {"HMMA": 4, "HGMMA": 0} for n in (
         {f"K3 E={e} {r} {t}" for e in (8, 16, 32, 64, 96, 128) for r in ("f32", "bf16")
          for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in (64, 96, 128)})}
     for n in counts:
-        if n.startswith("K3") and int(n.split()[1][2:]) >= 64:
+        if n.startswith("K3") and int(n.split()[1][2:]) >= 32:
             counts[n]["HGMMA"] = 24
     assert chip_smoke.tensor_core_gate(counts) == []
     counts[bad] = {"HMMA": 40, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == [bad]
     counts["K1 E=96"] = {"HMMA": 0, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == sorted([bad, "K1 E=96"])
-    assert chip_smoke.reg_cap(bad) == 255
+    assert chip_smoke.reg_cap(bad) == (168 if bad == "K3 E=32 f32 one-tile" else 255)
 
 
 def test_wrapper_launches_a_wide_beam_once(monkeypatch):
-    """At E = 128 the wrapper takes beam 1,500 in one launch on a library
-    whose single-launch limit is the warpgroup plan's (kWgMaxBeam), where
-    the E <= 32 plan split a beam past its staging (~116 f32 parents)."""
-    m = re.search(r"constexpr int kWgMaxBeam = \(1 << (\d+)\) - (\d+);", CSRC.read_text())
+    """At E = 32 and 128 the wrapper takes beam 1,500 in one launch on a
+    library whose single-launch limit is the warpgroup plan's (kWgMaxBeam)
+    from the width the source puts on that plan (kWgmmaLevel), where the
+    narrow plan split a beam past its staging (~116 f32 parents at E = 128,
+    ~746 at E = 32)."""
+    src = CSRC.read_text()
+    m = re.search(r"constexpr int kWgMaxBeam = \(1 << (\d+)\) - (\d+);", src)
     limit = (1 << int(m[1])) - int(m[2])
+    first = int(re.search(r"constexpr bool kWgmmaLevel = E >= (\d+);", src)[1])
+    assert first == 32
     calls = []
 
     class _Lib:
         def packed_level_max_beam(self, l, e):
-            return limit if e >= 64 else 116
+            return limit if e >= first else 116
 
         def packed_level_bf16(self, *args):
             calls.append(args[11:16])  # B, beam, row width, L, E
             return 0
 
-    e, b, beam, l = 128, 2, 1500, 10
     monkeypatch.setattr(_cuda, "library", lambda: _Lib())
     monkeypatch.setattr(_cuda, "stream_handle", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda i: __import__("contextlib").nullcontext())
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
-    packed_level_kernel._kernel_max_beam.cache_clear()
-    w = [t.as_subclass(_FakeCuda) for t in
-         params_from_numpy(_params(np.random.default_rng(0), e), device="cpu").scorer_weights()]
     fake = lambda *s: torch.zeros(*s).as_subclass(_FakeCuda)  # noqa: E731
-    n0 = packed_level_kernel.launches_by_width[e, torch.float32]
-    try:
-        scores, hilo = packed_level(fake(b, beam, pair_row_width(e)), fake(b, beam),
-                                    fake(b, l, e), fake(b, l), *w, e)
-    finally:
+    b, beam, l = 2, 1500, 10
+    for e in (32, 128):
+        calls.clear()
         packed_level_kernel._kernel_max_beam.cache_clear()
-    assert calls == [(b, beam, pair_row_width(e), l, e)]
-    assert scores.shape == (b, 2 * beam) and hilo.shape == (b, 2 * beam, 2)
-    assert packed_level_kernel.launches_by_width[e, torch.float32] == n0 + 1
+        w = [t.as_subclass(_FakeCuda) for t in params_from_numpy(
+            _params(np.random.default_rng(0), e), device="cpu").scorer_weights()]
+        n0 = packed_level_kernel.launches_by_width[e, torch.float32]
+        try:
+            scores, hilo = packed_level(fake(b, beam, pair_row_width(e)), fake(b, beam),
+                                        fake(b, l, e), fake(b, l), *w, e)
+        finally:
+            packed_level_kernel._kernel_max_beam.cache_clear()
+        assert calls == [(b, beam, pair_row_width(e), l, e)]
+        assert scores.shape == (b, 2 * beam) and hilo.shape == (b, 2 * beam, 2)
+        assert packed_level_kernel.launches_by_width[e, torch.float32] == n0 + 1
