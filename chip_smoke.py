@@ -111,8 +111,10 @@ Phases, one JSON line each; any failed check raises and fails the run:
      catalog, bit for bit; K3 on bf16 rows against its plain version at the
      serving shape, timed; step resume on the card (example catalog, dense
      and pmv) against an uninterrupted run, bitwise; a bf16 embedding table
-     (example catalog, mv) twice from one seed, bitwise, with every bf16
-     add checked against its plain version and timed beside ``index_add_``;
+     (example catalog, mv) for DIN and for DeepFM, each twice from one
+     seed, bitwise, with every bf16 add checked against its plain version,
+     one ``add_rows_bf16`` and one K2 launch a step, and the last add timed
+     beside ``index_add_``;
   native: the port's host library against the Python forms, host time on
      the card machine's CPU: bench.py's index-learning cell (100k items,
      400k rows, streaming coordinate descent) with the native and the
@@ -136,7 +138,12 @@ Phases, one JSON line each; any failed check raises and fails the run:
      up to near ties; configs/otm.conf with DeepFM (epoch cut as in
      otm_example): train -> construct -> retrain -> ``OTMServing``; DeepFM
      at 1M items (pmv, every K2 commit of the audited steps bit for bit,
-     the packed route on the f32 table, timed); no K1 or K3 launch;
+     the packed route on the f32 table, timed), then on a bf16 embedding
+     table (auto route mv: every K2 commit and bf16 add of the audited
+     steps bit for bit, one of each a step; served on the packed route
+     over an f32 pair table against the classic route up to near ties,
+     timed; the commit and the add timed warm and cold beside
+     ``index_copy_`` / ``index_add_``); no K1 or K3 launch;
   reference_recall: ROADMAP item 5's check, scripts/sparse_quality_check.py's
      protocol (tdm.conf's trainer, 2000 dense iterations, E = 16, category
      tree, the whole eval split) for DIN and DeepFM at seeds 0-2: each
@@ -1135,12 +1142,12 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- row kernels
 def row_case(name: str, table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
-             flush: torch.Tensor) -> dict:
+             flush: torch.Tensor, warm: bool = False) -> dict:
     """``name`` ("write_rows" or "add_rows") against its plain version bit
     for bit on copies of ``table``, then the raw launch's, the plain
     version's and the one-call library version's times on ``table``, each
     from a cold L2 (a step's rows land anywhere in a table far larger than
-    L2)."""
+    L2); ``warm`` adds the raw launch's time warm in L2 (``warm_ms``)."""
     add = name == "add_rows"
     wrapper, plain = ((row_writer.add_rows, row_writer.add_rows_plain) if add else
                       (row_writer.write_rows, row_writer.write_rows_plain))
@@ -1159,9 +1166,11 @@ def row_case(name: str, table: torch.Tensor, idx: torch.Tensor, rows: torch.Tens
     written, by, op = row_bound(idx, table.shape[0], table.shape[1], add, table.element_size())
     library = ((lambda: table.index_add_(0, kept, kept_rows)) if add else
                (lambda: table.index_copy_(0, kept, kept_rows)))
-    t = time_ms(lambda: _cuda.check_launch(name, fn(*args)), flush=flush)
+    launch = lambda: _cuda.check_launch(name, fn(*args))  # noqa: E731
+    t = time_ms(launch, flush=flush)
     return {"table": list(table.shape), "rows": idx.shape[0], "rows_written": written,
             "bit_exact": exact, "max_abs_err": err, **t,
+            **(time_ms(launch, "warm_") if warm else {}),
             "ns_per_row": t["ms"] * 1e6 / idx.shape[0],
             **time_ms(lambda: plain(table, idx, rows), "plain_", flush=flush),
             **time_ms(library, "library_", flush=flush), "bound_ms": by, "bound_by": op}
@@ -2598,17 +2607,19 @@ def resume_on_card(dev, tree_path: str, samples) -> dict:
     return out
 
 
-def bf16_tables(dev, tree_path: str, samples, flush) -> dict:
-    """A bf16 embedding table on the example catalog (sparse, auto format:
-    mv), trained twice from one seed: bitwise equal; every bf16 add of the
-    first run checked bit for bit against its plain version on a copy of
-    its table, then the last one timed beside ``index_add_``."""
+def bf16_tables(dev, tree_path: str, samples, flush, model_type: str = "din") -> dict:
+    """A bf16 embedding table of ``model_type``'s scorer on the example
+    catalog (sparse, auto format: mv), trained twice from one seed: bitwise
+    equal; every bf16 add of the first run checked bit for bit against its
+    plain version on a copy of its table, one ``add_rows_bf16`` and one K2
+    launch a step, then the last add timed beside ``index_add_``."""
     tree = ArrayTree.from_file(tree_path)
     make = lambda: TDMTrainer(tree=tree, seed=SEED, device=dev,  # noqa: E731
-                              embed_dtype=torch.bfloat16, sparse_embed_update=True, **TDM_CONF)
+                              model_type=model_type, embed_dtype=torch.bfloat16,
+                              sparse_embed_update=True, **TDM_CONF)
     a = make()
     check(a._sparse and not a._pmv and a.model.embedding.dtype == torch.bfloat16,
-          "bf16 table: the auto format is not mv")
+          f"bf16 {model_type} table: the auto format is not mv")
     seen = {"calls": 0, "max_abs_err": 0.0}
     kernel = row_writer.add_rows
 
@@ -2625,6 +2636,7 @@ def bf16_tables(dev, tree_path: str, samples, flush) -> dict:
         return got
 
     row_writer.add_rows = checked
+    before = dict(row_writer.launches)
     try:
         t0 = time.perf_counter()
         logs = a.train(samples.train_seqs, samples.train_targets, BF16_ITERS,
@@ -2633,19 +2645,23 @@ def bf16_tables(dev, tree_path: str, samples, flush) -> dict:
         train_s = time.perf_counter() - t0
     finally:
         row_writer.add_rows = kernel
-    check(seen["calls"] == BF16_ITERS, f"{seen['calls']} bf16 adds in {BF16_ITERS} mv steps")
+    runs = {k: row_writer.launches[k] - before[k] for k in ("add_rows_bf16", "write_rows")}
+    check(seen["calls"] == runs["add_rows_bf16"] == runs["write_rows"] == BF16_ITERS,
+          f"{model_type}: {seen['calls']} bf16 adds audited, launches {runs} in "
+          f"{BF16_ITERS} mv steps")
     losses = [lg["train_loss"] for lg in logs]
-    check(all(np.isfinite(losses)), f"bf16 losses: {losses}")
+    check(all(np.isfinite(losses)), f"bf16 {model_type} losses: {losses}")
     b = make()
     b.train(samples.train_seqs, samples.train_targets, BF16_ITERS,
             progress_interval=BF16_ITERS // 2)
     same = same_params(a, b) and torch.equal(bits(a.emb_state["mv"]), bits(b.emb_state["mv"]))
-    check(same, "bf16 table: same-seed runs differ")
+    check(same, f"bf16 {model_type} table: same-seed runs differ")
     with uncounted():
         add = row_case("add_rows", seen["table"], seen["idx"], seen["rows"], flush)
-    return {"items": tree.num_items, "route": "mv", "iterations": BF16_ITERS,
-            "ms_per_step": train_s / BF16_ITERS * 1e3, "losses": losses,
-            "adds_checked": seen["calls"], "same_seed_bit_equal": same, "mv_table_add": add}
+    return {"model": model_type, "items": tree.num_items, "route": "mv",
+            "iterations": BF16_ITERS, "ms_per_step": train_s / BF16_ITERS * 1e3,
+            "losses": losses, "adds_checked": seen["calls"], "launches_first_run": runs,
+            "same_seed_bit_equal": same, "mv_table_add": add}
 
 
 def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, samples,
@@ -2671,7 +2687,8 @@ def tdm_10m(dev, deep: TDMServing, deep_seqs: np.ndarray, tree_path: str, sample
            "k3_bf16_rows": k3_bf16_rows(dev, weights, flush),
            "k3_bf16_vs_f32_table_1m": bf16_rows_vs_f32_rows(dev, deep, deep_seqs),
            "resume": resume_on_card(dev, tree_path, samples),
-           "bf16_tables": bf16_tables(dev, tree_path, samples, flush)}
+           "bf16_tables": bf16_tables(dev, tree_path, samples, flush),
+           "bf16_tables_deepfm": bf16_tables(dev, tree_path, samples, flush, "deepfm")}
     out["seconds"] = time.perf_counter() - t_phase
     return out, tree
 
@@ -3010,22 +3027,57 @@ def deepfm_otm(dev) -> dict:
             "serving_windows": len(windows)}
 
 
-def deepfm_deep(dev, tree: ArrayTree, seqs: np.ndarray) -> dict:
+def deepfm_1m_trainer(dev, tree: ArrayTree, **kw) -> tuple[TDMTrainer, np.ndarray, np.ndarray]:
+    """bench.py's 1M trainer with model_type deepfm (``kw``: embed_dtype)
+    and the windows of its steps: a warm-up, DEEPFM_STEPS timed and
+    DEEPFM_AUDITED_STEPS audited steps of random items."""
+    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
+    trainer = TDMTrainer(tree=tree, model_type="deepfm", embed_size=E, layer_neg_counts=neg,
+                         topk=TOPK, beam_size=BEAM, seed=SEED, device=dev, **kw)
+    n = trainer.num_targets_per_batch * (DEEPFM_STEPS + DEEPFM_AUDITED_STEPS)
+    rng = np.random.default_rng(SEED + 60)
+    targets = rng.integers(1, DEEP_ITEMS + 1, size=n)
+    train_seqs = rng.integers(1, DEEP_ITEMS + 1, size=(n, SEQ_LEN))
+    return trainer, train_seqs, targets
+
+
+def deepfm_1m_serving(trainer: TDMTrainer, tree: ArrayTree) -> TDMServing:
+    """The trained DeepFM through TDMServing, on the packed route (its
+    levels in plain ops) over an f32 pair table."""
+    pre, app = serving_fns("deepfm")
+    serv = TDMServing(trainer.model, type(trainer.model).forward, tree, precompute=pre,
+                      apply=app, apply_emb=packed_fns("deepfm")[1], model_type="deepfm",
+                      topk=TOPK, candidate_num=BEAM)
+    check(serv._use_packed(BEAM) and serv.pair_table_dtype() == torch.float32,
+          "DeepFM at 1M: not on the packed route over an f32 table")
+    return serv
+
+
+def timed_batches(serv: TDMServing, seqs: np.ndarray, tree: ArrayTree, calls: int = 3) -> dict:
+    """``recommend_batch(seqs)``: the first call (it builds the pair table),
+    then ``calls`` timed calls, whose lists must be top-10s of items."""
+    t1 = time.perf_counter()
+    serv.recommend_batch(seqs)
+    first_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        lists = serv.recommend_batch(seqs)
+    search_s = time.perf_counter() - t1
+    check_lists(lists, tree)
+    return {"windows": len(seqs), "pair_table": "float32", "first_call_s": first_s,
+            "calls": calls, "ms_per_batch": search_s / calls * 1e3,
+            "qps": len(seqs) * calls / search_s}
+
+
+def deepfm_deep(dev, tree: ArrayTree, seqs: np.ndarray, flush: torch.Tensor) -> dict:
     """DeepFM on the 1M catalog: bench.py's trainer with model_type deepfm
     (auto route pmv, one K2 launch a step), a warm-up and DEEPFM_STEPS timed
     steps, then DEEPFM_AUDITED_STEPS more with every K2 commit held bit for
     bit against its plain version; the trained model served through
     TDMServing on the packed route (its levels in plain ops) from an f32
-    pair table, timed."""
-    neg = ",".join(str(min(i, 2**i - 1)) for i in range(tree.max_level + 1))
-    trainer = TDMTrainer(tree=tree, model_type="deepfm", embed_size=E, layer_neg_counts=neg,
-                         topk=TOPK, beam_size=BEAM, seed=SEED, device=dev)
+    pair table, timed.  Then the same on a bf16 table (``deepfm_deep_bf16``)."""
+    trainer, train_seqs, targets = deepfm_1m_trainer(dev, tree)
     check(trainer._pmv, "DeepFM at 1M: the auto route is not pmv")
-    b = trainer.num_targets_per_batch
-    n = b * (DEEPFM_STEPS + DEEPFM_AUDITED_STEPS)
-    rng = np.random.default_rng(SEED + 60)
-    targets = rng.integers(1, DEEP_ITEMS + 1, size=n)
-    train_seqs = rng.integers(1, DEEP_ITEMS + 1, size=(n, SEQ_LEN))
     k2 = row_writer.launches["write_rows"]
     trainer.train(train_seqs, targets, 1, progress_interval=1)
     torch.cuda.synchronize()
@@ -3040,28 +3092,68 @@ def deepfm_deep(dev, tree: ArrayTree, seqs: np.ndarray) -> dict:
     check(k2 == steps and len(commits) == DEEPFM_AUDITED_STEPS,
           f"DeepFM at 1M: {k2} K2 launches in {steps} pmv steps, {len(commits)} audited")
     check(np.isfinite(logs[-1]["train_loss"]), "DeepFM at 1M: the loss is not finite")
-    pre, app = serving_fns("deepfm")
-    serv = TDMServing(trainer.model, type(trainer.model).forward, tree, precompute=pre,
-                      apply=app, apply_emb=packed_fns("deepfm")[1], model_type="deepfm",
-                      topk=TOPK, candidate_num=BEAM)
-    check(serv._use_packed(BEAM) and serv.pair_table_dtype() == torch.float32,
-          "DeepFM at 1M: not on the packed route over an f32 table")
-    t1 = time.perf_counter()
-    serv.recommend_batch(seqs)  # builds the pair table
-    first_s = time.perf_counter() - t1
-    calls = 3
-    t1 = time.perf_counter()
-    for _ in range(calls):
-        lists = serv.recommend_batch(seqs)
-    search_s = time.perf_counter() - t1
-    check_lists(lists, tree)
-    return {"items": DEEP_ITEMS, "auto_route": "pmv", "unit": trainer.sampler.unit,
-            "targets_per_step": b, "timed_steps": DEEPFM_STEPS,
-            "ms_per_step": elapsed / DEEPFM_STEPS * 1e3, "k2_launches": k2,
-            "k2_commits_bit_exact": len(commits), "final_loss": logs[-1]["train_loss"],
-            "serving": {"windows": len(seqs), "pair_table": "float32", "first_call_s": first_s,
-                        "calls": calls, "ms_per_batch": search_s / calls * 1e3,
-                        "qps": len(seqs) * calls / search_s}}
+    serving = timed_batches(deepfm_1m_serving(trainer, tree), seqs, tree)
+    out = {"items": DEEP_ITEMS, "auto_route": "pmv", "unit": trainer.sampler.unit,
+           "targets_per_step": trainer.num_targets_per_batch, "timed_steps": DEEPFM_STEPS,
+           "ms_per_step": elapsed / DEEPFM_STEPS * 1e3, "k2_launches": k2,
+           "k2_commits_bit_exact": len(commits), "final_loss": logs[-1]["train_loss"],
+           "serving": serving}
+    del trainer, commits
+    torch.cuda.empty_cache()
+    out["bf16_mv"] = deepfm_deep_bf16(dev, tree, seqs, flush)
+    return out
+
+
+def deepfm_deep_bf16(dev, tree: ArrayTree, seqs: np.ndarray, flush: torch.Tensor) -> dict:
+    """DeepFM on a bf16 embedding table at 1M items, the deployment bf16
+    tables exist for: bench.py's trainer with model_type deepfm and
+    embed_dtype bf16 (auto route mv, as pmv needs an f32 table), a warm-up
+    and DEEPFM_STEPS timed steps, then DEEPFM_AUDITED_STEPS more with every
+    K2 commit of the packed m|v state and every bf16 table add held bit for
+    bit against its plain version; one K2 and one ``add_rows_bf16`` launch
+    a step.  Served through TDMServing on the packed route over an f32 pair
+    table, its lists against the classic route's up to near ties and
+    ``recommend_batch(4096)`` timed; last, the last step's commit and add
+    timed warm and cold beside ``index_copy_`` / ``index_add_`` (on the
+    trained state, which nothing reads after)."""
+    trainer, train_seqs, targets = deepfm_1m_trainer(dev, tree, embed_dtype=torch.bfloat16)
+    check(trainer._sparse and not trainer._pmv and "mv" in trainer.emb_state
+          and trainer.model.embedding.dtype == torch.bfloat16,
+          "bf16 DeepFM at 1M: the auto route is not mv on a bf16 table")
+    before = dict(row_writer.launches)
+    trainer.train(train_seqs, targets, 1, progress_interval=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(train_seqs, targets, DEEPFM_STEPS, progress_interval=DEEPFM_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    with writes_audited() as commits, adds_audited() as adds, capturing("add_rows") as last_add:
+        trainer.train(train_seqs, targets, DEEPFM_AUDITED_STEPS, progress_interval=1)
+    runs = {k: row_writer.launches[k] - before[k] for k in ("write_rows", "add_rows_bf16")}
+    steps = 1 + DEEPFM_STEPS + DEEPFM_AUDITED_STEPS
+    check(runs == {"write_rows": steps, "add_rows_bf16": steps}
+          and len(commits) == adds["calls"] == DEEPFM_AUDITED_STEPS,
+          f"bf16 DeepFM at 1M: launches {runs} in {steps} mv steps, {len(commits)} commits "
+          f"and {adds['calls']} adds audited")
+    check(np.isfinite(logs[-1]["train_loss"]), "bf16 DeepFM at 1M: the loss is not finite")
+    serv = deepfm_1m_serving(trainer, tree)
+    serving = timed_batches(serv, seqs, tree)
+    packed, classic = route_lists(serv, True, seqs), route_lists(serv, False, seqs)
+    serving["packed_vs_classic"] = lists_up_to_near_ties(packed, classic, DEEPFM_NEAR_TIE)
+    serving["packed_ms"], serving["classic_ms"] = packed["ms"], classic["ms"]
+    del serv, packed, classic
+    commit = commits[-1]
+    with uncounted():
+        k2 = row_case("write_rows", flush=flush, warm=True, **commit)
+        add = row_case("add_rows", flush=flush, warm=True, **last_add)
+    return {"items": DEEP_ITEMS, "auto_route": "mv", "table": "bfloat16",
+            "table_mb": trainer.model.embedding.numel() * 2 / 1e6,
+            "mv_state_mb": trainer.emb_state["mv"].numel() * 4 / 1e6,
+            "unit": trainer.sampler.unit, "targets_per_step": trainer.num_targets_per_batch,
+            "timed_steps": DEEPFM_STEPS, "ms_per_step": elapsed / DEEPFM_STEPS * 1e3,
+            "launches": runs, "k2_commits_bit_exact": len(commits),
+            "adds_bit_exact": adds["calls"], "final_loss": logs[-1]["train_loss"],
+            "serving": serving, "mv_commit": k2, "table_add": add}
 
 
 def cli_stage(command: str, conf: str) -> float:
@@ -4108,12 +4200,18 @@ def main() -> int:
               for k in ("din_score", "packed_level", "packed_level_bf16_rows")),
           f"widths: {facts_w['launches']}")
     emit({"phase": "widths", **facts_w})
+    flush = torch.empty(64 << 20, device=dev)
     zero_launches()
     facts_fm = {"workflow": deepfm_workflow(dev, seqs), "otm": deepfm_otm(dev),
-                "deep_1m": deepfm_deep(dev, deep.tree, deep_seqs)}
+                "deep_1m": deepfm_deep(dev, deep.tree, deep_seqs, flush)}
     facts_fm["launches"] = read_launches()
-    check(facts_fm["launches"]["add_rows"] > 0 and facts_fm["launches"]["write_rows"]
-          == facts_fm["deep_1m"]["k2_launches"], f"deepfm: {facts_fm['launches']}")
+    del flush
+    fm_bf16 = facts_fm["deep_1m"]["bf16_mv"]["launches"]
+    check(facts_fm["launches"]["add_rows"] > 0
+          and facts_fm["launches"]["write_rows"]
+          == facts_fm["deep_1m"]["k2_launches"] + fm_bf16["write_rows"]
+          and facts_fm["launches"]["add_rows_bf16"] == fm_bf16["add_rows_bf16"] > 0,
+          f"deepfm: {facts_fm['launches']}")
     check(not any(n for k, n in facts_fm["launches"].items()
                   if k.startswith(("din_score", "packed_level"))),
           f"deepfm: a DIN kernel launched: {facts_fm['launches']}")
@@ -4192,6 +4290,9 @@ def main() -> int:
     also = {"write_rows": ["scripts/spike_pallas_scatter.py:44",
                            "scripts/spike_pallas_scatter.py:58",
                            "scripts/spike_pallas_scatter128.py:44"]}
+    # the bf16 DeepFM mv route at 1M items: K2's m|v commit and the bf16 add
+    fm_1m_bf16 = facts_fm["deep_1m"]["bf16_mv"]
+    fm_cases = {"write_rows": fm_1m_bf16["mv_commit"], "add_rows_bf16": fm_1m_bf16["table_add"]}
     # each kernel's timed case: K1 and K3 at the serving shapes (K3 also on
     # the 10M bf16 table's rows), K2 at the pmv step's commit, the add at
     # the mv step's table update (f32, and a bf16 table's)
@@ -4218,9 +4319,12 @@ def main() -> int:
             "packed_level_bf16_rows": max(facts_10m["k3_bf16_rows"]["max_abs_err"],
                                           facts_10m["serving"]["vs_plain"]["max_abs_err"]),
             "write_rows": max(row_errors(rk, "write"),
-                              *(c["max_abs_err"] for c in dr_k2.values())),
+                              *(c["max_abs_err"] for c in dr_k2.values()),
+                              fm_1m_bf16["mv_commit"]["max_abs_err"]),
             "add_rows": row_errors(rk, "add"),
-            "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"]}
+            "add_rows_bf16": max(facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"],
+                                 facts_10m["bf16_tables_deepfm"]["mv_table_add"]["max_abs_err"],
+                                 fm_1m_bf16["table_add"]["max_abs_err"])}
     # the instances at the other widths: K1 at the serving shape (also the
     # sweep's; past E = 32 also L = 24), K3 at [4096, 20] on f32 and bf16
     # rows (at E = 32 and past also beam 110 and L = 24); their errors over
@@ -4267,6 +4371,11 @@ def main() -> int:
                 n: {key: c[key] for key in ("table", "rows", "rows_written", "ms", "plain_ms",
                                             "library_ms", "bound_ms", "bound_by")}
                 for n, c in dr_k2.items()}} if name == "write_rows" else {}),
+            # K2 and the bf16 add also at the 1M bf16 DeepFM mv step's shapes
+            **({"deepfm_bf16_mv_1m": {
+                key: fm_cases[name][key] for key in (
+                    "table", "rows", "rows_written", "warm_ms", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")}} if name in fm_cases else {}),
             # K1 past E = 32 also at L = 24
             **({"l24_ms": k["l24"]["ms"], "l24_cold_ms": k["l24"]["cold_ms"],
                 "l24_plain_ms": k["l24"]["plain_ms"], "l24_bound_ms": k["l24"]["bound_ms"],

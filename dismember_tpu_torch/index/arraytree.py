@@ -118,6 +118,19 @@ class ArrayTree:
         out[codes < 0] = -1
         return out
 
+    def ancestor_matrix(self, leaf_codes: np.ndarray) -> np.ndarray:
+        """[N, max_level+1] int32 ancestors per leaf: column l = ancestor at
+        level l, so column ``max_level`` is the leaf itself and column 0 the
+        root.  Invalid (negative) codes give rows of -1."""
+        leaf_codes = np.asarray(leaf_codes, dtype=np.int64)
+        out = np.empty((len(leaf_codes), self.max_level + 1), dtype=np.int32)
+        cur = leaf_codes.copy()
+        for level in range(self.max_level, -1, -1):
+            out[:, level] = cur
+            cur = (cur - 1) >> 1
+        out[leaf_codes < 0, :] = -1
+        return out
+
     def codes_to_item_ids(self, codes: np.ndarray) -> np.ndarray:
         """Leaf codes -> item ids (-1 for non-existent)."""
         codes = np.asarray(codes, dtype=np.int64)

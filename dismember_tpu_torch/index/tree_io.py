@@ -49,6 +49,16 @@ class LoadedTree:
     node_probs: np.ndarray  # [n_nodes] float32
     node_is_leaf: np.ndarray  # [n_nodes] bool
 
+    @property
+    def code_nodes(self) -> dict[int, Node]:
+        """The legacy code -> ``Node`` dict, built on demand from the
+        columnar arrays."""
+        return {
+            int(c): Node(id=int(i), probality=float(p), is_leaf=bool(leaf))
+            for c, i, p, leaf in zip(
+                self.node_codes, self.node_ids, self.node_probs, self.node_is_leaf)
+        }
+
 
 def sink_leaf_codes(codes: np.ndarray, max_level: int) -> np.ndarray:
     """Sink every leaf code down to the deepest level: repeatedly

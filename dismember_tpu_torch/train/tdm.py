@@ -12,9 +12,10 @@ the steps: :meth:`TDMTrainer.train`, a host loop that uploads each batch
 and can snapshot its state for a bit-exact resume
 (``train/step_resume.py``), and :meth:`TDMTrainer.train_resident`, which
 uploads the dataset once and gathers every batch on the device.  The
-embedding table of a DIN may be stored in bf16 (``embed_dtype``): rows are
-upcast to f32 after every gather, so K1 and the step compute in f32, and
-the updates round to bf16 as the JAX package's do on the CPU.
+embedding table of either scorer may be stored in bf16 (``embed_dtype``):
+rows are upcast to f32 after every gather, so the scorer (K1 for DIN, plain
+ops for DeepFM) and the step compute in f32, and the updates round to bf16
+as the JAX package's do on the CPU.
 
 Batch accounting parity: ``total_batch_size`` counts *expanded* rows, so
 the number of targets per step is ``max(1, total_batch // unit)`` with
@@ -51,10 +52,6 @@ from dismember_tpu_torch.train.row_step import RowStepTrainer
 from dismember_tpu_torch.train.sampler import TreeSampler
 
 logger = logging.getLogger("dismember_tpu_torch.tdm")
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 {item})")
-
 
 def scorer_class(model_type: str) -> type[TreeScorer]:
     """The scorer module of a ``model.deep_model`` name ("din", "deepfm")."""
@@ -160,8 +157,8 @@ class TDMTrainer(RowStepTrainer):
     # targets split on "data", the table and its Adam state row-sharded on
     # "model" (train/spmd.py dense, train/spmd_sparse.py sparse mv)
     embed_dtype: object = None  # torch.bfloat16 stores the table in bf16
-    # (DIN only): half the memory of a deep catalog's table; compute stays
-    # f32 and the Adam moments are optax's (mu f32; dense nu bf16)
+    # (either scorer): half the memory of a deep catalog's table; compute
+    # stays f32 and the Adam moments are optax's (mu f32; dense nu bf16)
     sparse_embed_update: bool | None = None  # lazy row-sparse Adam on the
     # embedding table (train/sparse_adam.py).  None = auto
     # (sparse_adam.sparse_worthwhile): sparse at deep catalogs, dense
@@ -176,9 +173,6 @@ class TDMTrainer(RowStepTrainer):
     def __post_init__(self):
         if self.embed_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"embed_dtype must be float32 or bfloat16, got {self.embed_dtype!r}")
-        if self.embed_dtype == torch.bfloat16 and self.model_type == "deepfm":
-            raise _not_ported("DeepFM with a bf16 embedding table",
-                              "label i: its bf16 step pinned to the JAX package's HLO")
         self.device = meshlib.trainer_device(self.mesh, resolve_device(self.device))
         n_data = meshlib.data_size(self.mesh)
         check_kernel_width(self.model_type, self.embed_size, self.device)

@@ -1,7 +1,8 @@
 """bf16 embedding tables in the port against the JAX package
-(``embed_dtype``): the rounding of a dense and an mv step, the auto route
-and the pmv refusal, the row add on a bf16 table, bf16 checkpoints, and the
-trainer's bf16 contract (tests/test_tdm_train.py:132-146, 227-246).
+(``embed_dtype``), for both scorers (DIN and DeepFM): the rounding of a
+dense and an mv step, the auto route and the pmv refusal, the row add on a
+bf16 table, bf16 checkpoints, and the trainer's bf16 contract
+(tests/test_tdm_train.py:132-146, 227-246).
 
 Tolerances: a bf16 table is compared as uint16 bits, with none.  Given the
 same row gradients, the port's updates equal the JAX package's compiled
@@ -24,6 +25,7 @@ from dismember_tpu.data.ingest import read_csv, unique_items_with_category, user
 from dismember_tpu.data.tdm_dataset import generate_split_samples
 from dismember_tpu.index.arraytree import ArrayTree as JArrayTree
 from dismember_tpu.index.tree_io import category_sorted_codes, write_tree
+from dismember_tpu.models import deepfm as jdeepfm
 from dismember_tpu.models import din as jdin
 from dismember_tpu.models.losses import bce_with_logits as j_bce
 from dismember_tpu.train import sparse_adam as jsparse_adam
@@ -39,6 +41,11 @@ LOSS_RTOL, P_RTOL, P_ATOL = 1e-5, 2e-4, 2e-6
 KW = dict(model_type="din", embed_size=8, learning_rate=3e-3, total_batch_size=512,
           layer_neg_counts=NEG_COUNTS, seed=7, topk=5, beam_size=8)
 MODES = {"dense": dict(sparse_embed_update=False), "mv": dict(sparse_embed_update=True)}
+MODELS = ("din", "deepfm")
+
+
+def _kw(model_type: str, e: int = 8) -> dict:
+    return {**KW, "model_type": model_type, "embed_size": e}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,15 +85,15 @@ def _batch(tree, samples, n):
     return tree.ids_to_codes(samples.train_seqs[:n]), tree.ids_to_codes(samples.train_targets[:n])
 
 
-def _carried(jtree, tree, samples, mode, key):
+def _carried(jtree, tree, samples, mode, key, kw):
     """A JAX bf16 trainer after two steps, the port's trainer holding its
     state, and the JAX sampler's batch for the next step."""
-    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **KW, **MODES[mode])
+    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **kw, **MODES[mode])
     sc, tc = _batch(jtree, samples, jtr.num_targets_per_batch)
     for k in (1, 2):
         jtr.params, jtr.opt_state, _ = jtr._train_step(
             jtr.params, jtr.opt_state, jax.random.PRNGKey(k), jnp.asarray(tc), jnp.asarray(sc))
-    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **KW, **MODES[mode])
+    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **kw, **MODES[mode])
     tr.load_numpy(jax.tree.map(np.asarray, jtr.params), jax.tree.map(np.asarray, jtr.opt_state))
     sstate = jtr.sampler.device_state()
     batch = jax.jit(jtr.sampler.sample)(jax.random.PRNGKey(key), jnp.asarray(tc), sstate)
@@ -95,12 +102,16 @@ def _carried(jtree, tree, samples, mode, key):
 
 @pytest.mark.parametrize("key", [3])
 @pytest.mark.parametrize("mode", ["dense", "mv"])
-def test_bf16_step_from_carried_jax_state_matches_jax(pipeline, mode, key):
+@pytest.mark.parametrize("model_type,e", [("din", 8), ("deepfm", 8), ("deepfm", 16)])
+def test_bf16_step_from_carried_jax_state_matches_jax(pipeline, mode, key, model_type, e):
     """One step from a carried JAX bf16 state on the JAX sampler's batch:
     the table's bits, and the dense route's moments (f32 mu, bf16 nu: optax
-    keeps nu in the parameter's dtype), equal the JAX package's."""
+    keeps nu in the parameter's dtype), equal the JAX package's.  DeepFM's
+    rows take gradient through its FM sums and DNN product, DIN's through
+    attention: other f32 cotangents, the same bf16 sums."""
     jtree, tree, samples = pipeline
-    jtr, tr, sc, tc, sstate, (codes, labels, weights) = _carried(jtree, tree, samples, mode, key)
+    jtr, tr, sc, tc, sstate, (codes, labels, weights) = _carried(
+        jtree, tree, samples, mode, key, _kw(model_type, e))
     assert tr.model.embedding.dtype == torch.bfloat16 and not tr._pmv
     jtr.sampler.sample = lambda *_: (codes, labels, weights)
     jp, jo, jloss = jax.jit(jtr._step_impl)(jtr.params, jtr.opt_state, jax.random.PRNGKey(key),
@@ -122,12 +133,18 @@ def test_bf16_step_from_carried_jax_state_matches_jax(pipeline, mode, key):
         assert tr.emb_state["count"] == int(jo[1]["count"]) == 3
 
 
-def test_bf16_dense_update_given_row_gradients_matches_jax(pipeline):
-    """The dense route on the JAX package's own row gradients: the bf16
-    table gradient (each gather's cotangents summed serially in bf16) and
-    optax's bf16 Adam step are bit for bit JAX's compiled CPU step."""
+@pytest.mark.parametrize("jmod", [jdin, jdeepfm], ids=MODELS)
+def test_bf16_dense_update_given_row_gradients_matches_jax(pipeline, jmod):
+    """The dense route on the JAX package's own row gradients (through the
+    JAX scorer module's ``ctx_from_seq_emb`` / ``apply_from_emb``): the bf16
+    table gradient (each gather's cotangents summed serially in bf16, then
+    the two sums added: the two scatter-adds of the JAX step's optimized
+    HLO, whose combiner rounds to bf16 after every add) and optax's bf16
+    Adam step are bit for bit JAX's compiled CPU step."""
     jtree, _, samples = pipeline
-    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **KW, **MODES["dense"])
+    model_type = jmod.__name__.rsplit(".", 1)[1]
+    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **_kw(model_type),
+                      **MODES["dense"])
     sc, tc = _batch(jtree, samples, jtr.num_targets_per_batch)
     for k in (1, 2):
         jtr.params, jtr.opt_state, _ = jtr._train_step(
@@ -140,11 +157,11 @@ def test_bf16_dense_update_given_row_gradients_matches_jax(pipeline):
     seq_e = table[jnp.maximum(sc, 0)].astype(jnp.float32) * (sc >= 0)[..., None]
 
     def loss_rows(ie, se):
-        ctx = jdin.ctx_from_seq_emb(p, se, (jnp.asarray(sc) < 0)[:, None, :])
-        return j_bce(jdin.apply_from_emb(p, ie, ctx), labels, weights)
+        ctx = jmod.ctx_from_seq_emb(p, se, (jnp.asarray(sc) < 0)[:, None, :])
+        return j_bce(jmod.apply_from_emb(p, ie, ctx), labels, weights)
 
     gi, gs = jax.jit(jax.grad(loss_rows, argnums=(0, 1)))(item_e, seq_e)
-    g_table = jax.jit(jax.grad(lambda q: j_bce(jdin.forward(q, codes, jnp.asarray(sc)),
+    g_table = jax.jit(jax.grad(lambda q: j_bce(jmod.forward(q, codes, jnp.asarray(sc)),
                                                labels, weights)))(p)["embedding"]
     flat = torch.tensor(np.concatenate([np.asarray(codes).ravel(), np.asarray(sc).ravel()]))
     g_rows = torch.tensor(np.concatenate([np.asarray(gi).reshape(-1, 8),
@@ -190,9 +207,10 @@ def test_bf16_mv_update_given_row_gradients_matches_jax():
         np.testing.assert_array_equal(ts["mv"].numpy(), np.asarray(js["mv"]))
 
 
-def test_auto_route_and_pmv_refusal_match_jax(pipeline):
+@pytest.mark.parametrize("model_type", MODELS)
+def test_auto_route_and_pmv_refusal_match_jax(pipeline, model_type):
     jtree, tree, _ = pipeline
-    kw = dict(embed_size=8, layer_neg_counts=NEG_COUNTS)
+    kw = dict(model_type=model_type, embed_size=8, layer_neg_counts=NEG_COUNTS)
     for sparse in (None, False, True):
         j = JTDMTrainer(tree=jtree, sparse_embed_update=sparse, embed_dtype=jnp.bfloat16, **kw)
         t = TDMTrainer(tree=tree, device="cpu", sparse_embed_update=sparse,
@@ -229,12 +247,13 @@ def test_add_rows_plain_bf16_matches_jax():
     np.testing.assert_array_equal(u16(got), u16(want))
 
 
-def test_bf16_checkpoints_load_in_either_package(pipeline, tmp_path):
+@pytest.mark.parametrize("model_type", MODELS)
+def test_bf16_checkpoints_load_in_either_package(pipeline, tmp_path, model_type):
     """A bf16 table saved by either package loads in the other with the
     same bits (npz leaves of raw bf16 bits, descriptor V2)."""
     jtree, tree, _ = pipeline
-    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **KW)
-    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **KW)
+    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **_kw(model_type))
+    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **_kw(model_type))
     j_save_pytree(str(tmp_path / "jax"), jtr.params)
     tr.load_numpy(load_pytree(str(tmp_path / "jax"), tr.params))
     assert tr.model.embedding.dtype == torch.bfloat16
@@ -246,12 +265,13 @@ def test_bf16_checkpoints_load_in_either_package(pipeline, tmp_path):
     np.testing.assert_array_equal(back["mlp1"]["weight"], np.asarray(jtr.params["mlp1"]["weight"]))
 
 
-def test_bf16_embedding_training(pipeline):
+@pytest.mark.parametrize("model_type", MODELS)
+def test_bf16_embedding_training(pipeline, model_type):
     """tests/test_tdm_train.py:132-146: a bf16 table trains (dense, auto
     route here), stays bf16, and serves."""
     _, tree, samples = pipeline
     tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16,
-                    **{**KW, "total_batch_size": 1024, "beam_size": 10})
+                    **{**_kw(model_type), "total_batch_size": 1024, "beam_size": 10})
     assert not tr._sparse
     logs = tr.train(samples.train_seqs, samples.train_targets, iterations=20,
                     progress_interval=10)
@@ -260,12 +280,13 @@ def test_bf16_embedding_training(pipeline):
     assert len(tr.recommend(samples.eval_seqs[0], topk=5)) == 5
 
 
-def test_sparse_with_bf16_table(pipeline):
+@pytest.mark.parametrize("model_type", MODELS)
+def test_sparse_with_bf16_table(pipeline, model_type):
     """tests/test_tdm_train.py:227-246: the sparse route on a bf16 table
     keeps f32 moments, casts row updates to bf16 and reduces the loss."""
     _, tree, samples = pipeline
     tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16,
-                    sparse_embed_update=True, **{**KW, "seed": 3})
+                    sparse_embed_update=True, **{**_kw(model_type), "seed": 3})
     assert tr.emb_state["mv"].dtype == torch.float32
     logs = tr.train(samples.train_seqs, samples.train_targets, iterations=40,
                     progress_interval=20)
@@ -273,14 +294,15 @@ def test_sparse_with_bf16_table(pipeline):
     assert logs[-1]["train_loss"] < logs[0]["train_loss"]
 
 
-def test_bf16_serving_routes_match_jax(pipeline, tmp_path):
+@pytest.mark.parametrize("model_type", MODELS)
+def test_bf16_serving_routes_match_jax(pipeline, tmp_path, model_type):
     """With identical bf16 params: recommend (the classic route over rows
-    upcast to f32, K1's plain version here), evaluate's metrics and the
-    export file equal the JAX trainer's."""
+    upcast to f32; DIN through K1's plain version here, DeepFM in plain
+    ops), evaluate's metrics and the export file equal the JAX trainer's."""
     jtree, tree, samples = pipeline
-    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **KW)
+    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **_kw(model_type))
     jtr.train(samples.train_seqs, samples.train_targets, iterations=20, progress_interval=20)
-    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **KW)
+    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **_kw(model_type))
     tr.load_numpy(jax.tree.map(np.asarray, jtr.params))
     seqs = samples.eval_seqs[:64]
     for a, b in zip(tr.recommend_batch(seqs), jtr.recommend_batch(seqs)):

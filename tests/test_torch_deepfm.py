@@ -31,6 +31,8 @@ from dismember_tpu.models import deepfm as jdeepfm
 from dismember_tpu.serving import TDMServing as JTDMServing
 from dismember_tpu.train import otm as jotm
 from dismember_tpu.train.tdm import TDMTrainer as JTDMTrainer
+from dismember_tpu.train.tdm import packed_fns as jax_packed_fns
+from dismember_tpu.train.tdm import serving_fns as jax_serving_fns
 from dismember_tpu_torch.cli.main import main as cli
 from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree, save_pytree
 from dismember_tpu_torch.index.arraytree import ArrayTree
@@ -266,10 +268,47 @@ def test_step_from_carried_jax_state_matches_jax(pipeline, mode):
     assert tr.adam["count"] == 1
 
 
-def test_bf16_table_is_refused_for_deepfm(pipeline):
-    _, _, tree, _ = pipeline
-    with pytest.raises(NotImplementedError, match="label i"):
-        TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **TDM_KW)
+def test_bf16_table_is_refused_for_deepfm(pipeline, tmp_path):
+    """A bf16 DeepFM table is no longer refused: it is served as the JAX
+    package serves it.  The JAX package's trained bf16 DeepFM params in the
+    port's trainer: ``evaluate``'s metrics and ``recommend``'s top-10 (a
+    heavy user's widened beam) equal the JAX trainer's; the port's
+    checkpoint of that trainer through ``TDMServing.load`` takes the packed
+    route over an f32 pair table (DeepFM is not matmul-first) and gives the
+    JAX facade's top-10 on the same bf16 params."""
+    path, jtree, tree, samples = pipeline
+    kw = {**TDM_KW, "topk": 10}
+    jtr = JTDMTrainer(tree=jtree, embed_dtype=jnp.bfloat16, **kw)
+    jtr.train(samples.train_seqs, samples.train_targets, iterations=20, progress_interval=20)
+    tr = TDMTrainer(tree=tree, device="cpu", embed_dtype=torch.bfloat16, **kw)
+    tr.load_numpy(_np(jtr.params))
+    assert tr.model.embedding.dtype == torch.bfloat16
+    n = 48
+    eval_data = (samples.eval_seqs[:n], samples.eval_labels[:n], samples.eval_users[:n])
+    ev, jev = (t.evaluate(eval_data, samples.user_consumed) for t in (tr, jtr))
+    for k in ("precision", "recall", "ndcg"):  # the eval loss draws each package's negatives
+        np.testing.assert_allclose(getattr(ev, k), getattr(jev, k), rtol=1e-12, err_msg=k)
+    heavy = max(samples.user_consumed, key=lambda u: len(samples.user_consumed[u]))
+    consumed = samples.user_consumed[heavy]
+    seq = samples.eval_seqs[0]
+    np.testing.assert_array_equal(tr.recommend(seq, consumed=consumed),
+                                  jtr.recommend(seq, consumed=consumed))
+    ckpt = str(tmp_path / "deepfm_bf16")
+    save_pytree(ckpt, tr.params, meta={"model": "deepfm", "embed_size": E, "seq_len": 10})
+    serv = TDMServing.load(ckpt, path, device="cpu", topk=10, candidate_num=20)
+    pre, app = jax_serving_fns("deepfm")
+    jserv = JTDMServing(jtr.params, jtr.forward, jtree, precompute=pre, apply=app,
+                        apply_emb=jax_packed_fns("deepfm")[1], model_type="deepfm",
+                        topk=10, candidate_num=20)
+    assert serv._use_packed(20) and jserv._use_packed(20)
+    serv._BF16_TABLE_BYTES = 0
+    assert serv.pair_table_dtype() == torch.float32
+    raw = samples.eval_seqs[:n]
+    for got, ref in zip(serv.recommend_batch(raw), jserv.recommend_batch(raw)):
+        np.testing.assert_array_equal(got, ref)
+    assert serv._pair_table.dtype == torch.float32
+    np.testing.assert_array_equal(serv._pair_table[:, : 2 * E].reshape(-1, E).numpy(),
+                                  tr.model.embedding.detach()[1:].float().numpy())
 
 
 # ---------------------------------------------------------------- OTM

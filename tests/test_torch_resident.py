@@ -58,9 +58,14 @@ def _trainer(tree, **kw):
                       layer_neg_counts="0,1,2,3,4,5,6,7,8,9", seed=5, device="cpu", **kw)
 
 
+def bits(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32).numpy()
+
+
 def assert_params_equal(a: TDMTrainer, b: TDMTrainer):
     for (n, x), (_, y) in zip(a.model.named_parameters(), b.model.named_parameters()):
-        np.testing.assert_array_equal(x.detach().numpy(), y.detach().numpy(), err_msg=n)
+        np.testing.assert_array_equal(bits(x), bits(y), err_msg=n)
 
 
 def test_windows_from_items_match_jax(setup):
@@ -97,15 +102,21 @@ def test_window_gather_matches_jax_formula(setup):
     {"sparse_embed_update": False},
     {"sparse_embed_update": True, "sparse_format": "pmv"},
     {"sparse_embed_update": True, "sparse_format": "pmv", "model_type": "deepfm"},
-], ids=["dense", "pmv", "deepfm_pmv"])
+    {"sparse_embed_update": True, "embed_dtype": torch.bfloat16, "model_type": "deepfm"},
+], ids=["dense", "pmv", "deepfm_pmv", "deepfm_bf16_mv"])
 def test_chunk_size_bit_invariant(setup, sparse_kw):
+    """A bf16 DeepFM table takes the mv route (pmv needs an f32 table)."""
     tree, _, _, seqs, targets, _ = setup
     a = _trainer(tree, **sparse_kw)
     a.train_resident((seqs, targets), iterations=20, chunk=20)
     b = _trainer(tree, **sparse_kw)
     b.train_resident((seqs, targets), iterations=20, chunk=3)
     assert a._pmv == b._pmv == ("sparse_format" in sparse_kw)
+    assert a.model.embedding.dtype == (sparse_kw.get("embed_dtype") or torch.float32)
     assert_params_equal(a, b)
+    if "embed_dtype" in sparse_kw:
+        assert a.emb_state["count"] == 20
+        np.testing.assert_array_equal(a.emb_state["mv"].numpy(), b.emb_state["mv"].numpy())
 
 
 def test_windows_equals_flat(setup):

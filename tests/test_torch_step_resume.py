@@ -4,6 +4,7 @@ package's module, and for each trainer a run killed after its last
 snapshot and resumed in a fresh trainer, whose parameters must equal an
 uninterrupted run's bit for bit (tolerance: none)."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -123,7 +124,9 @@ def _tdm(tree, **kw):
     {"sparse_embed_update": True, "sparse_format": "pmv"},
     {"sparse_embed_update": True, "embed_dtype": torch.bfloat16},
     {"sparse_embed_update": True, "sparse_format": "mv", "model_type": "deepfm"},
-], ids=["dense", "pmv", "bf16_mv", "deepfm_mv"])
+    {"sparse_embed_update": False, "embed_dtype": torch.bfloat16, "model_type": "deepfm"},
+    {"sparse_embed_update": True, "embed_dtype": torch.bfloat16, "model_type": "deepfm"},
+], ids=["dense", "pmv", "bf16_mv", "deepfm_mv", "deepfm_bf16_dense", "deepfm_bf16_mv"])
 def test_tdm_resume_bit_compatible(tdm_setup, tmp_path, sparse_kw):
     tree, seqs, targets = tdm_setup
     ckpt = str(tmp_path / "tdm_step")
@@ -139,6 +142,36 @@ def test_tdm_resume_bit_compatible(tdm_setup, tmp_path, sparse_kw):
               checkpoint_path=ckpt, checkpoint_every=10)
     assert_trees_equal(ref.params, res.params)
     assert_trees_equal(ref.adam, res.adam)
+
+
+def test_bf16_deepfm_snapshot_reads_in_either_package(tdm_setup, tmp_path):
+    """A bf16 DeepFM trainer's snapshot (mv route) read through the JAX
+    package's module gives the port's leaves bit for bit (the table as its
+    bf16 bits); written back by the JAX module, it resumes a port trainer
+    that ends where an uninterrupted run ends."""
+    tree, seqs, targets = tdm_setup
+    kw = {"sparse_embed_update": True, "embed_dtype": torch.bfloat16, "model_type": "deepfm"}
+    part = _tdm(tree, **kw)
+    part.train(seqs, targets, iterations=15, progress_interval=100,
+               checkpoint_path=str(tmp_path / "port"), checkpoint_every=10)
+    like = jax.tree.map(lambda _: 0, part._local_step_state())
+    got, meta = step_resume.load_step_state(str(tmp_path / "port"), like)
+    jgot, jmeta = jstep_resume.load_step_state(str(tmp_path / "port"), like)
+    assert jmeta == meta and meta["iteration"] == 10
+    assert jgot["params"]["embedding"].dtype.itemsize == 2
+    for a, b in zip(jax.tree.leaves(jgot), jax.tree.leaves(got)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.atleast_1d(a).view(np.uint8),
+                                      np.atleast_1d(b).view(np.uint8))
+    jstep_resume.save_step_state(str(tmp_path / "jax"), jgot, jmeta)
+    ref = _tdm(tree, **kw)
+    ref.train(seqs, targets, iterations=20, progress_interval=100)
+    res = _tdm(tree, **kw)
+    res.train(seqs, targets, iterations=20, progress_interval=100,
+              checkpoint_path=str(tmp_path / "jax"), checkpoint_every=10)
+    assert res.model.embedding.dtype == torch.bfloat16 and not res._pmv
+    assert_trees_equal(ref.params, res.params)
+    assert_trees_equal(ref.emb_state, res.emb_state)
 
 
 def test_otm_resume_bit_compatible(small_csv, tmp_path):
