@@ -14,22 +14,25 @@ Phases, one JSON line each; any failed check raises and fails the run:
      against 64 (past its cap or spilling fails the run), and each K3
      instance's and each wide K1's (E >= 64) tensor-core instructions
      (HMMA and HGMMA) counted in ``cuobjdump -sass`` of the library (none
-     fails the run, and so does a wide K3 instance without HGMMA);
+     fails the run, and so does a K3 instance of the warpgroup plan, all
+     but E = 8 on bf16 rows, without HGMMA);
   3. kernels: K1 and K3 against their plain PyTorch versions on the card at
      the serving shapes (batch 4096, beam 20, L=10, E=16; K1 also at
      ``predict``'s one row of every catalog item, at L=24 on the kernel
      for sequences past 10 positions, and at a JTM sweep batch's shapes
      [8192, 4] and [8192, 2]), O(1)-scale inputs and biases, with
      an all-padding row, a ragged last block, dead parents and missing
-     children; K3 also at beams 65, 110, 128 and 1,500 (two launches) and
-     at L = 17, 24 and 40 (K3_WIDE); a control (K1's f32 scorer in K3's
+     children; K3 also at beams 65, 110, 128, 1,000 and 1,500 (one launch
+     each) and at L = 17, 24 and 40 (K3_WIDE, k3_wide_cases; beam 110, 1,000
+     and L = 24 also on bf16 rows); a control (K1's f32 scorer in K3's
      place) that must fail K3's check; kernel and plain times from CUDA
      events (K1 and K3 both warm in L2, as the serving loop leaves their
      inputs, and cold; K3 also at beam 110 and L = 24); then K1 and K3 at
      E = 8 and 32 (``kernels_at_width``: K1 at [4096, 40], [8192, 4],
      [8192, 2] and predict's row, K3 at [4096, 20] on f32 and bf16 rows
-     with the control at each width, at E = 32 also beam 110, beam 1,000
-     in one launch and L = 24), timed as at E = 16;
+     with the control at each width, also beam 110, beam 1,000 in one
+     launch and L = 24; on K3_NARROW's bf16 rows at E = 8 also a beam past
+     one launch's limit, split in two launches), timed as at E = 16;
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -403,14 +406,13 @@ NEAR_TIE = {"exact": 2.0**-20, "packed": 2.0**-7, "block": 2.0**-7}
 DR_SERVE_ITEMS, DR_TRAIN_ITEMS, DR_SAMPLED = 1_000_000, 10_000_000, 8
 DR_WARMUP_STEPS, DR_TIMED_STEPS, DR_SERVE_CALLS = 2, 10, 10
 DR_AGREE_QUERIES, DR_MIN_AGREEMENT = 256, 0.95
-# K3 past the serving shape: (batch, beam, L, timed).  Beams 65-128 pass the
-# 48 KB of staging a block had before the opt-in; 110 is the example
-# catalog's widest recommend ((210 consumed + topk) // 2); 1,500 passes one
-# block (~1,340 on an H100) and is split into two launches.  L = 17-40 take
-# two and three sequence tiles.
-K3_WIDE = ((1024, 65, SEQ_LEN, False), (BATCH, 110, SEQ_LEN, True),
-           (1024, 128, SEQ_LEN, False), (256, 1500, SEQ_LEN, False),
-           (1024, BEAM, 17, False), (BATCH, BEAM, 24, True), (1024, BEAM, 40, False))
+# K3 past the serving shape at E = 16, checked beside k3_wide_cases (beam
+# 110, timed; 1,000; L = 24, timed): (batch, beam, L).  Beams 65, 128 and
+# 1,500 (one launch at any beam; ~1,340 parents passed a block of the
+# plan the warpgroup plan replaced at E <= 16, which split the beam); L =
+# 17 and 40 take two and three sequence tiles.
+K3_WIDE = ((1024, 65, SEQ_LEN), (1024, 128, SEQ_LEN), (256, 1500, SEQ_LEN),
+           (1024, BEAM, 17), (1024, BEAM, 40))
 # the tdm_10m phase: bench.py's 10M-item catalog (_deep_tree, _deep_trainer);
 # ResidentWindows over synthetic users of RES_STREAM items each, targets at
 # positions [RES_T_LO, RES_STREAM): 3M windows, a 16 MB upload; the timed
@@ -424,18 +426,21 @@ BF16_ITERS = 30
 # the widths K1 and K3 are built for beside E (8: the JAX package's kernel
 # and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
 # scripts/quality_push.py's, the wide phase's), the widths whose K3 runs
-# on the warpgroup plan (wgmma), and the registers a thread of each
-# instance may use (their launch bounds): K1 and the one-tile K3 64 at E =
-# 8 and 16, K1 128 at E = 32; the wide K1 128 at E = 64 (two blocks of 256
-# threads an SM) and 255 past it (one block an SM, by its shared memory:
-# 135 and 211 KB at E = 96 and 128); the multi-tile K3 255 at E = 8 and
-# 16; K3's warpgroup plan 168 where a block holds three warpgroups (one
-# sequence tile at E = 32, 96 and, on bf16 rows, 128; more at E = 64), else
-# 255 (two warpgroups a block); a key with the row type overrides one
-# without
+# on the warpgroup plan (wgmma: every width), the (width, row type) that
+# keeps the narrow plan there (E = 8 on bf16 rows, where the warpgroup plan
+# was slower at [4096, 20]: PERF.md section 6), and the registers a thread
+# of each instance may use (their launch bounds): K1 64 at E = 8 and 16,
+# 128 at E = 32; the wide K1 128 at E = 64 (two blocks of 256 threads an
+# SM) and 255 past it (one block an SM, by its shared memory: 135 and 211
+# KB at E = 96 and 128); K3 on one sequence tile 64 at E = 8 and 16 (two
+# blocks of four warpgroups an SM), past one tile 255 there; K3 168 where a
+# block holds three warpgroups (one sequence tile at E = 32, 96 and, on
+# bf16 rows, 128; more at E = 64), else 255 (two warpgroups a block); a key
+# with the row type overrides one without
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
-K3_WGMMA = (32, *WIDE)
+K3_WGMMA = tuple(KERNEL_WIDTHS)
+K3_NARROW = ((8, "bf16"),)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
             ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
             **{("one-tile", e): 64 if e <= 16 else 168 if e in (32, 96) else 255
@@ -730,14 +735,16 @@ def tensor_core_gate(counts: dict) -> list[str]:
     """The instances that fail the build's tensor-core gate (mma_counts):
     every K3 instance and every wide K1 (E >= 64, its h product in 3xTF32)
     must hold HMMA or HGMMA, and every K3 instance of the warpgroup plan
-    (K3_WGMMA: E >= 32) HGMMA (its weight products on wgmma)."""
+    (K3_WGMMA: every width, but K3_NARROW) HGMMA (its weight products on
+    wgmma)."""
     expected = {f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
                 for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in WIDE}
     none = {"HMMA": 0, "HGMMA": 0}
+    wgmma = lambda n: (int(n.split()[1][2:]) in K3_WGMMA  # noqa: E731
+                       and (int(n.split()[1][2:]), n.split()[2]) not in K3_NARROW)
     return sorted(n for n in expected
                   if not sum(counts.get(n, none).values())
-                  or n.startswith("K3") and int(n.split()[1][2:]) in K3_WGMMA
-                  and not counts.get(n, none)["HGMMA"])
+                  or n.startswith("K3") and wgmma(n) and not counts.get(n, none)["HGMMA"])
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -832,23 +839,22 @@ def kernels_vs_plain(dev, weights, n_items: int) -> dict:
         shape=[b, BEAM, rows.shape[2], l, E], control_f32_scorer=control,
     )
     del rows, alive, ks, ps, blk
-    # K3 at wider beams (a block holds fewer query rows past 48 KB of
-    # staging; 1,500 parents pass one block and go in two launches) and
-    # longer sequences (16-position tiles), each against its plain version;
-    # beam 110 (the example catalog's widest recommend) and L = 24 also timed
+    # K3 at wider beams (each in one launch) and longer sequences
+    # (16-position tiles), each against its plain version; k3_wide_cases on
+    # both row types (beam 110 and L = 24 also timed)
     wide = {}
-    for bb, beam, ll, timed in K3_WIDE:
+    for bb, beam, ll in K3_WIDE:
         rows, alive = k3_rows(g, bb, beam, dev)
         s_e, s_pad = seq_inputs(g, bb, ll, dev)
         n0 = packed_level_kernel.launches
         agree = k3_check(rows, alive, s_e, s_pad, weights)[3]
-        wide[f"beam{beam}_l{ll}"] = dict(
-            **agree, shape=[bb, beam, rows.shape[2], ll, E],
-            launches=packed_level_kernel.launches - n0,
-            **(k3_times(rows, alive, s_e, s_pad, weights, flush) if timed else {}))
+        wide[f"beam{beam}_l{ll}"] = dict(**agree, shape=[bb, beam, rows.shape[2], ll, E],
+                                         launches=packed_level_kernel.launches - n0)
         del rows, alive, s_e, s_pad
-    check(wide["beam1500_l10"]["launches"] == 2, f"beam 1500 is not split in two: {wide}")
-    results["packed_level"]["wide"] = wide
+    check(wide["beam1500_l10"]["launches"] == 1, f"beam 1500 takes more than one launch: {wide}")
+    results["packed_level"]["wide"] = {
+        **wide, **k3_wide_cases(dev, g, E, torch.float32, weights, flush)["wide"]}
+    results["packed_level_bf16_rows"] = k3_wide_cases(dev, g, E, torch.bfloat16, weights, flush)
     del flush
     torch.cuda.synchronize()
     return results
@@ -2701,8 +2707,8 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
     the sweep's [8192, 4] and [8192, 2] and predict's one row of every
     catalog item (past E = 32 also [4096, 40] at L = 24); K3 at [4096, 20]
     on f32 and bf16 rows, each with the f32-scorer control, which must fail
-    K3's check; k3_wide_cases from E = 32 on (K3_WGMMA) on both row
-    types.  The serving and sweep shapes (past E
+    K3's check; k3_wide_cases on both row types.  The serving and sweep
+    shapes (past E
     = 32 also L = 24) are timed warm and cold, beside the plain version and
     the bound."""
     g = torch.Generator().manual_seed(SEED + 40 + e)
@@ -2739,8 +2745,7 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
                         shape=[b, BEAM, rows.shape[2], l, e], control_f32_scorer=control)
         del rows, alive, blk
     for dt, name in K3_ROWS.items():
-        if e in K3_WGMMA:
-            k3[name].update(k3_wide_cases(dev, g, e, dt, weights, flush))
+        k3[name].update(k3_wide_cases(dev, g, e, dt, weights, flush))
     torch.cuda.synchronize()
     return {"din_score": k1, **k3}
 
@@ -2749,9 +2754,13 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
                   flush: torch.Tensor) -> dict:
     """K3 at width ``e`` on ``dt`` rows past the serving shape, against its
     plain version: beam 110 (the example catalog's widest recommend) and L =
-    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000] in
-    one launch (from E = 32 on the warpgroup plan's shared memory does not
-    grow with the beam), with the single-launch limit."""
+    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000] in as
+    many launches as the single-launch limit gives (one: the warpgroup
+    plan's shared memory does not grow with the beam, and the narrow plan
+    of K3_NARROW holds ~3,050 parents a launch at L <= 16), with the
+    limit.  For a (width, row type) of K3_NARROW, also beam limit + 64 at
+    [8, limit + 64], which the wrapper splits into two launches whose
+    outputs it puts back in block order."""
     lib = _cuda.library()
     limit = (lib.packed_level_max_beam_bf16rows if dt == torch.bfloat16
              else lib.packed_level_max_beam)(SEQ_LEN, e)
@@ -2770,8 +2779,19 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
             **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
         del rows, alive, s_e, s_pad
     launches = wide[f"beam{past}_l{SEQ_LEN}"]["launches"]
-    check(launches == -(-past // limit) and (launches == 1) == (e in K3_WGMMA),
+    check(launches == -(-past // limit) == 1,
           f"beam {past} at E={e}: {launches} launches at the width's limit ({limit})")
+    if (e, "bf16" if dt == torch.bfloat16 else "f32") in K3_NARROW:
+        split = limit + 64
+        rows, alive = k3_rows(g, 8, split, dev, dt, e)
+        s_e, s_pad = seq_inputs(g, 8, SEQ_LEN, dev, e)
+        n0 = packed_level_kernel.launches_by_width[e, dt]
+        agree = k3_check(rows, alive, s_e, s_pad, weights, e)[3]
+        launches = packed_level_kernel.launches_by_width[e, dt] - n0
+        wide[f"beam{split}_l{SEQ_LEN}"] = dict(**agree, shape=[8, split, rows.shape[2], SEQ_LEN, e],
+                                              launches=launches)
+        del rows, alive, s_e, s_pad
+        check(launches == 2, f"beam {split} at E={e}: {launches} launches, not the split's 2")
     return {"wide": wide, "max_beam_l10": limit}
 
 
@@ -3974,8 +3994,7 @@ def main() -> int:
           "host_library": str(host.library_path().relative_to(ROOT)),
           "host_library_s": host_build_s})
     # every K1 and K3 instance within its register cap (K1 and the one-tile
-    # K3 at E <= 16: 64, so the serving batch's blocks fit the card in one
-    # wave) and no spill; every K3 instance on the tensor cores
+    # K3 at E <= 16: 64) and no spill; every K3 instance on the tensor cores
     expected = {f"K1 E={e}" for e in KERNEL_WIDTHS} | {
         f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
         for t in ("one-tile", "tiles")}
@@ -3985,7 +4004,7 @@ def main() -> int:
     check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
-    # K3 and the wide K1 on the tensor cores, K3 from E = 32 on (K3_WGMMA) on wgmma
+    # K3 and the wide K1 on the tensor cores, K3 on wgmma but K3_NARROW
     no_mma = tensor_core_gate(mma)
     check(not no_mma, f"instances without their tensor-core instructions (HMMA, HGMMA): {no_mma}")
 
@@ -4297,7 +4316,9 @@ def main() -> int:
     # the 10M bf16 table's rows), K2 at the pmv step's commit, the add at
     # the mv step's table update (f32, and a bf16 table's)
     timed = {**{n: {**kern[n], "library_ms": None} for n in ("din_score", "packed_level")},
-             "packed_level_bf16_rows": {**facts_10m["k3_bf16_rows"], "library_ms": None},
+             "packed_level_bf16_rows": {**facts_10m["k3_bf16_rows"],
+                                        "wide": kern["packed_level_bf16_rows"]["wide"],
+                                        "library_ms": None},
              "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"],
              "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]}
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
@@ -4316,8 +4337,10 @@ def main() -> int:
                                 facts_oe["eval"]["k3_vs_plain"]["max_abs_err"],
                                 facts_od["serving"]["k3_vs_plain"]["max_abs_err"],
                                 facts_mesh["nccl_world_1"]["serving"]["k3_audit"]["max_abs_err"]),
-            "packed_level_bf16_rows": max(facts_10m["k3_bf16_rows"]["max_abs_err"],
-                                          facts_10m["serving"]["vs_plain"]["max_abs_err"]),
+            "packed_level_bf16_rows": max(
+                facts_10m["k3_bf16_rows"]["max_abs_err"],
+                *(c["max_abs_err"] for c in kern["packed_level_bf16_rows"]["wide"].values()),
+                facts_10m["serving"]["vs_plain"]["max_abs_err"]),
             "write_rows": max(row_errors(rk, "write"),
                               *(c["max_abs_err"] for c in dr_k2.values()),
                               fm_1m_bf16["mv_commit"]["max_abs_err"]),
@@ -4327,7 +4350,7 @@ def main() -> int:
                                  fm_1m_bf16["table_add"]["max_abs_err"])}
     # the instances at the other widths: K1 at the serving shape (also the
     # sweep's; past E = 32 also L = 24), K3 at [4096, 20] on f32 and bf16
-    # rows (at E = 32 and past also beam 110 and L = 24); their errors over
+    # rows (also beam 110 and L = 24); their errors over
     # the kernel checks and every audit of the widths and wide phases
     audits = {8: [facts_w["e8_example"]], 32: [facts_w["e32_1m"]],
               **{e: [facts_wide[f"recipe_e{e}"]]

@@ -25,20 +25,20 @@ values.
 CUDA tensors and :func:`packed_level_plain` for CPU tensors; the kernel is
 built for ``KERNEL_WIDTHS`` (E = 8 pads its products' depth to 16 with
 zeros; past E = 32 a pair row passes 128 lanes, ``pair_row_width``) and
-takes any L (in 16-position tiles).  At E = 8 and 16 a warp stages one
-query row's pair rows in shared memory, so the staging grows with the
-beam: a beam wider than one row of a block can hold
-(``packed_level_max_beam(L, E)``, ~1,340 parents at E = 16 and L <= 16 on
-an H100) is split here into chunks of parents, one launch each, and the
-chunks' outputs are put back into block order.  Each parent's two
+takes any L (in 16-position tiles).  The kernel stages nothing: a warp
+reads its 16 candidates' embeddings into registers, and a warpgroup runs
+the weight products of 64 candidates (which may span query rows) with
+``wgmma`` from bf16 weights held once a block in shared memory (0.8 KB at
+E = 8 to 96 KB at E = 128), so shared memory does not grow with the beam
+and one launch takes any beam up to 2^30 - 8 parents (``2 * beam + 15``
+stays a 32-bit int).  But at E = 8 on bf16 rows a warp stages one query
+row's pair rows in shared memory (the kernel's narrow plan), so the
+staging grows with the beam: a beam wider than one row of a block can
+hold (``packed_level_max_beam_bf16rows(L, 8)``, ~3,050 parents at L <= 16
+on an H100) is split here into chunks of parents, one launch each, and
+the chunks' outputs are put back into block order.  Each parent's two
 children are scored independently of the other parents, so the split
-changes no score.  From E = 32 on the kernel stages nothing: a warp reads
-its 16 candidates' embeddings into registers, and a warpgroup runs the
-weight products of 64 candidates (which may span query rows) with
-``wgmma`` from bf16 weights held once a block in shared memory (6.4, 24,
-54 and 96 KB at E = 32, 64, 96 and 128), so shared memory does not grow
-with the beam and one launch takes any beam up to 2^30 - 8 parents
-(``2 * beam + 15`` stays a 32-bit int): there the beam is never split.
+changes no score.
 The kernel runs its products on the tensor cores (bf16 operands are the
 contract), so on the H100 at the serving shapes (B=4096, beam=20, E=16) it
 is bound by bytes: of each 128-lane row it needs the 2E+6 = 38 used lanes

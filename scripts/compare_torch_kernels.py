@@ -23,7 +23,7 @@ K3) must lie within twice their tolerance of the first version's scores,
 and the add must agree with the first version's bit for bit.  Each
 library's ptxas registers and spills of K1 and K3 are printed.  With
 ``--base`` it also says whether the SASS of K2 ``write_kernel`` and of K3
-``packed_level_kernel`` (its one-tile instance, where it has two) is
+at the serving shape's instance (E = 16, f32 rows, one sequence tile) is
 equal between the two libraries.
 
 ``--probe`` adds variants of this tree's K1 and K3, built with edits of
@@ -34,12 +34,11 @@ memory, then a return: no prologue arithmetic, no scoring),
 (copies and prologue, no scoring), ``k1_regs48`` (the kernel under a
 48-register launch bound), ``k1_head_unroll2`` (h's loop unrolled twice)
 and ``k1_fast_exp`` (``__expf`` for ``expf``: not K1's arithmetic).  K3:
-``empty``, ``stage_only`` (stages its inputs and stores, no m-tile),
 ``no_softmax`` (the softmax skipped), ``no_exp`` (expf skipped),
 ``no_cvt`` (bf16 rounding replaced by truncation) and ``div`` (a division
-per probability instead of one reciprocal a row).  The probes other than
-``div``, ``k1_regs48`` and ``k1_head_unroll2`` compute wrong scores and
-only split the time.
+per probability instead of one reciprocal a row); ``--narrow`` splits
+K3's time further.  The probes other than ``div``, ``k1_regs48`` and
+``k1_head_unroll2`` compute wrong scores and only split the time.
 
 ``--wide`` instead times K3's warpgroup plan at E = 32, 64, 96 and 128
 (WIDE_CASES: f32 and bf16 rows at [4096, 20, L 10], beam 110 and L = 24;
@@ -53,6 +52,18 @@ split the time), warm, and each case's bound.  With ``--base`` it first
 asserts that the SASS of K1 (every width), of K3 at E <= 16 and of K2
 (``write_kernel``, the write and the add) equals the base's; it prints the
 warpgroup plan's K3 instances' HMMA and HGMMA counts.
+
+``--narrow`` does the same for K3 at E = 8 and 16 (NARROW_CASES: f32 and
+bf16 rows at [4096, 20, L 10], beam 110 and L = 24), each version's
+scores also counted against the first's where they differ
+(``differing_scores``); its variants (NARROW_PROBES) are the launch
+shapes at E <= 16 (``k3n_g<G>b<M>``: G warpgroups a block, the register
+cap set for M blocks an SM on one sequence tile; ``k3n_tiles_b<M>``: M
+blocks an SM past one tile), checked as the versions are, and
+``--wide``'s probes that split the time.  With ``--base`` it first
+asserts that the SASS of K1, of K3 from E = 32 on, of the K3 instances
+that keep the narrow plan (chip_smoke.K3_NARROW: E = 8 on bf16 rows) and
+of K2 equals the base's.
 
 ``--wide-k1`` instead times K1 at E = 64, 96 and 128 (WIDE_K1_CASES: the
 serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
@@ -90,7 +101,7 @@ events.  One JSON line per measurement; the card's name and power limit
 first.
 
 Usage: python3 scripts/compare_torch_kernels.py [--base DIR]
-           [--probe | --wide | --wide-k1 | --k3-e32-draws N]   (one GPU)
+           [--probe | --wide | --narrow | --wide-k1 | --k3-e32-draws N]   (one GPU)
 """
 
 from __future__ import annotations
@@ -136,13 +147,9 @@ PROBES = {
     "k1_head_unroll2": [("#pragma unroll 1\n  for (const float* c = ctx;",
                          "#pragma unroll 2\n  for (const float* c = ctx;")],
     "k1_fast_exp": [("    x[l] = expf(x[l] - mx);", "    x[l] = __expf(x[l] - mx);")],
-    "empty": [("  extern __shared__ float4 smem4[];\n  float* smem",
-               "  extern __shared__ float4 smem4[];\n  if (B > 0) return;\n  float* smem")],
-    "stage_only": [("for (int m0 = 0; m0 < U; m0 += 16) {",
-                    "for (int m0 = 0; m0 < 0; m0 += 16) {")],
-    "no_softmax": [("#pragma unroll\n      for (int h = 0; h < 2; ++h) {\n        float mx",
-                    "#pragma unroll\n      for (int h = 0; h < 0; ++h) {\n        float mx")],
-    "no_exp": [("            x = expf(x - mx);", "            x = x - mx;")],
+    "no_softmax": [("#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n    float mx",
+                    "#pragma unroll\n  for (int h = 0; h < 0; ++h) {\n    float mx")],
+    "no_exp": [("        x = expf(x - mx);", "        x = x - mx;")],
     "no_cvt": [("  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
                 "  return *reinterpret_cast<const uint32_t*>(&v);",
                 "  return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);"),
@@ -166,7 +173,7 @@ PROBES = {
 # products (h zero).
 K3W_GROUPS = ("    kOneTile && (E == 32 || E == 96 || E == 128 && sizeof(Row) == 2) || "
               "E == 64 && !kOneTile\n        ? 3\n        : 2;")
-K3W_BOUNDS = "__global__ void __launch_bounds__(kWgThreads<kOneTile, Row, E>, 1)\n"
+K3W_MIN_BLOCKS = "constexpr int kWgMinBlocks = E <= 16 && kOneTile ? 2 : 1;"
 K3W_ATTENTION = ("    tile_attention<kOneTile, E>(acc, a_item, seq_e + (size_t)b * L * E, "
                  "pad + (size_t)b * L, L,\n                                g, t);")
 K3W_PRODUCTS = "    wg_products<E>(h, ae, a_item, w);"
@@ -175,18 +182,19 @@ K3W_NO_PRODUCTS = ("    zero(h);\n    h[0][0] = __uint_as_float(ae[0][0] ^ ae[kK
 WIDE_PROBES = {
     "k3w_wg2": [(K3W_GROUPS, "    2;")],
     "k3w_att_scalar": [
-        ("      const float* p = att_w + n * E + kc / 2 * 16 + kc % 2;\n#pragma unroll\n"
-         "      for (int q = 0; q < 8; ++q) v[q] = __ldg(p + 2 * q);",
-         "      for (int q = 0; q < 8; ++q) v[q] = __ldg(att_w + n * E + 8 * kc + q);"),
-        ("#pragma unroll\n  for (int s = 0; s < Dims<E>::kK; ++s) {\n"
-         "    const float2 a = at(l0, s), b = at(l0 + 1, s), "
+        ("        const float* p = att_w + n * E + kc / 2 * 16 + kc % 2;\n#pragma unroll\n"
+         "        for (int q = 0; q < 8; ++q) v[q] = __ldg(p + 2 * q);",
+         "        for (int q = 0; q < 8; ++q) v[q] = __ldg(att_w + n * E + 8 * kc + q);"),
+        ("#pragma unroll\n    for (int s = 0; s < Dims<E>::kK; ++s) {\n"
+         "      const float2 a = at(l0, s), b = at(l0 + 1, s), "
          "c = at(l0 + 8, s), d = at(l0 + 9, s);\n"
-         "    f.at[2 * s] = make_uint2(bf16x2(a.x, b.x), bf16x2(c.x, d.x));\n"
-         "    f.at[2 * s + 1] = make_uint2(bf16x2(a.y, b.y), bf16x2(c.y, d.y));\n  }",
-         "  const auto at1 = [&](int l, int n) { return l < L ? __ldg(seq + l * E + n) : 0.f; };\n"
-         "#pragma unroll\n  for (int j = 0; j < Dims<E>::kN; ++j) {\n    const int n = 8 * j + g;\n"
-         "    f.at[j] = make_uint2(bf16x2(at1(l0, n), at1(l0 + 1, n)), "
-         "bf16x2(at1(l0 + 8, n), at1(l0 + 9, n)));\n  }")],
+         "      f.at[2 * s] = make_uint2(bf16x2(a.x, b.x), bf16x2(c.x, d.x));\n"
+         "      f.at[2 * s + 1] = make_uint2(bf16x2(a.y, b.y), bf16x2(c.y, d.y));\n    }",
+         "    const auto at1 = [&](int l, int n) { return l < L ? __ldg(seq + l * E + n) : 0.f; };"
+         "\n#pragma unroll\n    for (int j = 0; j < Dims<E>::kN; ++j) {\n"
+         "      const int n = 8 * j + g;\n"
+         "      f.at[j] = make_uint2(bf16x2(at1(l0, n), at1(l0 + 1, n)), "
+         "bf16x2(at1(l0 + 8, n), at1(l0 + 9, n)));\n    }")],
     "k3w_empty": [("  const float bias2 = __ldg(b2);\n",
                    "  const float bias2 = __ldg(b2);\n  if (B > 0) return;\n")],
     "k3w_loads_only": [(K3W_ATTENTION, "    zero(acc);"), (K3W_PRODUCTS, K3W_NO_PRODUCTS)],
@@ -194,12 +202,59 @@ WIDE_PROBES = {
     "k3w_no_wgmma": [(K3W_PRODUCTS, K3W_NO_PRODUCTS)],
     **{f"k3w_e32_g{gr}b{mb}": [
         (K3W_GROUPS, f"    E == 32 ? {gr} :{K3W_GROUPS[3:]}"),
-        (K3W_BOUNDS, K3W_BOUNDS.replace(", 1)", f", E == 32 ? {mb} : 1)"))]
+        (K3W_MIN_BLOCKS, K3W_MIN_BLOCKS.replace(" = E <= 16", f" = E == 32 ? {mb} : E <= 16"))]
        for gr, mb in ((2, 1), (2, 2), (3, 1), (3, 2), (2, 3), (4, 1), (4, 2), (2, 4))},
 }
 # the design steps among them, held to K3's tolerance like the versions
 WIDE_CHECKED = ("k3w_wg2", "k3w_att_scalar",
                 *(p for p in WIDE_PROBES if p.startswith("k3w_e32_")))
+# --narrow's variants of this tree's K3 at E = 8 and 16 (the row walk).
+# Design steps taken back, computing K3 and checked as the versions are:
+# k3n_g2b4, two warpgroups a block and four blocks an SM on one tile (this
+# tree's is g4b2); k3n_tiles_in_order, a row's tiles walked in block order,
+# not its halves alternating; k3n_ahead_always and k3n_ahead_never, the
+# next tile's items, flags and digits loaded ahead at every row length or
+# at none (this tree's from kRowAheadFrom tiles on); k3n_keep0, past one
+# tile no scores kept from the softmax's first pass to its second;
+# k3n_no_seq_cache, past one tile no fragments kept in shared memory;
+# k3n_seq_per_tile, one tile's sequence fragments read again for every
+# m16 tile; k3n_tile_walk, the walk of E >= 32 (four consecutive m16
+# tiles a warpgroup).  Probes that split the time (wrong scores):
+# k3n_empty, the weights filled and no tile; k3n_loads_only, k3n_no_attention
+# and k3n_no_wgmma, as --wide's.
+K3N_GROUPS = "    E <= 16 ? 4 :"
+K3N_ATTENTION = ("      if constexpr (kOneTile)\n"
+                 "        tile_attention_loaded<E>(acc, items[0], f);\n"
+                 "      else\n"
+                 "        tiles_attention<E, 2>(  // L > 16: two tiles or more")
+K3N_PRODUCTS = "      wg_products<E>(h, ae, items[0], w);"
+K3N_NO_PRODUCTS = ("      zero(h);\n      h[0][0] = __uint_as_float(ae[0][0] ^ ae[kK - 1][3] ^ "
+                   "items[0][0][0] ^ items[0][kK - 1][3]);")
+# the attention call of the row walk skipped: its first line becomes a
+# zeroing and the call a discarded lambda pair
+K3N_NO_ATTENTION = [(K3N_ATTENTION, "      zero(acc);\n      if constexpr (false)\n"
+                                    "        tiles_attention<E, 2>(")]
+NARROW_PROBES = {
+    "k3n_g2b4": [(K3N_GROUPS, "    E <= 16 ? 2 :"),
+                 (K3W_MIN_BLOCKS, K3W_MIN_BLOCKS.replace("? 2 : 1", "? 4 : 1"))],
+    "k3n_tiles_in_order": [("  return k >= T ? T : k & 1 ? (T + 1) / 2 + k / 2 : k / 2;",
+                            "  return k >= T ? T : k;")],
+    "k3n_ahead_always": [("constexpr int kRowAheadFrom = 5;", "constexpr int kRowAheadFrom = 1;")],
+    "k3n_ahead_never": [("constexpr int kRowAheadFrom = 5;",
+                         "constexpr int kRowAheadFrom = 1 << 30;")],
+    "k3n_keep0": [("        tiles_attention<E, 2>(  // L > 16: two tiles or more",
+                   "        tiles_attention<E, 0>(")],
+    "k3n_no_seq_cache": [("constexpr int kSeqCacheTiles = 4;", "constexpr int kSeqCacheTiles = 0;")],
+    "k3n_seq_per_tile": [("        tile_attention_loaded<E>(acc, items[0], f);",
+                          "        tile_attention<true, E>(acc, items[0], seq, pd, L, g, t);")],
+    "k3n_tile_walk": [("constexpr bool kRowWalk = E <= 16;", "constexpr bool kRowWalk = false;")],
+    "k3n_empty": WIDE_PROBES["k3w_empty"],
+    "k3n_loads_only": K3N_NO_ATTENTION + [(K3N_PRODUCTS, K3N_NO_PRODUCTS)],
+    "k3n_no_attention": K3N_NO_ATTENTION,
+    "k3n_no_wgmma": [(K3N_PRODUCTS, K3N_NO_PRODUCTS)],
+}
+NARROW_CHECKED = tuple(p for p in NARROW_PROBES if p not in (
+    "k3n_empty", "k3n_loads_only", "k3n_no_attention", "k3n_no_wgmma"))
 # --wide-k1's probes: this tree's wide K1 with a pass taken out
 WIDE_K1_PROBES = {
     "k1w_empty": [("  constexpr int kW = wide_weight_floats<E>(), R = kWideRow<E>, NB",
@@ -248,9 +303,11 @@ WIDE_K1_CASES = [(e, b, u, l) for e in (64, 96, 128)
 # --k3-e32-draws: chip_smoke.k3_wide_cases's widest beam (one launch from E =
 # 32 on) and the |logit| bands the largest errors are read in
 K3_DRAW_PAST, K3_DRAW_BANDS = (256, 1000), (0.0, 1.0, 2.0, 5.0, 10.0, float("inf"))
-# --wide's K3 cases: (E, row dtype, batch, beam, L)
-WIDE_CASES = [(e, dt, B, beam, l) for e in cs.K3_WGMMA for dt in (torch.float32, torch.bfloat16)
+# --wide's and --narrow's K3 cases: (E, row dtype, batch, beam, L)
+WIDE_CASES = [(e, dt, B, beam, l) for e in (32, *cs.WIDE) for dt in (torch.float32, torch.bfloat16)
               for beam, l in ((20, 10), (110, 10), (20, 24))]
+NARROW_CASES = [(e, dt, B, beam, l) for e in (8, 16) for dt in (torch.float32, torch.bfloat16)
+                for beam, l in ((20, 10), (110, 10), (20, 24))]
 
 
 def build(label: str, sources: dict[str, str]) -> subprocess.Popen:
@@ -342,11 +399,13 @@ def k2_commit(dev):
     return table, idx, rows
 
 
-def wide(libs: dict) -> None:
-    """--wide: K3 at WIDE_CASES for each library, the versions and the
-    design steps checked (K3's tolerance against its plain version, digits
-    and the dead mask bit for bit), then timed: the versions in turns (each,
-    then the same in reverse), warm and cold, the variants warm after."""
+def wide(libs: dict, cases: list, probes: dict, checked: tuple) -> None:
+    """--wide and --narrow: K3 at ``cases`` for each library, the versions
+    and the design steps (``checked``) checked (K3's tolerance against its
+    plain version, digits and the dead mask bit for bit; each one's scores
+    counted where they differ from the first version's), then timed: the
+    versions in turns (each, then the same in reverse), warm and cold, the
+    variants (``probes``) warm after."""
     from dismember_tpu_torch.ops import packed_level_kernel as plk
 
     dev = torch.device("cuda", 0)
@@ -354,8 +413,8 @@ def wide(libs: dict) -> None:
     flush = torch.empty(64 << 20, device=dev)
     g = torch.Generator().manual_seed(cs.SEED + 8)
     versions = [v for v in ("base", "new") if v in libs]
-    for e, dt, b, beam, l in WIDE_CASES:
-        variants = [v for v in libs if v in WIDE_PROBES
+    for e, dt, b, beam, l in cases:
+        variants = [v for v in libs if v in probes
                     and (e == 32 or not v.startswith("k3w_e32_"))]
         weights = tuple(t.detach() for t in params_from_numpy(
             cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
@@ -378,7 +437,7 @@ def wide(libs: dict) -> None:
                 "packed_level", fn(*args, b, beam, rows.shape[2], l, e, stream)))
             launches[label]()
             torch.cuda.synchronize()
-            if label in versions or label in WIDE_CHECKED:
+            if label in versions or label in checked:
                 cs.check(torch.equal(cs.bits(hl), cs.bits(ph)), f"{label}: id lanes differ")
                 cs.check(torch.equal(sc > cs.NEG_INF / 2, live)
                          and bool((sc[~live] == ps[~live]).all()), f"{label}: dead mask differs")
@@ -389,6 +448,8 @@ def wide(libs: dict) -> None:
         first = outs[versions[0]]
         case["bitwise_equal_to_" + versions[0]] = {k: torch.equal(o, first)
                                                    for k, o in outs.items()}
+        case["differing_scores"] = {k: int((cs.bits(o) != cs.bits(first)).sum())
+                                    for k, o in outs.items()}
         for label in versions + versions[::-1]:
             cs.emit({"kernel": "packed_level", "version": label, **case,
                      **cs.time_ms(launches[label]),
@@ -401,17 +462,19 @@ def wide(libs: dict) -> None:
         del rows, alive, seq_e, pad, ps, ph, outs, launches
 
 
-def sass_equal_outside(old: dict, new: dict, redesigned: str) -> bool:
+def sass_equal_outside(old: dict, new: dict, redesigned: str, widths: tuple,
+                       kept: tuple = ()) -> bool:
     """Whether every kernel of the base library (K1, K3 and K2's
-    write_kernel, the write and the add) but those of the redesigned
-    instances ("K1": the wide K1 and its prologue, E >= 64; "K3": K3 at E
-    >= 32, the warpgroup plan's widths) has the same SASS in the new one;
-    the first differing instruction of each that differs is printed."""
+    write_kernel, the write and the add) but the redesigned instances
+    (``redesigned``, "K1" or "K3", at ``widths``, save the (width, row
+    type) pairs in ``kept``, which stayed on their plan) has the same SASS
+    in the new one; the first differing instruction of each that differs is
+    printed."""
     groups, diffs = {}, {}
-    first = {"K1": 64, "K3": min(cs.K3_WGMMA)}[redesigned]
     for name, ins in old.items():
         inst = cs.instance_name(name)
-        if inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) >= first:
+        if (inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) in widths
+                and (int(inst.split()[1][2:]), inst.split()[2]) not in kept):
             continue
         group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
         if group is None:
@@ -425,7 +488,7 @@ def sass_equal_outside(old: dict, new: dict, redesigned: str) -> bool:
                            "base": ins[i:i + 2], "new": other[i:i + 2]}
     same = set(groups) == {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
     cs.emit({"sass_identical": {g: all(v) for g, v in groups.items()}, "all": same,
-             "outside": f"{redesigned} from E = {first} on",
+             "outside": f"{redesigned} at E = {widths}, save {kept}",
              "functions": {g: len(v) for g, v in groups.items()},
              "first_diffs": dict(list(diffs.items())[:4])})
     return same
@@ -548,6 +611,8 @@ def main() -> int:
     ap.add_argument("--probe", action="store_true", help="time K1 and K3 probe variants too")
     ap.add_argument("--wide", action="store_true",
                     help="time K3 at E = 32, 64, 96 and 128 and its variants instead")
+    ap.add_argument("--narrow", action="store_true",
+                    help="time K3 at E = 8 and 16 and its variants instead")
     ap.add_argument("--wide-k1", action="store_true",
                     help="time K1 at E = 64, 96 and 128 and its probes instead")
     ap.add_argument("--k3-e32-draws", type=int, metavar="N",
@@ -568,6 +633,7 @@ def main() -> int:
     if args.base:
         sources["base"] = {p.name: p.read_text() for p in sorted(args.base.glob("*.cu"))}
     for name, edits in (PROBES.items() if args.probe else WIDE_PROBES.items() if args.wide
+                        else NARROW_PROBES.items() if args.narrow
                         else WIDE_K1_PROBES.items() if args.wide_k1 else ()):
         text = new_src["din_kernels.cu"]
         for old, new in edits:
@@ -582,15 +648,24 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
+                 # a base's K3 of the plan E <= 16 took before the warpgroup plan
+                 "packed_level_kernel E=16 f32 one-tile": cs.ptxas_usage(
+                     log, "packed_level_kernelILb1EfLi16E"),
                  **cs.instance_usage(log)})
     libs = {label: load(label) for label in sources}
-    if args.wide:
+    if args.wide or args.narrow:
+        widths = (8, 16) if args.narrow else (32, *cs.WIDE)
         tc = {k: v for k, v in cs.mma_counts(OUT / "new" / "lib.so").items()
-              if k.startswith("K3") and int(k.split()[1][2:]) in cs.K3_WGMMA}
+              if k.startswith("K3") and int(k.split()[1][2:]) in widths}
         cs.emit({"sass_mma": "new", **tc})
-        same = sass_equal_outside(sass("base"), sass("new"), "K3") if args.base else True
-        wide(libs)
-        cs.check(same, "SASS outside K3's warpgroup plan differs from the base's")
+        kept = cs.K3_NARROW if args.narrow else ()
+        same = (sass_equal_outside(sass("base"), sass("new"), "K3", widths, kept) if args.base
+                else True)
+        if args.narrow:
+            wide(libs, NARROW_CASES, NARROW_PROBES, NARROW_CHECKED)
+        else:
+            wide(libs, WIDE_CASES, WIDE_PROBES, WIDE_CHECKED)
+        cs.check(same, f"SASS outside K3 at E = {widths} (save {kept}) differs from the base's")
         return 0
     if args.wide_k1:
         ops = {}
@@ -600,22 +675,23 @@ def main() -> int:
                 ops[m[1]] = dict(collections.Counter(
                     i.split()[i.startswith("@")].split(".")[0] for i in ins if i).most_common())
         cs.emit({"sass_opcodes": "din_score_wide_kernel", **ops})
-        same = sass_equal_outside(sass("base"), sass("new"), "K1") if args.base else True
+        same = (sass_equal_outside(sass("base"), sass("new"), "K1", cs.WIDE) if args.base
+                else True)
         wide_k1(libs)
         cs.check(same, "SASS outside the wide K1 differs from the base's")
         return 0
 
     if args.base:
         old, new = sass("base"), sass("new")
-        pick = lambda fs, *keys: next(v for n, v in fs.items() if any(k in n for k in keys))  # noqa: E731
+        pick = lambda fs, *keys: next((v for n, v in fs.items()  # noqa: E731
+                                       if any(k in n for k in keys)), [])
         # the write: the plain kernel of a parent, write_kernel<false> (f32)
-        # here; K3's one-tile instance over f32 rows
+        # here; K3 at E = 16 over f32 rows on one sequence tile (a base
+        # without that instance reads as no instructions)
         for name, keys in (("write_kernel", ("write_kernelE", "write_kernelILb0EEv",
                                              "write_kernelILb0EfE")),
-                           ("packed_level_kernel", ("packed_level_kernelE",
-                                                    "packed_level_kernelILb1EEv",
-                                                    "packed_level_kernelILb1EfE",
-                                                    "packed_level_kernelILb1EfLi16EE"))):
+                           ("packed_level_wgmma_kernel",
+                            ("packed_level_wgmma_kernelILb1EfLi16EE",))):
             a, b = pick(old, *keys), pick(new, *keys)
             cs.emit({"sass_identical": name, "equal": a == b, "instructions": [len(a), len(b)]})
 

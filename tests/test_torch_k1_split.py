@@ -188,7 +188,7 @@ def test_kernel_probes_apply_to_the_source():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     src = (CSRC / "din_kernels.cu").read_text()
-    for probes in (mod.PROBES, mod.WIDE_PROBES, mod.WIDE_K1_PROBES):
+    for probes in (mod.PROBES, mod.WIDE_PROBES, mod.NARROW_PROBES, mod.WIDE_K1_PROBES):
         for name, edits in probes.items():
             for old, _ in edits:
                 assert old in src, f"probe {name}: {old!r}"

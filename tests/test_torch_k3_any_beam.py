@@ -1,8 +1,9 @@
 """K3 at any beam and any sequence length, held on the CPU.
 
-A query row's staging area grows with the beam, so the wrapper splits a
-beam wider than one launch takes into chunks of parents and puts the
-chunks' block-ordered outputs back together; sequences past one 16-position
+Where the kernel stages a query row's beam (E = 8 on bf16 rows) the
+staging grows with the beam, so the wrapper splits a beam wider than one
+launch takes into chunks of parents and puts the chunks' block-ordered
+outputs back together; sequences past one 16-position
 tile go through the kernel in tiles.  The split is plain Python: with the
 chunk forced small it must equal the unsplit plain level.  The plain level
 takes any L and must agree with the JAX package's Pallas kernel (interpret

@@ -1,16 +1,20 @@
-"""K3's warpgroup plan at E = 32, 64, 96 and 128, held on the CPU.
+"""K3's warpgroup plan at every built width (E = 8 to 128; at E = 8 on f32
+rows only), held on the CPU.
 
 The CUDA kernel (``packed_level_wgmma_kernel`` in ``csrc/din_kernels.cu``)
 runs only on the card.  Here a plain-PyTorch emulation of its schedule
 goes against K3's plain version and the JAX package's Pallas kernel
 (interpret mode): m16 tiles of candidates numbered as (query row, m0)
 pairs in block order, four consecutive tiles gathered into one 64-row
-tile across query rows, each tile's scores, softmax and att against its
-own query row, then att_lin and h on the 64-row tiles with the contract's
-bf16 roundings and the item operand in the kernel's k order, masks and
-digits put back in block order.  Also the build gate that holds K3's
-instances from E = 32 on to wgmma, and the wrapper's single launch at a
-beam the narrow plan had to split."""
+tile across query rows (``walk_groups``), each tile's scores, softmax
+and att against its own query row, then att_lin and h on the 64-row
+tiles with the contract's
+bf16 roundings, each operand's k-steps in the kernel's k order and E =
+8's one k-step padded to 16 with zeros, masks and digits put back in
+block order.  At E = 8 and 16 the kernel walks query rows instead: a
+64-row tile is tile m of four consecutive query rows.  Also the build gate
+that holds every warpgroup-plan K3 instance to wgmma, and the wrapper's
+single launch at any beam on that plan."""
 
 import re
 from pathlib import Path
@@ -66,12 +70,41 @@ def att_k(k: int) -> int:
     return 2 * (k & 7) + (k >> 3)
 
 
-def _group_perm(fn, e: int) -> torch.Tensor:
-    return torch.tensor([16 * (c // 16) + fn(c % 16) for c in range(e)])
+def k_lanes(fn, e: int) -> torch.Tensor:
+    """The lane each column of an E-deep operand's k-steps holds in the
+    kernel (16 columns a k-step, ``fn`` the order within one), -1 where
+    the column lies past E (E = 8's one k-step is 16 deep)."""
+    lanes = [16 * (c // 16) + fn(c % 16) for c in range(-(-e // 16) * 16)]
+    return torch.tensor([lane if lane < e else -1 for lane in lanes])
+
+
+def _in_k_order(x: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """x's last dimension laid out as the columns ``lanes`` name, zero at -1."""
+    return torch.where(lanes >= 0, x[..., lanes.clamp(min=0)], 0.0)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
+
+
+def tile_order(k: int, t: int) -> int:
+    """csrc's tile_order: the m16 tile a row walk scores k-th of a row's t,
+    the halves alternating (0, h, 1, h + 1, ...)."""
+    return t if k >= t else (t + 1) // 2 + k // 2 if k & 1 else k // 2
+
+
+def walk_groups(b: int, t: int, e: int) -> list:
+    """The kernel's groups of four m16 tiles, (valid, query row, m0) a warp:
+    at E <= 16 (the row walk) the k-th tile (tile_order) of four consecutive
+    query rows, a warp past the last row on row 0; past it four consecutive
+    tiles numbered (query row, m0), a warp past the last tile on row 0."""
+    if e <= 16:
+        return [[(q < b, q if q < b else 0, 16 * tile_order(k, t))
+                 for q in range(4 * rg, 4 * rg + 4)]
+                for rg in range(-(-b // 4)) for k in range(t)]
+    n_tiles = b * t
+    return [[(mt < n_tiles, *((mt // t, mt % t * 16) if mt < n_tiles else (0, 0)))
+             for mt in range(4 * grp, 4 * grp + 4)] for grp in range(-(-n_tiles // 4))]
 
 
 def wgmma_schedule(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2, e: int):
@@ -80,20 +113,20 @@ def wgmma_schedule(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2, e: int):
     b, beam, _ = rows.shape
     u, k = 2 * beam, ID_DIGITS[rows.dtype]
     t = -(-u // 16)  # m16 tiles a query row
-    n_tiles = b * t
     f = rows.float()
-    perm, pa = _group_perm(item_k, e), _group_perm(att_k, e)
-    w1a = _bf16(w1[:, :e])[:, perm]  # the shared B of h's item half, in item_k order
-    aw = _bf16(att_w)[:, pa]  # att_lin's B, in att_k order
-    w1b, w2b = _bf16(w1[:, e:]), _bf16(w2)
+    # k orders: items in item_k order; att in att_k order (E = 8's one
+    # n-tile in lane order); att_lin in lane order
+    ki = k_lanes(item_k, e)
+    ka = k_lanes(att_k if e % 16 == 0 else (lambda k: k), e)
+    kl = k_lanes(lambda k: k, e)
+    w1a = _in_k_order(_bf16(w1[:, :e]), ki)  # the shared B of h's item half
+    aw = _in_k_order(_bf16(att_w), ka)  # att_lin's B
+    w1b, w2b = _in_k_order(_bf16(w1[:, e:]), kl), _bf16(w2)
     scores = torch.full((b, u), float("nan"))
     digits = torch.zeros((b, u, k), dtype=rows.dtype)
-    for grp in range(-(-n_tiles // 4)):
+    for group in walk_groups(b, t, e):
         item64, att64, tiles = torch.zeros(64, e), torch.zeros(64, e), []
-        for wq in range(4):
-            mt = 4 * grp + wq
-            valid = mt < n_tiles  # the last group may be partly empty
-            bq, m0 = (mt // t, mt % t * 16) if valid else (0, 0)
+        for wq, (valid, bq, m0) in enumerate(group):  # the last group may be partly empty
             c = m0 + torch.arange(16)
             side = c >= beam
             kk = torch.clamp(c - side.long() * beam, max=beam - 1)  # a real row
@@ -105,12 +138,13 @@ def wgmma_schedule(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2, e: int):
             att64[16 * wq : 16 * wq + 16] = _bf16(torch.softmax(s, -1)) @ _bf16(seq_e[bq])
             item64[16 * wq : 16 * wq + 16] = item
             tiles.append((valid, bq, c, side, kk))
-        # the weight products on the 64-row tile
-        att_lin = _bf16(att64)[:, pa] @ aw.T  # att's columns as its accumulator holds them
-        h = item64[:, perm] @ w1a.T + _bf16(att_lin) @ w1b.T + b1
+        # the weight products on the 64-row tile, each operand's columns as
+        # its A fragments hold them (att's as its accumulator holds them)
+        att_lin = _in_k_order(_bf16(att64), ka) @ aw.T
+        h = _in_k_order(item64, ki) @ w1a.T + _in_k_order(_bf16(att_lin), kl) @ w1b.T + b1
         logit = (_bf16(torch.relu(h)) @ w2b.T + b2)[:, 0]
         for wq, (valid, bq, c, side, kk) in enumerate(tiles):
-            keep = (c < u) & valid  # rows past 2 * beam and empty tiles store nothing
+            keep = (c < u) & valid  # rows past 2 * beam and empty warps store nothing
             if not keep.any():
                 continue
             cs, sd, kp = c[keep], side[keep], kk[keep]
@@ -123,7 +157,7 @@ def wgmma_schedule(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2, e: int):
 
 
 def _params(rng, e):
-    std = 0.5 * (16 / e) ** 0.5  # chip_smoke.w_std
+    std = 0.5 * min(1.0, 16 / e) ** 0.5  # chip_smoke.w_std
     f = lambda *s: rng.normal(0, std, s).astype(np.float32)  # noqa: E731
     return {"embedding": f(31, e), "att_linear": {"weight": f(e, e)},
             "mlp1": {"weight": f(e, 2 * e), "bias": f(e)},
@@ -172,6 +206,11 @@ def _hold(got, want, rows):
 @pytest.mark.parametrize("e,beam,l,dtype", [
     *((32, beam, l, dt) for dt in (torch.float32, torch.bfloat16)  # two k-steps, four n-tiles
       for beam, l in ((1, 10), (20, 10), (110, 10), (20, 24))),
+    # E = 16: one k-step, two n-tiles; E = 8 (f32 rows: bf16 rows keep the
+    # narrow plan there): one k-step padded to 16, one n-tile
+    *((e, beam, l, dt) for e, dt in ((8, torch.float32), (16, torch.float32),
+                                      (16, torch.bfloat16))
+      for beam, l in ((1, 10), (20, 10), (110, 10), (20, 24))),
     (64, 1, 10, torch.float32),     # four query rows in one 64-row tile
     (64, 7, 24, torch.float32),     # one 16-row tile a row, two sequence tiles
     (128, 20, 10, torch.float32),   # 3 tiles a row: rows straddle 64-row tiles
@@ -190,7 +229,7 @@ def test_schedule_matches_the_plain_level(e, beam, l, dtype):
     _hold(got, want, rows)
 
 
-@pytest.mark.parametrize("e,beam", [(32, 20), (64, 7), (128, 20)])
+@pytest.mark.parametrize("e,beam", [(8, 20), (16, 20), (32, 20), (64, 7), (128, 20)])
 def test_schedule_matches_pallas(e, beam):
     """Against the JAX package's Pallas level body in interpret mode, as
     tests/test_torch_wide_widths.py runs it, on the JAX layout's f32 rows."""
@@ -204,6 +243,15 @@ def test_schedule_matches_pallas(e, beam):
         got = wgmma_schedule(rows, alive, seq_e, pad,
                              *params_from_numpy(p, device="cpu").scorer_weights(), e)
     _hold(got, (torch.as_tensor(np.array(js)), torch.as_tensor(np.array(jh))), rows)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 14, 15])
+def test_tile_order_walks_every_tile_once(t):
+    """The row walk's tile order is a permutation of a row's tiles, and the
+    source defines the same map."""
+    assert sorted(tile_order(k, t) for k in range(t)) == list(range(t))
+    assert tile_order(t, t) == t
+    assert "  return k >= T ? T : k & 1 ? (T + 1) / 2 + k / 2 : k / 2;" in CSRC.read_text()
 
 
 def test_k_orders_are_the_fragment_layouts():
@@ -226,12 +274,14 @@ def test_k_orders_are_the_fragment_layouts():
 
 
 @pytest.mark.parametrize("bad", ["K3 E=64 f32 one-tile", "K3 E=128 bf16 tiles",
-                                 "K3 E=32 f32 one-tile", "K3 E=32 bf16 tiles"])
+                                 "K3 E=32 f32 one-tile", "K3 E=32 bf16 tiles",
+                                 "K3 E=16 f32 one-tile", "K3 E=8 f32 tiles"])
 def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
-    """chip_smoke's build gate: a K3 instance of the warpgroup plan (E >=
-    32, E = 32 included since it moved onto that plan) on mma.sync alone
-    (HMMA, no HGMMA) fails it, as does any K3 or wide K1 instance without
-    either; K3 at E = 8 and 16 and the wide K1 pass on HMMA alone."""
+    """chip_smoke's build gate: a K3 instance of the warpgroup plan (every
+    width but E = 8 on bf16 rows, E = 8 and 16 included since they moved
+    onto it) on mma.sync alone (HMMA, no HGMMA) fails it, as does any K3 or
+    wide K1 instance without either; the narrow K3 (E = 8, bf16 rows) and
+    the wide K1 pass on HMMA alone."""
     import chip_smoke
 
     mangled = {"K3 E=64 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi64EEvPKT0_",
@@ -239,43 +289,60 @@ def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
                    "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li128EEvPKT0_",
                "K3 E=32 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi32EEvPKT0_",
                "K3 E=32 bf16 tiles":
-                   "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li32EEvPKT0_"}[bad]
+                   "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li32EEvPKT0_",
+               "K3 E=16 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi16EEvPKT0_",
+               "K3 E=8 f32 tiles": "packed_level_wgmma_kernelILb0EfLi8EEvPKT0_"}[bad]
     assert chip_smoke.instance_name(f"_ZN12_GLOBAL__N_1{len('packed_level_wgmma_kernel')}"
                                     f"{mangled}") == bad
     counts = {n: {"HMMA": 4, "HGMMA": 0} for n in (
         {f"K3 E={e} {r} {t}" for e in (8, 16, 32, 64, 96, 128) for r in ("f32", "bf16")
          for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in (64, 96, 128)})}
     for n in counts:
-        if n.startswith("K3") and int(n.split()[1][2:]) >= 32:
+        if n.startswith("K3") and not n.startswith("K3 E=8 bf16"):
             counts[n]["HGMMA"] = 24
     assert chip_smoke.tensor_core_gate(counts) == []
     counts[bad] = {"HMMA": 40, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == [bad]
     counts["K1 E=96"] = {"HMMA": 0, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == sorted([bad, "K1 E=96"])
-    assert chip_smoke.reg_cap(bad) == (168 if bad == "K3 E=32 f32 one-tile" else 255)
+    assert chip_smoke.reg_cap(bad) == {"K3 E=32 f32 one-tile": 168,
+                                       "K3 E=16 f32 one-tile": 64}.get(bad, 255)
 
 
-def test_wrapper_launches_a_wide_beam_once(monkeypatch):
-    """At E = 32 and 128 the wrapper takes beam 1,500 in one launch on a
-    library whose single-launch limit is the warpgroup plan's (kWgMaxBeam)
-    from the width the source puts on that plan (kWgmmaLevel), where the
-    narrow plan split a beam past its staging (~116 f32 parents at E = 128,
-    ~746 at E = 32)."""
+@pytest.mark.parametrize("rows", ["f32", "bf16"])
+@pytest.mark.parametrize("e", [8, 16, 32, 64, 96, 128])
+def test_wrapper_launches_a_wide_beam_once(monkeypatch, e, rows):
+    """At every built width and row type that the source puts on the
+    warpgroup plan (all but kNarrowLevel's) the wrapper takes beam 1,500
+    (wider than the ~1,340 parents a block of the narrow plan held at E =
+    16, which was split in chunks) in one launch, on a library whose
+    single-launch limit is that plan's (kWgMaxBeam).  The (width, row type)
+    that kNarrowLevel keeps on the narrow plan is chip_smoke.K3_NARROW, and
+    there a limit under the beam splits it in two launches."""
+    import chip_smoke
+
     src = CSRC.read_text()
     m = re.search(r"constexpr int kWgMaxBeam = \(1 << (\d+)\) - (\d+);", src)
     limit = (1 << int(m[1])) - int(m[2])
-    first = int(re.search(r"constexpr bool kWgmmaLevel = E >= (\d+);", src)[1])
-    assert first == 32
+    m = re.search(r"constexpr bool kNarrowLevel = E == (\d+) && sizeof\(Row\) == (\d+);", src)
+    narrow = {(int(m[1]), {2: "bf16", 4: "f32"}[int(m[2])])}
+    assert narrow == set(chip_smoke.K3_NARROW)
+    narrow_limit = 1000
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[rows]
     calls = []
 
     class _Lib:
         def packed_level_max_beam(self, l, e):
-            return limit if e >= first else 116
+            return narrow_limit if (e, "f32") in narrow else limit
+
+        def packed_level_max_beam_bf16rows(self, l, e):
+            return narrow_limit if (e, "bf16") in narrow else limit
 
         def packed_level_bf16(self, *args):
             calls.append(args[11:16])  # B, beam, row width, L, E
             return 0
+
+        packed_level_bf16_bf16rows = packed_level_bf16
 
     monkeypatch.setattr(_cuda, "library", lambda: _Lib())
     monkeypatch.setattr(_cuda, "stream_handle", lambda dev: 0)
@@ -283,19 +350,20 @@ def test_wrapper_launches_a_wide_beam_once(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
-    fake = lambda *s: torch.zeros(*s).as_subclass(_FakeCuda)  # noqa: E731
+    fake = lambda *s, dtype=torch.float32: (  # noqa: E731
+        torch.zeros(*s, dtype=dtype).as_subclass(_FakeCuda))
     b, beam, l = 2, 1500, 10
-    for e in (32, 128):
-        calls.clear()
+    w = [t.as_subclass(_FakeCuda) for t in params_from_numpy(
+        _params(np.random.default_rng(0), e), device="cpu").scorer_weights()]
+    width = pair_row_width(e, dt)
+    n0 = packed_level_kernel.launches_by_width[e, dt]
+    packed_level_kernel._kernel_max_beam.cache_clear()
+    try:
+        scores, hilo = packed_level(fake(b, beam, width, dtype=dt), fake(b, beam),
+                                    fake(b, l, e), fake(b, l), *w, e)
+    finally:
         packed_level_kernel._kernel_max_beam.cache_clear()
-        w = [t.as_subclass(_FakeCuda) for t in params_from_numpy(
-            _params(np.random.default_rng(0), e), device="cpu").scorer_weights()]
-        n0 = packed_level_kernel.launches_by_width[e, torch.float32]
-        try:
-            scores, hilo = packed_level(fake(b, beam, pair_row_width(e)), fake(b, beam),
-                                        fake(b, l, e), fake(b, l), *w, e)
-        finally:
-            packed_level_kernel._kernel_max_beam.cache_clear()
-        assert calls == [(b, beam, pair_row_width(e), l, e)]
-        assert scores.shape == (b, 2 * beam) and hilo.shape == (b, 2 * beam, 2)
-        assert packed_level_kernel.launches_by_width[e, torch.float32] == n0 + 1
+    chunks = ([narrow_limit, beam - narrow_limit] if (e, rows) in narrow else [beam])
+    assert calls == [(b, c, width, l, e) for c in chunks]
+    assert scores.shape == (b, 2 * beam) and hilo.shape[:2] == (b, 2 * beam)
+    assert packed_level_kernel.launches_by_width[e, dt] == n0 + len(chunks)

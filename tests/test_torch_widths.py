@@ -218,9 +218,9 @@ def test_chip_smoke_reads_every_instance_and_its_cap():
     """chip_smoke's build phase names each K1 and K3 instance from nvcc's
     report (past E = 32 K1's wide kernel and its prologue as one instance)
     and holds it to its register cap: 64 for K1 and the one-tile K3 at E <=
-    16, 128 for K1 at E = 32 and 64, 255 for the multi-tile K3 and K3's
-    warpgroup plan (from E = 32 on), but 168 where that plan holds three
-    warpgroups a block (one tile at E = 32, on bf16 rows at E = 128)."""
+    16, 128 for K1 at E = 32 and 64, 255 for K3 past one tile at E <= 16
+    and for K3 from E = 32 on, but 168 where a block holds three warpgroups
+    (one tile at E = 32, on bf16 rows at E = 128)."""
     import chip_smoke
 
     log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116din_score_kernelILi32ELi10EEEvPKfS2_' for 'sm_90a'
