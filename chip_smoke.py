@@ -29,7 +29,7 @@ Phases, one JSON line each; any failed check raises and fails the run:
      events (K1 and K3 both warm in L2, as the serving loop leaves their
      inputs, and cold; K3 also at beam 110 and L = 24); then K1 and K3 at
      E = 8 and 32 (``kernels_at_width``: K1 at [4096, 40], [8192, 4],
-     [8192, 2] and predict's row, K3 at [4096, 20] on f32 and bf16 rows
+     [8192, 2], predict's row and L = 24, K3 at [4096, 20] on f32 and bf16 rows
      with the control at each width, also beam 110, beam 1,000 in one
      launch and L = 24; on K3_NARROW's bf16 rows at E = 8 also a beam past
      one launch's limit, split in two launches), timed as at E = 16;
@@ -131,7 +131,9 @@ Phases, one JSON line each; any failed check raises and fails the run:
   widths: DIN at E = 32 on the 1M catalog (``recommend_batch(4096)`` on
      the packed route from an f32 and a bf16 pair table, equal lists, every
      K3 level of the f32 route audited, ``predict`` over the catalog; then
-     bench.py's trainer at E = 32, pmv, a K2 launch a step) and at E = 8 on
+     bench.py's trainer at E = 32, pmv, a K2 launch a step), a JTM sweep at
+     E = 32 over the example catalog (K1's [8192, 4] batches on its wide
+     kernel, every K1 call and add audited) and at E = 8 on
      the example catalog (200 dense steps, ``evaluate`` and ``recommend``
      with every K1 call audited, the same serving as at E = 32);
   deepfm: configs/tdm.conf and jtm.conf with ``model.deep_model DeepFM``
@@ -425,12 +427,15 @@ RESUME_ITERS, RESUME_EVERY, RESUME_KILLED_AT = 40, 10, 25
 BF16_ITERS = 30
 # the widths K1 and K3 are built for beside E (8: the JAX package's kernel
 # and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
-# scripts/quality_push.py's, the wide phase's), the widths whose K3 runs
-# on the warpgroup plan (wgmma: every width), the (width, row type) that
+# scripts/quality_push.py's, the wide phase's), the widths with K1's wide
+# kernel (E = 32 where U <= L or L > 10, past it at every U), the widths
+# whose K3 runs on the warpgroup plan (wgmma: every width), the (width, row type) that
 # keeps the narrow plan there (E = 8 on bf16 rows, where the warpgroup plan
 # was slower at [4096, 20]: PERF.md section 6), and the registers a thread
 # of each instance may use (their launch bounds): K1 64 at E = 8 and 16,
-# 128 at E = 32; the wide K1 128 at E = 64 (two blocks of 256 threads an
+# 128 at E = 32 (its wide kernel 64: four blocks of 256 threads an SM);
+# K1's direct kernel at E = 8 128 (it holds a candidate's L sequence rows
+# in registers); the wide K1 128 at E = 64 (two blocks of 256 threads an
 # SM) and 255 past it (one block an SM, by its shared memory: 135 and 211
 # KB at E = 96 and 128); K3 on one sequence tile 64 at E = 8 and 16 (two
 # blocks of four warpgroups an SM), past one tile 255 there; K3 168 where a
@@ -439,9 +444,10 @@ BF16_ITERS = 30
 # with the row type overrides one without
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
+K1_WIDE = (32, *WIDE)
 K3_WGMMA = tuple(KERNEL_WIDTHS)
 K3_NARROW = ((8, "bf16"),)
-REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128,
+REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128, ("K1", 8, "direct"): 128,
             ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
             **{("one-tile", e): 64 if e <= 16 else 168 if e in (32, 96) else 255
                for e in (8, 16, 32, *WIDE)},
@@ -672,12 +678,13 @@ def ptxas_usage(log: str, kernel: str) -> dict:
 
 def instance_name(mangled: str) -> str | None:
     """The K1 or K3 instance a mangled kernel name belongs to: "K1 E=16"
-    (every L of a width together; past E = 32 the wide kernel and its
-    prologue), "K3 E=32 bf16 one-tile", ...; None for other kernels."""
-    m = re.search(r"din_score_kernelILi(\d+)ELi\d+EE|"
+    (every L of a width together; at E >= 32 the wide kernel and its
+    prologue with it), "K1 E=8 direct" (the direct kernel), "K3 E=32 bf16
+    one-tile", ...; None for other kernels."""
+    m = re.search(r"din_score_(direct_)?kernelILi(\d+)ELi\d+EE|"
                   r"din_(?:score_wide|prologue)_kernelILi(\d+)EE", mangled)
     if m:
-        return f"K1 E={m[1] or m[2]}"
+        return f"K1 E={m[2] or m[3]}" + (" direct" if m[1] else "")
     m = re.search(r"packed_level_(?:wgmma_)?kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
     if m:
         return (f"K3 E={m[3]} {'f32' if m[2] == 'f' else 'bf16'} "
@@ -707,7 +714,7 @@ def reg_cap(instance: str) -> int:
     """REG_CAPS of an instance_name."""
     parts = instance.split()
     if parts[0] == "K1":
-        return REG_CAPS["K1", int(parts[1][2:])]
+        return REG_CAPS["K1", int(parts[1][2:]), *parts[2:]]
     key = (parts[-1], int(parts[1][2:]))
     return REG_CAPS.get((*key, parts[2]), REG_CAPS[key])
 
@@ -733,12 +740,12 @@ def mma_counts(lib_path: Path) -> dict:
 
 def tensor_core_gate(counts: dict) -> list[str]:
     """The instances that fail the build's tensor-core gate (mma_counts):
-    every K3 instance and every wide K1 (E >= 64, its h product in 3xTF32)
-    must hold HMMA or HGMMA, and every K3 instance of the warpgroup plan
-    (K3_WGMMA: every width, but K3_NARROW) HGMMA (its weight products on
-    wgmma)."""
+    every K3 instance and every K1 with the wide kernel (K1_WIDE, its h
+    product in 3xTF32) must hold HMMA or HGMMA, and every K3 instance of
+    the warpgroup plan (K3_WGMMA: every width, but K3_NARROW) HGMMA (its
+    weight products on wgmma)."""
     expected = {f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
-                for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in WIDE}
+                for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in K1_WIDE}
     none = {"HMMA": 0, "HGMMA": 0}
     wgmma = lambda n: (int(n.split()[1][2:]) in K3_WGMMA  # noqa: E731
                        and (int(n.split()[1][2:]), n.split()[2]) not in K3_NARROW)
@@ -2704,13 +2711,11 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
     """K1 and K3 at width ``e`` against their plain versions on the card,
     with O(1)-scale inputs (padding, an all-padding row, zero candidates,
     dead parents, missing children): K1 at the serving shape [4096, 40],
-    the sweep's [8192, 4] and [8192, 2] and predict's one row of every
-    catalog item (past E = 32 also [4096, 40] at L = 24); K3 at [4096, 20]
-    on f32 and bf16 rows, each with the f32-scorer control, which must fail
-    K3's check; k3_wide_cases on both row types.  The serving and sweep
-    shapes (past E
-    = 32 also L = 24) are timed warm and cold, beside the plain version and
-    the bound."""
+    the sweep's [8192, 4] and [8192, 2], predict's one row of every
+    catalog item and [4096, 40] at L = 24; K3 at [4096, 20] on f32 and bf16
+    rows, each with the f32-scorer control, which must fail K3's check;
+    k3_wide_cases on both row types.  The serving and sweep shapes and L =
+    24 are timed warm and cold, beside the plain version and the bound."""
     g = torch.Generator().manual_seed(SEED + 40 + e)
     weights = tuple(t.detach() for t in params_from_numpy(
         seed_params(7, np.random.default_rng(SEED + 40 + e), e), device=dev).scorer_weights())
@@ -2718,9 +2723,8 @@ def kernels_at_width(dev, e: int, n_items: int, flush: torch.Tensor) -> dict:
     seq_e, pad = seq_inputs(g, b, l, dev, e)
     k1 = {}
     cases = [("serving", (b, u, l)), ("sweep", (SWEEP_ROWS, SWEEP_U, l)),
-             ("sweep_u2", (SWEEP_ROWS, 2, l)), ("predict", (1, n_items, l))]
-    if e in WIDE:
-        cases.append(("l24", (b, u, 24)))
+             ("sweep_u2", (SWEEP_ROWS, 2, l)), ("predict", (1, n_items, l)),
+             ("l24", (b, u, 24))]
     for case, (bb, uu, ll) in cases:
         item_e = torch.randn(bb, uu, e, generator=g) * EMB_STD
         item_e[torch.rand(bb, uu, generator=g) < 0.1] = 0.0
@@ -2916,6 +2920,34 @@ def deep_width_32(dev, tree: ArrayTree, seqs: np.ndarray) -> dict:
                          "steps_run": WIDTH_STEPS + 1, "timed_steps": WIDTH_STEPS,
                          "k2_launches": k2, "ms_per_step": elapsed / WIDTH_STEPS * 1e3,
                          "final_loss": logs[-1]["train_loss"]}}
+
+
+def sweep_width_32(dev, tree_path: str, samples) -> dict:
+    """One JTM sweep (train/jtm.py, gap 2) at E = 32 over the example
+    catalog from seeded O(1)-scale weights (w_std) on its train windows:
+    its score batches ([8192, 4], and [8192, 2] at a last odd level) take
+    K1's wide kernel (U <= L); every K1 call and add held against the plain
+    versions, the projection a bijection onto leaves.  The caller zeroes
+    and reads the launch counts around it."""
+    e = 32
+    tree = ArrayTree.from_file(tree_path)
+    num_index = (1 << (tree.max_level + 1)) - 1
+    model = params_from_numpy(seed_params(num_index, np.random.default_rng(SEED + 52), e),
+                              device=dev)
+    learner = TreeLearner(tree=tree, model=model, train_seqs=samples.train_seqs,
+                          train_targets=samples.train_targets, gap=2, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with k1_audited() as k1_audit, adds_audited() as add_audit:
+        proj = learner.optimize()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_projection(proj, tree)
+    check([SWEEP_ROWS, SWEEP_U] in k1_audit["shapes"] and add_audit["calls"] > 0,
+          f"the E=32 sweep: K1 shapes {k1_audit['shapes']}, {add_audit['calls']} adds")
+    return {"items": len(proj), "max_level": tree.max_level, "embed_size": e, "gap": 2,
+            "rows": len(samples.train_targets), "seconds": seconds,
+            "k1_vs_plain": k1_audit, "adds_bit_exact": add_audit["calls"]}
 
 
 # ---------------------------------------------------------------- DeepFM
@@ -3994,8 +4026,9 @@ def main() -> int:
           "host_library": str(host.library_path().relative_to(ROOT)),
           "host_library_s": host_build_s})
     # every K1 and K3 instance within its register cap (K1 and the one-tile
-    # K3 at E <= 16: 64) and no spill; every K3 instance on the tensor cores
-    expected = {f"K1 E={e}" for e in KERNEL_WIDTHS} | {
+    # K3 at E <= 16: 64; K1's direct kernel at E = 8: 128) and no spill;
+    # every K3 instance on the tensor cores
+    expected = {f"K1 E={e}" for e in KERNEL_WIDTHS} | {"K1 E=8 direct"} | {
         f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
         for t in ("one-tile", "tiles")}
     check(set(usage) == expected, f"the build's K1/K3 instances: {sorted(usage)}")
@@ -4213,6 +4246,7 @@ def main() -> int:
     # check: launch counts zeroed just before each, read just after
     zero_launches()
     facts_w = {"e32_1m": deep_width_32(dev, deep.tree, deep_seqs),
+               "e32_sweep": sweep_width_32(dev, tree_path, samples),
                "e8_example": example_width_8(dev, tree_path, samples, seqs)}
     facts_w["launches"] = read_launches()
     check(all(facts_w["launches"][f"{k}_e{e}"] > 0 for e in WIDTHS
@@ -4349,18 +4383,20 @@ def main() -> int:
                                  facts_10m["bf16_tables_deepfm"]["mv_table_add"]["max_abs_err"],
                                  fm_1m_bf16["table_add"]["max_abs_err"])}
     # the instances at the other widths: K1 at the serving shape (also the
-    # sweep's; past E = 32 also L = 24), K3 at [4096, 20] on f32 and bf16
+    # sweep's and L = 24), K3 at [4096, 20] on f32 and bf16
     # rows (also beam 110 and L = 24); their errors over
-    # the kernel checks and every audit of the widths and wide phases
+    # the kernel checks and every audit of the widths and wide phases (at E
+    # = 32 also the sweep's K1 calls)
     audits = {8: [facts_w["e8_example"]], 32: [facts_w["e32_1m"]],
               **{e: [facts_wide[f"recipe_e{e}"]]
                  + ([facts_wide[f"deep_e{e}"]] if e in WIDE_DEEP else []) for e in WIDE}}
+    sweep_audits = {32: [facts_w["e32_sweep"]["k1_vs_plain"]["max_abs_err"]]}
     kern_all = {**kern_w, **kern_wide}
     for e, fws in audits.items():
         kw = kern_all[e]
         k1 = kw["din_score"]
-        timed[f"din_score_e{e}"] = {**k1["serving"], "sweep": k1["sweep"], "library_ms": None,
-                                    **({"l24": k1["l24"]} if "l24" in k1 else {})}
+        timed[f"din_score_e{e}"] = {**k1["serving"], "sweep": k1["sweep"], "l24": k1["l24"],
+                                    "library_ms": None}
         for k in ("packed_level", "packed_level_bf16_rows"):
             timed[f"{k}_e{e}"] = {**kw[k], "library_ms": None}
             errs[f"{k}_e{e}"] = max([kw[k]["max_abs_err"]]
@@ -4370,7 +4406,8 @@ def main() -> int:
         errs[f"din_score_e{e}"] = max(
             [c["max_abs_err"] for c in k1.values()]
             + [fw["serving"]["float32"]["predict_vs_plain"]["max_abs_err"] for fw in fws]
-            + [fw["k1_vs_plain"]["max_abs_err"] for fw in fws if "k1_vs_plain" in fw])
+            + [fw["k1_vs_plain"]["max_abs_err"] for fw in fws if "k1_vs_plain" in fw]
+            + sweep_audits.get(e, []))
         for k in ("din_score", "packed_level", "packed_level_bf16_rows"):
             src[f"{k}_e{e}"], replaces[f"{k}_e{e}"] = src[k], replaces[k]
     summary = []
@@ -4399,7 +4436,7 @@ def main() -> int:
                 key: fm_cases[name][key] for key in (
                     "table", "rows", "rows_written", "warm_ms", "ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")}} if name in fm_cases else {}),
-            # K1 past E = 32 also at L = 24
+            # K1 at the other widths also at L = 24
             **({"l24_ms": k["l24"]["ms"], "l24_cold_ms": k["l24"]["cold_ms"],
                 "l24_plain_ms": k["l24"]["plain_ms"], "l24_bound_ms": k["l24"]["bound_ms"],
                 "l24_shape": k["l24"]["shape"]} if "ms" in k.get("l24", {}) else {}),

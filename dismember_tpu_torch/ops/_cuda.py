@@ -126,8 +126,10 @@ def _din_scratch_floats(e: int) -> int:
 def din_scratch(e: int, device: torch.device) -> torch.Tensor | None:
     """K1's scratch at width ``e`` on ``device``, allocated on the current
     stream: the prologue's packed weights (``[w1[:, :E] | M]^T``, b1, w2,
-    b2) at E >= 64, which the kernel writes and reads within one call;
-    None at E <= 32, which needs none."""
+    b2) of the wide kernel at E >= 32 (at E = 32 it runs where U <= L or
+    L > 10),
+    which the kernel writes and reads within one call; None at E = 8 and
+    16, which need none."""
     n = _din_scratch_floats(e)
     if n < 0:
         raise ValueError(f"din_score: E={e} is not a built width")

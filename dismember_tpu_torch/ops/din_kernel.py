@@ -10,19 +10,22 @@ JTM sweep's [8192, 4] score batches (``train/jtm.py``).
 
 On the H100 at the serving shapes (B=4096, U=40, L=10, E=16) the kernel is
 bound by bytes: ~13.9 MB of candidate and sequence embeddings, padding and
-logits against ~0.23 GFLOP of f32 work on the CUDA cores.  At E <= 32 it
-folds the sequence side once per query row (ctx_l = (w1[:, E:] @ att_w) .
-seq_l, by linearity), so one thread scores one candidate with ~1.3 kFLOP
-in registers: L scores with padding as a multiply-add, the softmax with one
-reciprocal of its sum, and h from ctx.  At E = 64, 96 and 128 a prologue
-kernel writes [w1[:, :E] | M]^T (M = w1[:, E:] @ att_w) into scratch this
-wrapper allocates (``_cuda.din_scratch``); in each block four warps take
-the candidates' scores and an online softmax while four others compute h =
-[item | att] . [w1[:, :E] | M]^T of the chunk before on the tensor cores in
-3xTF32 (each operand split into a TF32 part and its rest, three TF32
-products, f32 sums), which keeps f32 accuracy; there the E^2-deep products
-bound it by operations.  The sums run in another order than
-:func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
+logits against ~0.23 GFLOP of f32 work on the CUDA cores.  At E = 16 (and
+at E = 32 past U = L up to L = 10, and E = 8 past L = 10) it folds the
+sequence side once per query row (ctx_l = (w1[:, E:] @ att_w) . seq_l, by
+linearity), so one thread scores one candidate with ~1.3 kFLOP in
+registers: L scores with padding as a multiply-add, the softmax with one
+reciprocal of its sum, and h from ctx.  At E = 8 and L <= 10 one thread
+scores one candidate in the unfolded order with nothing staged.  At E = 64,
+96 and 128, and at E = 32 where U <= L (the JTM sweep's batches) or L > 10,
+a prologue kernel writes [w1[:, :E] | M]^T (M = w1[:, E:] @ att_w) into
+scratch this wrapper allocates (``_cuda.din_scratch``); in each block four
+warps take the candidates' scores and an online softmax while four others
+compute h = [item | att] . [w1[:, :E] | M]^T of the chunk before on the
+tensor cores in 3xTF32 (each operand split into a TF32 part and its rest,
+three TF32 products, f32 sums), which keeps f32 accuracy; there the
+E^2-deep products bound it by operations.  The sums run in another order
+than :func:`din_score_plain`'s, within f32 rounding.  The kernel is built for
 ``KERNEL_WIDTHS``.  Forward only: on CUDA it raises when grad mode is on
 and an input requires grad (the trainers score through the plain version
 under autograd, ``DIN.train_apply_from_emb``).

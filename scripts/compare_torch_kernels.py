@@ -88,6 +88,19 @@ off), a yardstick of the product's pace that computes no part of K1.  With
 instance and of K2 (``write_kernel``, the write and the add) equals the
 base's.
 
+``--narrow-k1`` instead times K1 at E = 8 and 32 (NARROW_K1_CASES: the
+serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
+chip_smoke.py's inputs and weights at each width) for ``base`` where given
+and this tree, in turns, warm and cold, after checking each within K1's
+tolerance of ``din_score_plain`` (``bitwise_equal_to_...`` says whether
+its logits equal the first version's); then this tree's variants
+(NARROW_K1_PROBES: the plans at each width taken back or varied, checked
+as the versions are, and probes that split the time) and the base's own
+split (FOLD_PROBES: PROBES' K1 edits on the base's source), warm and
+cold.  With ``--base`` it first asserts that the SASS of every kernel of
+the base (K1's ``din_score_kernel`` at E = 8, 16 and 32, the wide K1 past
+E = 32, every K3 instance and K2) equals the base's.
+
 ``--k3-e32-draws N`` instead holds this tree's K3 at E = 32 on f32 rows
 against its plain version over N fresh draws of the serving shape [4096,
 20] and of beam 1,000 ([256, 1000], one launch), with the scorer's
@@ -101,7 +114,8 @@ events.  One JSON line per measurement; the card's name and power limit
 first.
 
 Usage: python3 scripts/compare_torch_kernels.py [--base DIR]
-           [--probe | --wide | --narrow | --wide-k1 | --k3-e32-draws N]   (one GPU)
+           [--probe | --wide | --narrow | --wide-k1 | --narrow-k1 | --k3-e32-draws N]
+           (one GPU)
 """
 
 from __future__ import annotations
@@ -300,6 +314,36 @@ WIDE_K1_PROBES = {
 WIDE_K1_CASES = [(e, b, u, l) for e in (64, 96, 128)
                  for b, u, l in ((B, 2 * BEAM, L), (cs.SWEEP_ROWS, cs.SWEEP_U, L),
                                  (B, 2 * BEAM, 24))]
+# --narrow-k1's K1 cases: E = 8 and 32 at the serving shape [4096, 40], the
+# JTM sweep's [8192, 4] and [4096, 40] at L = 24 (past the unrolled kernels'
+# L = 10)
+NARROW_K1_CASES = [(e, b, u, l) for e in cs.WIDTHS
+                   for b, u, l in ((B, 2 * BEAM, L), (cs.SWEEP_ROWS, cs.SWEEP_U, L),
+                                   (B, 2 * BEAM, 24))]
+# --narrow-k1's split of the base's K1 (din_score_kernel, the folded plan E
+# = 8 and 32 had at every shape): PROBES' edits applied to the base's source (this
+# tree's without --base), each library labelled "base_<probe>"
+FOLD_PROBES = ("k1_empty", "k1_loads_only", "k1_no_ctx", "k1_stage_only")
+K1W_MIN_BLOCKS = "constexpr int kK1WideMinBlocks = E == 32 ? 4 :"
+# --narrow-k1's variants of this tree.  Design steps taken back or varied,
+# computing K1 and checked as the versions are: k1n_e32_wide_all, E = 32 on
+# the wide kernel at every U (L <= 10 too); k1n_e32_wide_b3, the wide
+# kernel's register cap at E = 32 set for three blocks an SM, not four
+# (five and six spill).  Probes that only split the time (wrong scores):
+# k1n_direct_empty, a return at the direct kernel's start;
+# k1n_direct_loads, its loads and B, no arithmetic; and --wide-k1's
+# k1w_empty, k1w_attention_only and k1w_product_only on the wide kernel
+# (E = 32 at U <= L or L > 10).
+NARROW_K1_PROBES = {
+    "k1n_e32_wide_all": [("constexpr bool kWideK1 = E >= 64;", "constexpr bool kWideK1 = E >= 32;")],
+    "k1n_e32_wide_b3": [(K1W_MIN_BLOCKS, K1W_MIN_BLOCKS.replace("? 4 :", "? 3 :"))],
+    "k1n_direct_empty": [("  __shared__ alignas(16) float sB[E * R];\n",
+                          "  __shared__ alignas(16) float sB[E * R];\n  if (N > 0) return;\n")],
+    "k1n_direct_loads": [("out[n] = direct_score<E, S>(it, q, pd, sB, R) + bias2;",
+                          "out[n] = it[0].x + q[S - 1][V - 1].w + pd[S - 1] + sB[t % (E * R)];")],
+    **{k: WIDE_K1_PROBES[k] for k in ("k1w_empty", "k1w_attention_only", "k1w_product_only")},
+}
+NARROW_K1_CHECKED = tuple(p for p in NARROW_K1_PROBES if p.startswith("k1n_e32_"))
 # --k3-e32-draws: chip_smoke.k3_wide_cases's widest beam (one launch from E =
 # 32 on) and the |logit| bands the largest errors are read in
 K3_DRAW_PAST, K3_DRAW_BANDS = (256, 1000), (0.0, 1.0, 2.0, 5.0, 10.0, float("inf"))
@@ -351,7 +395,8 @@ def sass(label: str) -> dict[str, list[str]]:
         ins = [re.sub(r"0x[0-9a-f]+", "X", ln.split("*/", 1)[1].split(";")[0]).strip()
                for ln in body.splitlines() if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
         labels: dict[str, str] = {}
-        m = re.search(r"(din_score_kernel|din_score_wide_kernel|din_prologue_kernel|"
+        m = re.search(r"(din_score_kernel|din_score_direct_kernel|"
+                      r"din_score_wide_kernel|din_prologue_kernel|"
                       r"packed_level_kernel|packed_level_wgmma_kernel|write_kernel)\w*", name)
         out[m[0] if m else name.strip()] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
             m[0], f".L_{len(labels)}"), i) for i in ins]
@@ -473,8 +518,9 @@ def sass_equal_outside(old: dict, new: dict, redesigned: str, widths: tuple,
     groups, diffs = {}, {}
     for name, ins in old.items():
         inst = cs.instance_name(name)
-        if (inst and inst.startswith(redesigned) and int(inst.split()[1][2:]) in widths
-                and (int(inst.split()[1][2:]), inst.split()[2]) not in kept):
+        parts = inst.split() if inst else []
+        if (inst and inst.startswith(redesigned) and int(parts[1][2:]) in widths
+                and (int(parts[1][2:]), *parts[2:3]) not in kept):
             continue
         group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
         if group is None:
@@ -494,10 +540,13 @@ def sass_equal_outside(old: dict, new: dict, redesigned: str, widths: tuple,
     return same
 
 
-def wide_k1(libs: dict) -> None:
-    """--wide-k1: K1 at WIDE_K1_CASES for each library, checked against its
-    plain version (probes excepted), then timed in turns, the probes and
-    the product's matmul after."""
+def wide_k1(libs: dict, cases: list = WIDE_K1_CASES, probes: tuple = tuple(WIDE_K1_PROBES),
+            checked: tuple = (), matmul: bool = True) -> None:
+    """--wide-k1 and --narrow-k1: K1 at ``cases`` for each library, the
+    versions and the variants in ``checked`` checked against its plain
+    version, then the versions timed in turns, warm and cold, the variants
+    (``probes``) after, warm and cold, and (``matmul``) the product's
+    matmul."""
     from dismember_tpu_torch.ops.din_kernel import din_score_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the matmul yardstick in f32
@@ -505,8 +554,8 @@ def wide_k1(libs: dict) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     flush = torch.empty(64 << 20, device=dev)
     versions = [v for v in ("base", "new") if v in libs]
-    probes = [v for v in libs if v in WIDE_K1_PROBES]
-    for e, b, u, l in WIDE_K1_CASES:
+    probes = [v for v in libs if v in probes]
+    for e, b, u, l in cases:
         g = torch.Generator().manual_seed(cs.SEED + 40 + e)
         weights = tuple(t.detach() for t in params_from_numpy(
             cs.seed_params(7, np.random.default_rng(cs.SEED + 40 + e), e), device=dev)
@@ -517,7 +566,7 @@ def wide_k1(libs: dict) -> None:
         seq_e, pad = cs.seq_inputs(g, b, l, dev, e)
         ref = din_score_plain(item_e, seq_e, pad, *weights)
         case = {"e": e, "shape": [b, u, l, e]}
-        launches = {}
+        launches, outs = {}, {}
         for label in versions + probes:
             lib = libs[label]
             out = torch.empty(b, u, device=dev)
@@ -527,25 +576,32 @@ def wide_k1(libs: dict) -> None:
                 "din_score", lib.din_score_f32(*args, b, u, l, e, stream)))
             launches[label]()
             torch.cuda.synchronize()
-            if label in versions:
+            if label in versions or label in checked:
                 a = cs.agreement("din_score", out, ref, e)
                 cs.check(a["ok"], f"{label}: K1 at {case['shape']} against its plain version: {a}")
+                outs[label] = out
                 cs.emit({"kernel": "din_score", "version": label, "check": a, **case})
+        first = outs[versions[0]]
+        case["bitwise_equal_to_" + versions[0]] = {k: torch.equal(o, first)
+                                                   for k, o in outs.items()}
         for label in versions + versions[::-1]:
             cs.emit({"kernel": "din_score", "version": label, **case, **cs.time_ms(launches[label]),
                      **cs.time_ms(launches[label], "cold_", flush=flush)})
         for label in probes:
             cs.emit({"kernel": "din_score", "version": label, **case,
-                     **cs.time_ms(launches[label])})
-        a2 = torch.randn(b * u, 2 * e, device=dev)
-        b2 = torch.randn(2 * e, e, device=dev)
-        cs.emit({"kernel": "matmul_f32", "version": "torch.matmul [B*U, 2E] @ [2E, E]", **case,
-                 **cs.time_ms(lambda: torch.matmul(a2, b2))})
+                     **cs.time_ms(launches[label]),
+                     **cs.time_ms(launches[label], "cold_", flush=flush)})
+        if matmul:
+            a2 = torch.randn(b * u, 2 * e, device=dev)
+            b2 = torch.randn(2 * e, e, device=dev)
+            cs.emit({"kernel": "matmul_f32", "version": "torch.matmul [B*U, 2E] @ [2E, E]",
+                     **case, **cs.time_ms(lambda: torch.matmul(a2, b2))})
+            del a2, b2
         n_bytes = cs.nbytes(item_e, seq_e, pad, *weights, ref)
         by, op = cs.k1_bound(n_bytes, b, u, l, e)
         cs.emit({"bound": "din_score", **case, "bound_ms": by, "bound_by": op,
                  "f32_core_bound_ms": cs.bound(n_bytes, cs.din_folded_flops(b, u, l, e))[0]})
-        del item_e, seq_e, pad, ref, launches, a2, b2
+        del item_e, seq_e, pad, ref, launches, outs
 
 
 def k3_e32_draws(n: int) -> None:
@@ -615,6 +671,9 @@ def main() -> int:
                     help="time K3 at E = 8 and 16 and its variants instead")
     ap.add_argument("--wide-k1", action="store_true",
                     help="time K1 at E = 64, 96 and 128 and its probes instead")
+    ap.add_argument("--narrow-k1", action="store_true",
+                    help="time K1 at E = 8 and 32, the base's probes and this tree's variants "
+                         "instead")
     ap.add_argument("--k3-e32-draws", type=int, metavar="N",
                     help="hold K3 at E = 32 over N fresh draws a weight scale instead")
     args = ap.parse_args()
@@ -634,13 +693,24 @@ def main() -> int:
         sources["base"] = {p.name: p.read_text() for p in sorted(args.base.glob("*.cu"))}
     for name, edits in (PROBES.items() if args.probe else WIDE_PROBES.items() if args.wide
                         else NARROW_PROBES.items() if args.narrow
-                        else WIDE_K1_PROBES.items() if args.wide_k1 else ()):
+                        else WIDE_K1_PROBES.items() if args.wide_k1
+                        else NARROW_K1_PROBES.items() if args.narrow_k1 else ()):
         text = new_src["din_kernels.cu"]
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"probe {name}: source edit does not apply: {old!r}")
             text = text.replace(old, new)
         sources[name] = {**new_src, "din_kernels.cu": text}
+    if args.narrow_k1:
+        for name in FOLD_PROBES:
+            src = sources.get("base", new_src)
+            text = src["din_kernels.cu"]
+            for old, new in PROBES[name]:
+                if old not in text:
+                    raise RuntimeError(f"probe {name}: source edit does not apply to the base: "
+                                       f"{old!r}")
+                text = text.replace(old, new)
+            sources[f"base_{name}"] = {**src, "din_kernels.cu": text}
     procs = {label: build(label, src) for label, src in sources.items()}
     for label, proc in procs.items():
         log = proc.communicate()[0]
@@ -666,6 +736,14 @@ def main() -> int:
         else:
             wide(libs, WIDE_CASES, WIDE_PROBES, WIDE_CHECKED)
         cs.check(same, f"SASS outside K3 at E = {widths} (save {kept}) differs from the base's")
+        return 0
+    if args.narrow_k1:
+        # nothing redesigned in place: the base's K1 instances at E = 8 and
+        # 32 (din_score_kernel) stay, and the new kernels are not in the base
+        same = sass_equal_outside(sass("base"), sass("new"), "K1", ()) if args.base else True
+        wide_k1(libs, NARROW_K1_CASES, (*NARROW_K1_PROBES, *(f"base_{p}" for p in FOLD_PROBES)),
+                NARROW_K1_CHECKED, matmul=False)
+        cs.check(same, "SASS of a kernel of the base differs from the base's")
         return 0
     if args.wide_k1:
         ops = {}

@@ -1,4 +1,5 @@
-"""K1's h product at E = 64, 96 and 128 in 3xTF32, held on the CPU.
+"""K1's h product in 3xTF32 (the wide kernel: E = 64, 96 and 128, and E =
+32 where U <= L or L > 10), held on the CPU.
 
 The CUDA kernel ``din_score_wide_kernel`` computes h = [item | att] . B with
 B = [w1[:, :E] | M]^T (M = w1[:, E:] @ att_w, summed in f64) on the tensor
@@ -26,7 +27,7 @@ from dismember_tpu_torch.models.din import params_from_numpy
 from dismember_tpu_torch.ops.din_kernel import _MASK_F32, din_score_plain, score_chain
 
 ATOL, RTOL = chip_smoke.TOL["din_score"]
-WIDE = (64, 96, 128)
+WIDE = chip_smoke.K1_WIDE  # the widths with the wide kernel: 32, 64, 96, 128
 K_STEP, K_CHUNK = 8, 16  # an m16n8k8 mma's depth; k summed apart, then added
 CSRC = Path(__file__).resolve().parent.parent / "dismember_tpu_torch" / "csrc"
 
@@ -162,6 +163,8 @@ def test_fragment_layout_reads_both_k_steps_as_one_float4():
     ((8192, 4, 10), 128, 0.01772, "bytes", 0.05906),
     ((8192, 4, 10), 64, 0.008916, "bytes", 0.01550),
     ((4096, 40, 24), 128, 0.06652, "operations", 0.1606),
+    # E = 32's sweep shape, on the wide kernel: bytes either way
+    ((8192, 4, 10), 32, 0.004523, "bytes", 0.004523),
     # E <= 32 keeps its bytes bound
     ((4096, 40, 10), 16, 0.004158, "bytes", 0.004158),
 ])
@@ -188,7 +191,8 @@ def test_kernel_probes_apply_to_the_source():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     src = (CSRC / "din_kernels.cu").read_text()
-    for probes in (mod.PROBES, mod.WIDE_PROBES, mod.NARROW_PROBES, mod.WIDE_K1_PROBES):
+    for probes in (mod.PROBES, mod.WIDE_PROBES, mod.NARROW_PROBES, mod.WIDE_K1_PROBES,
+                   mod.NARROW_K1_PROBES):
         for name, edits in probes.items():
             for old, _ in edits:
                 assert old in src, f"probe {name}: {old!r}"

@@ -280,8 +280,9 @@ def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
     """chip_smoke's build gate: a K3 instance of the warpgroup plan (every
     width but E = 8 on bf16 rows, E = 8 and 16 included since they moved
     onto it) on mma.sync alone (HMMA, no HGMMA) fails it, as does any K3 or
-    wide K1 instance without either; the narrow K3 (E = 8, bf16 rows) and
-    the wide K1 pass on HMMA alone."""
+    wide K1 instance (E = 32, whose sweep batches take the wide kernel, and
+    up) without either; the narrow K3 (E = 8, bf16 rows) and the wide K1
+    pass on HMMA alone."""
     import chip_smoke
 
     mangled = {"K3 E=64 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi64EEvPKT0_",
@@ -296,7 +297,7 @@ def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
                                     f"{mangled}") == bad
     counts = {n: {"HMMA": 4, "HGMMA": 0} for n in (
         {f"K3 E={e} {r} {t}" for e in (8, 16, 32, 64, 96, 128) for r in ("f32", "bf16")
-         for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in (64, 96, 128)})}
+         for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in (32, 64, 96, 128)})}
     for n in counts:
         if n.startswith("K3") and not n.startswith("K3 E=8 bf16"):
             counts[n]["HGMMA"] = 24

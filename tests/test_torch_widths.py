@@ -216,9 +216,11 @@ def test_packed_serving_matches_jax_at_width(tmp_path, small_csv, e):
 
 def test_chip_smoke_reads_every_instance_and_its_cap():
     """chip_smoke's build phase names each K1 and K3 instance from nvcc's
-    report (past E = 32 K1's wide kernel and its prologue as one instance)
+    report (from E = 32 K1's wide kernel and its prologue in the width's
+    instance)
     and holds it to its register cap: 64 for K1 and the one-tile K3 at E <=
-    16, 128 for K1 at E = 32 and 64, 255 for K3 past one tile at E <= 16
+    16, 128 for K1 at E = 32 and 64 and for K1's direct kernel at E = 8
+    (an instance of its own), 255 for K3 past one tile at E <= 16
     and for K3 from E = 32 on, but 168 where a block holds three warpgroups
     (one tile at E = 32, on bf16 rows at E = 128)."""
     import chip_smoke
@@ -254,6 +256,9 @@ ptxas info    : Used 30 registers
                     "K1 E=128": 255, "K3 E=16 f32 one-tile": 64, "K3 E=32 f32 one-tile": 168,
                     "K3 E=32 bf16 tiles": 255, "K3 E=128 bf16 one-tile": 168}
     assert chip_smoke.instance_name("_ZN12_GLOBAL__N_112write_kernelILb0EfEEv") is None
+    direct = "_ZN12_GLOBAL__N_123din_score_direct_kernelILi8ELi10EEEvPKfS2_"
+    assert chip_smoke.instance_name(direct) == "K1 E=8 direct"
+    assert chip_smoke.reg_cap("K1 E=8 direct") == 128
 
 
 def test_chip_smoke_holds_each_width_to_its_flip_share():
