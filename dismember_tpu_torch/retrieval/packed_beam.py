@@ -37,6 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.ops.packed_level_kernel import (
     ID_DIGITS,
@@ -161,36 +162,37 @@ def beam_search_packed(
     version; any other scorer's to its ``apply_from_emb``.  ``gather_rows``
     (codes [B, beam] -> pair rows) and ``n_pairs`` replace the row gather
     out of ``packed.pair_table`` (a mesh's row-sharded table)."""
-    cfg = packed.cfg
-    table = packed.pair_table
-    b = seq_codes.shape[0]
-    if gather_rows is None:
-        gather_rows, n_pairs = (lambda c: table[c]), table.shape[0]
-    ctx = precompute(params, seq_codes)
-    if params.model_type == "din":
-        weights = params.scorer_weights()
-        level = lambda rows, alive: level_fn(  # noqa: E731
-            rows, alive, *ctx, *weights, packed.embed_size)
-    else:
-        level = lambda rows, alive: score_pair_rows(  # noqa: E731
-            lambda item_e: params.apply_from_emb(item_e, ctx), rows, alive, packed.embed_size)
+    with profiling.span("packed_beam.search"):  # issued, not waited for
+        cfg = packed.cfg
+        table = packed.pair_table
+        b = seq_codes.shape[0]
+        if gather_rows is None:
+            gather_rows, n_pairs = (lambda c: table[c]), table.shape[0]
+        ctx = precompute(params, seq_codes)
+        if params.model_type == "din":
+            weights = params.scorer_weights()
+            level = lambda rows, alive: level_fn(  # noqa: E731
+                rows, alive, *ctx, *weights, packed.embed_size)
+        else:
+            level = lambda rows, alive: score_pair_rows(  # noqa: E731
+                lambda item_e: params.apply_from_emb(item_e, ctx), rows, alive, packed.embed_size)
 
-    frontier, scores = start_frontier(cfg, b, seq_codes.device)
-    k, base = _id_layout(table.dtype)
-    dead = _encode_id_digits(np.asarray([-1]), k, base)[0]
-    ids_hilo = torch.tensor(dead, device=seq_codes.device).to(table.dtype).expand(
-        b, 2 * cfg.beam, k
-    )  # (-1, base-1, ...): a dead slot decodes to -1
-    for _ in range(cfg.max_level - cfg.start_level):
-        top_codes, top_alive = select_top(frontier, scores, cfg.beam)
-        rows = gather_rows(top_codes.clamp(0, n_pairs - 1))  # [B, beam, ROW]
-        scores, ids_hilo = level(rows, top_alive)
-        # K3's outputs are block-ordered (left children | right children)
-        frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)
+        frontier, scores = start_frontier(cfg, b, seq_codes.device)
+        k, base = _id_layout(table.dtype)
+        dead = _encode_id_digits(np.asarray([-1]), k, base)[0]
+        ids_hilo = torch.tensor(dead, device=seq_codes.device).to(table.dtype).expand(
+            b, 2 * cfg.beam, k
+        )  # (-1, base-1, ...): a dead slot decodes to -1
+        for _ in range(cfg.max_level - cfg.start_level):
+            top_codes, top_alive = select_top(frontier, scores, cfg.beam)
+            rows = gather_rows(top_codes.clamp(0, n_pairs - 1))  # [B, beam, ROW]
+            scores, ids_hilo = level(rows, top_alive)
+            # K3's outputs are block-ordered (left children | right children)
+            frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)
 
-    ids = _decode_id_digits(ids_hilo, base)
-    leaf_ok = scores > NEG_INF / 2
-    return torch.where(leaf_ok, ids, -1), scores
+        ids = _decode_id_digits(ids_hilo, base)
+        leaf_ok = scores > NEG_INF / 2
+        return torch.where(leaf_ok, ids, -1), scores
 
 
 def make_packed_beam_fn(

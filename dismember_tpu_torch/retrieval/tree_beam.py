@@ -23,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.arraytree import ArrayTree
 
@@ -149,20 +150,21 @@ def filter_topk(
     """Host-side consumed filtering + final top-k per row
     (Recommender.recommendItems: filterNot consumed, sort by score desc,
     take topk), vectorized over the batch."""
-    b, w = item_ids.shape
-    ok = item_ids >= 0
-    if consumed is not None:
-        m = max((len(c) for c in consumed), default=0)
-        if m > 0:
-            cons = np.full((b, m), -1, dtype=item_ids.dtype)
-            for i, c in enumerate(consumed):
-                if len(c):
-                    cons[i, : len(c)] = c
-            ok &= ~(item_ids[:, :, None] == cons[:, None, :]).any(-1)
-    # stable score-desc order with invalid rows pushed to the back
-    sc = np.where(ok, scores, -np.inf)
-    order = np.argsort(-sc, axis=1, kind="stable")[:, :topk]
-    rows = np.arange(b)[:, None]
-    top_ids = item_ids[rows, order]
-    top_ok = ok[rows, order]
-    return [top_ids[i][top_ok[i]] for i in range(b)]
+    with profiling.span("tree_beam.filter_topk"):
+        b, w = item_ids.shape
+        ok = item_ids >= 0
+        if consumed is not None:
+            m = max((len(c) for c in consumed), default=0)
+            if m > 0:
+                cons = np.full((b, m), -1, dtype=item_ids.dtype)
+                for i, c in enumerate(consumed):
+                    if len(c):
+                        cons[i, : len(c)] = c
+                ok &= ~(item_ids[:, :, None] == cons[:, None, :]).any(-1)
+        # stable score-desc order with invalid rows pushed to the back
+        sc = np.where(ok, scores, -np.inf)
+        order = np.argsort(-sc, axis=1, kind="stable")[:, :topk]
+        rows = np.arange(b)[:, None]
+        top_ids = item_ids[rows, order]
+        top_ok = ok[rows, order]
+        return [top_ids[i][top_ok[i]] for i in range(b)]

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.checkpoint import load_meta, load_pytree
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.data.dr_dataset import build_dr_data
@@ -109,9 +110,10 @@ class TDMServing:
         return torch.sigmoid(logits[0]).cpu().numpy()
 
     def _codes(self, ids: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(
-            self.tree.ids_to_codes(ids), dtype=torch.long, device=self.device
-        )
+        with profiling.span("serving.codes"):
+            return torch.as_tensor(
+                self.tree.ids_to_codes(ids), dtype=torch.long, device=self.device
+            )
 
     def _use_packed(self, cn: int) -> bool:
         if self.apply_emb is None or self.precompute is None:
@@ -178,10 +180,14 @@ class TDMServing:
         candidate_num: int | None = None,
         consumed: list[np.ndarray] | None = None,
     ) -> list[np.ndarray]:
-        k = topk or self.topk
-        cn = candidate_num or self.candidate_num
-        ids, scores = self._beam_fn(cn)(self.params, self._codes(seqs))
-        return filter_topk(ids.cpu().numpy(), scores.cpu().numpy(), k, consumed)
+        with profiling.span("serving.recommend_batch"):
+            profiling.count("serving.batches")
+            k = topk or self.topk
+            cn = candidate_num or self.candidate_num
+            ids, scores = self._beam_fn(cn)(self.params, self._codes(seqs))
+            with profiling.span("serving.download"):  # waits for the beam's last kernels
+                ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+            return filter_topk(ids, scores, k, consumed)
 
 
 class OTMServing:

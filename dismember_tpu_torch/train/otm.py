@@ -40,6 +40,7 @@ import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core import mesh as meshlib
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.mesh import with_whole_table
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.metrics import compute_metrics_batch
@@ -300,25 +301,28 @@ class OTMTrainer(RowStepTrainer):
     def _targets_and_trajectory(self, seqs: torch.Tensor, targets: torch.Tensor):
         """One batch's frozen part: (t_ids, t_labels, nodes), all from the
         parameters before the batch's first level step."""
-        logits_fn = self._frozen_scorer(seqs)
-        if self.target_mode == "pseudo":
-            t_ids, t_labels = self._pseudo_targets_from(logits_fn, targets)
-        else:
-            t_ids, t_labels = self._normal_targets(targets)
-        nodes, _ = self._beam_trajectory_from(logits_fn, seqs.shape[0])
-        return t_ids, t_labels, nodes
+        with profiling.span("otm.frozen"):
+            logits_fn = self._frozen_scorer(seqs)
+            if self.target_mode == "pseudo":
+                t_ids, t_labels = self._pseudo_targets_from(logits_fn, targets)
+            else:
+                t_ids, t_labels = self._normal_targets(targets)
+            nodes, _ = self._beam_trajectory_from(logits_fn, seqs.shape[0])
+            return t_ids, t_labels, nodes
 
     def _train_batch(self, seqs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """One whole OTM batch: pseudo/normal targets and the frozen-model
         beam trajectory, then the sequential per-level BCE + Adam steps.
         Returns the per-level losses [n_levels] on the device."""
-        t_ids, t_labels, nodes = self._targets_and_trajectory(seqs, targets)
-        losses = []
-        for lvl in range(self.n_levels):
-            labels, valid = level_labels(nodes[lvl], t_ids[lvl], t_labels[lvl], self.dtype)
-            losses.append(self.step_from_samples(
-                seqs, torch.where(valid, nodes[lvl], -1), labels, valid.to(self.dtype)))
-        return torch.stack(losses)
+        with profiling.span("otm.batch"):
+            profiling.count("otm.batches")
+            t_ids, t_labels, nodes = self._targets_and_trajectory(seqs, targets)
+            losses = []
+            for lvl in range(self.n_levels):
+                labels, valid = level_labels(nodes[lvl], t_ids[lvl], t_labels[lvl], self.dtype)
+                losses.append(self.step_from_samples(
+                    seqs, torch.where(valid, nodes[lvl], -1), labels, valid.to(self.dtype)))
+            return torch.stack(losses)
 
     # ------------------------------------------------------------------
     def train(

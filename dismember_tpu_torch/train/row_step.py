@@ -44,6 +44,7 @@ import torch
 
 from dismember_tpu_torch.constants import PADDING_IDX
 from dismember_tpu_torch.core import mesh as meshlib
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.checkpoint import flatten, to_numpy, to_tensor
 from dismember_tpu_torch.models.losses import bce_with_logits
 from dismember_tpu_torch.models.scorer import TreeScorer
@@ -333,35 +334,36 @@ class RowStepTrainer:
         """One train step on a batch of candidates; returns the loss (a 0-d
         tensor on the device, before the update).  On a mesh the batch is
         this rank's data rows and the loss the global one."""
-        if self.mesh is not None:
-            return self._mesh_step(seq_codes, codes, labels, weights)
-        b, u = codes.shape
-        e = self.embed_size
-        flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
-        valid = flat != PADDING_IDX
-        safe = torch.where(valid, flat, 0)
-        if self._pmv:
-            rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
-        else:
-            rows = self.model.embedding.detach()[safe]
-            if rows.dtype == torch.bfloat16:
-                rows = rows.float()  # a bf16 table's rows compute in f32
-        rows = rows * valid[:, None].to(rows.dtype)
-        loss, g_rows, grads = self._row_loss_grads(rows, seq_codes, labels, weights, b, u)
-        g_rows = g_rows * valid[:, None].to(g_rows.dtype)
-        params = self._named_params()
-        with torch.no_grad():
-            if not self._sparse:
-                grads["embedding"] = self._dense_table_grad(flat, g_rows, b * u)
-            self._adam_step(params, grads)
-            lr = self.learning_rate
+        with profiling.span("row_step.step"):
+            if self.mesh is not None:
+                return self._mesh_step(seq_codes, codes, labels, weights)
+            b, u = codes.shape
+            e = self.embed_size
+            flat = torch.cat([codes.reshape(-1), seq_codes.reshape(-1)])
+            valid = flat != PADDING_IDX
+            safe = torch.where(valid, flat, 0)
             if self._pmv:
-                sparse_adam.pmv_apply_rows(self.emb_state, flat, g_rows, lr)
-                self._mirrors_stale = True
-            elif self._sparse:
-                sparse_adam.apply_rows(self.model.embedding.detach(), self.emb_state,
-                                       flat, g_rows, lr)
-        return loss.detach()
+                rows = sparse_adam.pmv_gather(self.emb_state["pmv"], safe, e)
+            else:
+                rows = self.model.embedding.detach()[safe]
+                if rows.dtype == torch.bfloat16:
+                    rows = rows.float()  # a bf16 table's rows compute in f32
+            rows = rows * valid[:, None].to(rows.dtype)
+            loss, g_rows, grads = self._row_loss_grads(rows, seq_codes, labels, weights, b, u)
+            g_rows = g_rows * valid[:, None].to(g_rows.dtype)
+            params = self._named_params()
+            with torch.no_grad():
+                if not self._sparse:
+                    grads["embedding"] = self._dense_table_grad(flat, g_rows, b * u)
+                self._adam_step(params, grads)
+                lr = self.learning_rate
+                if self._pmv:
+                    sparse_adam.pmv_apply_rows(self.emb_state, flat, g_rows, lr)
+                    self._mirrors_stale = True
+                elif self._sparse:
+                    sparse_adam.apply_rows(self.model.embedding.detach(), self.emb_state,
+                                           flat, g_rows, lr)
+            return loss.detach()
 
     def _row_loss_grads(self, rows: torch.Tensor, seq_codes: torch.Tensor, labels: torch.Tensor,
                         weights: torch.Tensor, b: int, u: int, denom=None):

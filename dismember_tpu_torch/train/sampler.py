@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.arraytree import ArrayTree
 
@@ -178,35 +179,36 @@ class TreeSampler:
         target_codes: [B] bottom-level leaf codes (long, on the sampler's
         device).  Returns (codes [B, U] long, labels [B, U], weights [B, U]);
         weights are 0 for unfillable slots (code -1)."""
-        b = target_codes.shape[0]
-        dev = target_codes.device
-        parts_codes: list[torch.Tensor] = []
-        parts_weights: list[torch.Tensor] = []
-        for i, level in enumerate(range(self.start_level, self.max_level + 1)):
-            neg = self.neg_counts[level]
-            # ancestor of the bottom-level code at `level`
-            pos = ((target_codes + 1) >> (self.max_level - level)) - 1  # [B]
-            parts_codes.append(pos[:, None])
-            parts_weights.append(torch.ones(b, 1, device=dev))
-            if neg == 0:
-                continue
-            if self.level_exact[i]:
-                table, base = self.level_tables[i], self.level_logits[i]
-                u = torch.rand(b, table.shape[0], generator=gen, device=dev)
-                g = -torch.log(-torch.log(u.clamp_(min=1e-20)))
-                logits = base[None, :] + g
-                logits = torch.where(table[None, :] == pos[:, None], _NEG_INF, logits)
-                picked_logits, idx = torch.topk(logits, neg, dim=1)
-                ok = picked_logits > _NEG_INF / 2
-                parts_codes.append(torch.where(ok, table[idx], -1))
-                parts_weights.append(ok.float())
-            else:
-                codes, ok = self._sample_rejection(gen, pos, level, neg)
-                parts_codes.append(codes)
-                parts_weights.append(ok)
-        codes = torch.cat(parts_codes, dim=1)
-        weights = torch.cat(parts_weights, dim=1)
-        return codes, self._labels(dev).expand(b, self.unit), weights
+        with profiling.span("sampler.sample"):
+            b = target_codes.shape[0]
+            dev = target_codes.device
+            parts_codes: list[torch.Tensor] = []
+            parts_weights: list[torch.Tensor] = []
+            for i, level in enumerate(range(self.start_level, self.max_level + 1)):
+                neg = self.neg_counts[level]
+                # ancestor of the bottom-level code at `level`
+                pos = ((target_codes + 1) >> (self.max_level - level)) - 1  # [B]
+                parts_codes.append(pos[:, None])
+                parts_weights.append(torch.ones(b, 1, device=dev))
+                if neg == 0:
+                    continue
+                if self.level_exact[i]:
+                    table, base = self.level_tables[i], self.level_logits[i]
+                    u = torch.rand(b, table.shape[0], generator=gen, device=dev)
+                    g = -torch.log(-torch.log(u.clamp_(min=1e-20)))
+                    logits = base[None, :] + g
+                    logits = torch.where(table[None, :] == pos[:, None], _NEG_INF, logits)
+                    picked_logits, idx = torch.topk(logits, neg, dim=1)
+                    ok = picked_logits > _NEG_INF / 2
+                    parts_codes.append(torch.where(ok, table[idx], -1))
+                    parts_weights.append(ok.float())
+                else:
+                    codes, ok = self._sample_rejection(gen, pos, level, neg)
+                    parts_codes.append(codes)
+                    parts_weights.append(ok)
+            codes = torch.cat(parts_codes, dim=1)
+            weights = torch.cat(parts_weights, dim=1)
+            return codes, self._labels(dev).expand(b, self.unit), weights
 
     def _labels(self, dev: torch.device) -> torch.Tensor:
         """``unit_labels`` on ``dev``, uploaded once: a copy from pageable

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dismember_tpu_torch.core import mesh as meshlib
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.mesh import with_whole_table
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.core.io import open_file
@@ -226,18 +227,20 @@ class TDMTrainer(RowStepTrainer):
         generator (the single-device draws) and keeps its rows, the sparse
         step samples its rows from the (seed, step, data index) stream
         (``spmd_sparse.shard_generator``)."""
-        step = self._mesh_steps
-        self._mesh_steps += 1
-        if self.mesh is None:
-            return self.step_from_samples(seq_codes, *self.sample(target_codes))
-        rows = lambda t: meshlib.data_rows(t, self.mesh)  # noqa: E731
-        if self._sparse:
-            gen = spmd_sparse.shard_generator(
-                self.seed, step, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS), self.device)
-            samples = self.sampler.sample(gen, rows(target_codes))
-        else:
-            samples = [rows(t) for t in self.sample(target_codes)]
-        return self.step_from_samples(rows(seq_codes), *samples)
+        with profiling.span("tdm.step"):
+            profiling.count("tdm.steps")
+            step = self._mesh_steps
+            self._mesh_steps += 1
+            if self.mesh is None:
+                return self.step_from_samples(seq_codes, *self.sample(target_codes))
+            rows = lambda t: meshlib.data_rows(t, self.mesh)  # noqa: E731
+            if self._sparse:
+                gen = spmd_sparse.shard_generator(
+                    self.seed, step, meshlib.axis_index(self.mesh, meshlib.DATA_AXIS), self.device)
+                samples = self.sampler.sample(gen, rows(target_codes))
+            else:
+                samples = [rows(t) for t in self.sample(target_codes)]
+            return self.step_from_samples(rows(seq_codes), *samples)
 
     @torch.inference_mode()
     def _eval_loss_step(self, gen: torch.Generator, target_codes: torch.Tensor,
@@ -396,7 +399,8 @@ class TDMTrainer(RowStepTrainer):
         def drain() -> None:
             nonlocal next_log
             g0, k, losses = fifo.popleft()
-            losses = losses.cpu().numpy()  # the chunk's one host synchronization
+            with profiling.span("tdm.drain"):
+                losses = losses.cpu().numpy()  # the chunk's one host synchronization
             if g0 + k >= next_log:
                 elapsed = time.perf_counter() - t0
                 rows_s = (g0 + k - gs_start) * b * self.sampler.unit / max(elapsed, 1e-9)

@@ -21,6 +21,7 @@ from dismember_tpu.retrieval.packed_beam import build_pair_table as j_build_pair
 from dismember_tpu.retrieval.packed_beam import make_packed_beam_fn_pallas
 from dismember_tpu.retrieval.tree_beam import TreeBeamConfig as JTreeBeamConfig
 from dismember_tpu.train import otm as jotm
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.data import otm_dataset as ds
 from dismember_tpu_torch.serving import OTMServing
 from dismember_tpu_torch.train import otm
@@ -186,6 +187,37 @@ def test_evaluate_and_recommend_match_jax(data):
         np.testing.assert_array_equal(got, ref)
     codes, scores = tr.recommend_batch(seqs, return_codes=True, with_scores=True)[0]
     assert 0 < len(codes) <= 5 and (np.diff(scores) <= 0).all()
+
+
+@pytest.mark.parametrize("mode", ["dense", "pmv"])
+def test_spans_count_the_batches_and_change_no_bit(data, mode):
+    """With recording on, each batch opens otm.batch over one otm.frozen and
+    n_levels row_step.step spans and counts one batch; losses and parameters
+    are those of the run with recording off, bit for bit."""
+    p = _params(data.num_tree_nodes, 6)
+    batches = [(_t(s), _t(t)) for s, t in (_batch(data, 16), (data.train_seqs[16:32],
+                                                              data.train_labels[16:32]))]
+    a, b = _trainer(data, p, **MODES[mode]), _trainer(data, p, **MODES[mode])
+    la = [a._train_batch(*x) for x in batches]
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        lb = [b._train_batch(*x) for x in batches]
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    bits = lambda t: t.detach().view(torch.int32).numpy()  # noqa: E731
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(bits(x), bits(y))
+    a._sync_mirrors()
+    b._sync_mirrors()
+    for (n, x), (_, y) in zip(a.model.named_parameters(), b.model.named_parameters()):
+        np.testing.assert_array_equal(bits(x), bits(y), err_msg=n)
+    n = len(batches)
+    assert {k: v["calls"] for k, v in snap["spans"].items()} == {
+        "otm.batch": n, "otm.frozen": n, "row_step.step": n * b.n_levels}
+    assert snap["counters"]["otm.batches"] == n
 
 
 def test_packed_search_rebuilds_when_the_embedding_changes(data):

@@ -12,6 +12,7 @@ import torch
 
 from dismember_tpu.index.arraytree import ArrayTree as JArrayTree
 from dismember_tpu.train.tdm import ResidentWindows as JResidentWindows
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.index.tree_io import category_sorted_codes, write_tree
 from dismember_tpu_torch.train.tdm import ResidentWindows, TDMTrainer, window_rows
@@ -117,6 +118,38 @@ def test_chunk_size_bit_invariant(setup, sparse_kw):
     if "embed_dtype" in sparse_kw:
         assert a.emb_state["count"] == 20
         np.testing.assert_array_equal(a.emb_state["mv"].numpy(), b.emb_state["mv"].numpy())
+
+
+@pytest.mark.parametrize("sparse_kw", [
+    {"sparse_embed_update": False},
+    {"sparse_embed_update": True, "sparse_format": "pmv"},
+], ids=["dense", "pmv"])
+def test_spans_count_the_steps_and_change_no_bit(setup, sparse_kw):
+    """With recording on, every step opens tdm.step over sampler.sample and
+    row_step.step and counts one step, every chunk one tdm.drain; the
+    parameters are those of the run with recording off, bit for bit."""
+    tree, _, _, _, _, win = setup
+    iters, chunk = 10, 4
+    a = _trainer(tree, **sparse_kw)
+    a.train_resident(win, iterations=iters, chunk=chunk)
+    b = _trainer(tree, **sparse_kw)
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        b.train_resident(win, iterations=iters, chunk=chunk)
+        snap = profiling.snapshot()
+        raw = list(profiling._rec.raw)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert_params_equal(a, b)
+    calls = {k: v["calls"] for k, v in snap["spans"].items()}
+    assert calls == {"tdm.step": iters, "sampler.sample": iters, "row_step.step": iters,
+                     "tdm.drain": -(-iters // chunk)}
+    assert snap["counters"]["tdm.steps"] == iters
+    steps = [i for i, r in enumerate(raw) if r[0] == "tdm.step"]
+    assert {r[0] for r in raw if r[3] in steps} == {"sampler.sample", "row_step.step"}
+    assert all(r[3] == -1 for r in raw if r[0] in ("tdm.step", "tdm.drain"))
 
 
 def test_windows_equals_flat(setup):

@@ -19,6 +19,7 @@ from dismember_tpu.retrieval.packed_beam import make_packed_beam_fn_pallas
 from dismember_tpu.retrieval.packed_beam import make_packed_tree as j_make_packed_tree
 from dismember_tpu.retrieval.tree_beam import make_beam_fn as j_make_beam_fn
 from dismember_tpu.serving import TDMServing as JTDMServing
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.data.dr_dataset import DRData
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.models.din import DIN, params_from_numpy
@@ -142,6 +143,43 @@ def test_tdm_serving_matches_jax(tree_path, tmp_path, route):
     items = jtree.item_ids[:7]
     np.testing.assert_allclose(serv.predict(raw[3], items), jserv.predict(raw[3], items),
                                rtol=RTOL)
+
+
+def test_recommend_batch_records_its_spans_and_serves_the_same_lists(tree_path, tmp_path):
+    """With recording on, each recommend_batch call opens its spans once
+    under one top-level span and counts one batch (the packed loop's search
+    span on the 300-item tree only), and serves the lists it serves with
+    recording off."""
+    tree = ArrayTree.from_file(tree_path)
+    ckpt = str(tmp_path / "din")
+    save_pytree(ckpt, _params(tree, seed=4), meta={"model": "din", "embed_size": 16,
+                                                   "seq_len": 8})
+    serv = TDMServing.load(ckpt, tree_path, device="cpu", topk=5, candidate_num=4)
+    raw = _seqs(tree, batch=8, seed=6)
+    consumed = [row[row > 0][:2] for row in raw]
+    calls = 3
+    off = [serv.recommend_batch(raw, consumed=consumed) for _ in range(calls)]
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        on = [serv.recommend_batch(raw, consumed=consumed) for _ in range(calls)]
+        snap = profiling.snapshot()
+        tops = {r[4] for r in profiling._rec.raw}
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    for a, b in zip(off, on):
+        assert len(a) == len(b) == len(raw)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    names = {"serving.recommend_batch", "serving.codes", "serving.download",
+             "tree_beam.filter_topk"}
+    if serv._use_packed(4):
+        names.add("packed_beam.search")
+    assert {k: v["calls"] for k, v in snap["spans"].items()} == dict.fromkeys(names, calls)
+    assert snap["counters"]["serving.batches"] == calls and len(tops) == calls
+    top = snap["spans"]["serving.recommend_batch"]
+    assert 0 <= top["self_s"] < top["total_s"]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tree_path, tmp_path, monkeypatch):
