@@ -1,17 +1,24 @@
-"""ctypes binding of the port's native host library (``csrc/host_ops.cc``).
+"""ctypes bindings of the port's two native host libraries.
 
-Port of ``dismember_tpu/data/native.py``: the same functions and contracts
-over the port's own copy of the C++ source.  The library is compiled by the
-host compiler (``$CXX``, else ``g++``) at first use, never at import, into
-``build/host/`` beside the package; its name carries a hash of the source,
-the flags and the compiler (its ``--version`` and what ``-march=native``
-resolves to on this host), so a host with another CPU or compiler builds its
-own.  A build goes to a pid-suffixed file that is then renamed, so processes
-building at once do not race.
+``csrc/host_ops.cc`` (:func:`get_lib`) is the port's copy of the JAX
+package's ``native/host_ops.cc``, with the same functions and contracts as
+``dismember_tpu/data/native.py``: CSV ingest, per-user grouping, the KV
+scan, the tree codec, DR's greedy select and the co-occurrence pass.
+``csrc/serve_ops.cc`` (:func:`get_serve_lib`) is the port's own: the
+serving facade's consumed filter and final top-k.
 
-Every caller falls back to its Python or numpy form when the library is
-unavailable: the compiler failed (its stderr is logged once at WARNING) or
-``DISMEMBER_NO_NATIVE`` is set (read on every :func:`get_lib` call).
+Each library is compiled by the host compiler (``$CXX``, else ``g++``) at
+first use, never at import, into ``build/host/`` beside the package; its
+name carries a hash of its source, the flags and the compiler (its
+``--version`` and what ``-march=native`` resolves to on this host), so a
+host with another CPU or compiler builds its own.  A build goes to a
+pid-suffixed file that is then renamed, so processes building at once do
+not race.
+
+Every caller falls back to its Python or numpy form when a library is
+unavailable: the compiler failed (its stderr is logged once a library at
+WARNING) or ``DISMEMBER_NO_NATIVE`` is set (read on every :func:`get_lib`
+and :func:`get_serve_lib` call).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ logger = logging.getLogger("dismember_tpu_torch.native")
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "host_ops.cc"
+SERVE_SOURCE = _PKG / "csrc" / "serve_ops.cc"
 BUILD_DIR = _PKG.parent / "build" / "host"
 # native/Makefile's flags: -ffp-contract=off keeps the greedy select's and
 # the co-occurrence pass's arithmetic that of the numpy forms (no fused
@@ -40,6 +48,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-pthread",
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_serve_lib = None
+_serve_tried = False
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _F32P = ctypes.POINTER(ctypes.c_float)
@@ -91,21 +101,22 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=300)
 
 
-def library_path() -> Path:
-    """Path of the built library, building it if the source, flags or
-    compiler changed; raises ``OSError`` or ``RuntimeError`` when the
-    compiler is missing or fails."""
+def library_path(source: Path = SOURCE, name: str = "host") -> Path:
+    """Path of the library ``libdismember_<name>_<hash>.so`` built from
+    ``source``, building it if the source, flags or compiler changed;
+    raises ``OSError`` or ``RuntimeError`` when the compiler is missing or
+    fails."""
     cxx = _compiler()
     h = hashlib.sha256(" ".join((cxx, *CXX_FLAGS)).encode())
-    h.update(SOURCE.read_bytes())
+    h.update(source.read_bytes())
     h.update(_run([cxx, "--version"]).stdout.encode())
     h.update(_run([cxx, "-march=native", "-Q", "--help=target"]).stdout.encode())
-    out = BUILD_DIR / f"libdismember_host_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"libdismember_{name}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(source)]
     proc = _run(cmd)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -160,21 +171,53 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_serve(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.dm_filter_topk.restype = None
+    lib.dm_filter_topk.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # b, w, k
+        _I64P,  # item_ids [b, w]
+        _F32P,  # scores [b, w]
+        _I64P,  # consumed ids, the rows' lists one after another
+        _I64P,  # consumed lengths [b]
+        _I64P,  # out [b, k]
+        _I64P,  # counts [b]
+    ]
+    return lib
+
+
+def _load(source: Path, name: str, bind, what: str):
+    """The bound library built from ``source``, or None (one warning)."""
+    try:
+        return bind(ctypes.CDLL(str(library_path(source, name))))
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        logger.warning("%s unavailable, taking the Python forms: %s", what, e)
+        return None
+
+
 def get_lib():
-    """The loaded library (built on first call), or None when it cannot be
-    built or loaded, or when ``DISMEMBER_NO_NATIVE`` is set."""
+    """The loaded host library (built on first call), or None when it
+    cannot be built or loaded, or when ``DISMEMBER_NO_NATIVE`` is set."""
     global _lib, _tried
     if os.environ.get("DISMEMBER_NO_NATIVE"):
         return None
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        try:
-            _lib = _bind(ctypes.CDLL(str(library_path())))
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            logger.warning("native host library unavailable, taking the Python forms: %s", e)
+        if _lib is None and not _tried:
+            _tried = True
+            _lib = _load(SOURCE, "host", _bind, "native host library")
         return _lib
+
+
+def get_serve_lib():
+    """The loaded serving library (``csrc/serve_ops.cc``; built on first
+    call), or None as :func:`get_lib`."""
+    global _serve_lib, _serve_tried
+    if os.environ.get("DISMEMBER_NO_NATIVE"):
+        return None
+    with _lock:
+        if _serve_lib is None and not _serve_tried:
+            _serve_tried = True
+            _serve_lib = _load(SERVE_SOURCE, "serve", _bind_serve, "native serving library")
+        return _serve_lib
 
 
 def _ptr(a: np.ndarray, t):
@@ -254,6 +297,35 @@ def cooc_apply_native(
         len(src), _ptr(src, ctypes.c_int64), _ptr(wn, ctypes.c_float),
         _ptr(f, ctypes.c_float), _ptr(g, ctypes.c_float))
     return True
+
+
+def filter_topk_native(item_ids, scores, cons, cons_len, k: int):
+    """The consumed filter and final top-k of ``tree_beam.filter_topk``
+    (``dm_filter_topk``): ``(top, counts)``, row ``i``'s kept ids in
+    ``top[i, :counts[i]]`` of ``top`` [B, k] int64, bit for bit the numpy
+    form's; ``cons`` holds the rows' consumed ids one after another,
+    ``cons_len[i]`` of them for row ``i``.  None when the serving library
+    is unavailable."""
+    lib = get_serve_lib()
+    if lib is None:
+        return None
+    _check_arrays("filter_topk_native",
+                  ("item_ids", item_ids, np.int64), ("scores", scores, np.float32),
+                  ("cons", cons, np.int64), ("cons_len", cons_len, np.int64))
+    b, w = item_ids.shape
+    if scores.shape != (b, w) or cons_len.shape != (b,) or cons.ndim != 1:
+        raise ValueError("filter_topk_native: scores, cons_len or cons do not fit item_ids "
+                         f"{item_ids.shape}")
+    if b and (cons_len.min() < 0 or cons_len.sum() != len(cons)):
+        raise ValueError("filter_topk_native: cons_len does not split cons")
+    if not 0 <= k <= w < 1 << 31:  # a slot's key holds its column in 31 bits
+        raise ValueError(f"filter_topk_native: k {k} outside [0, {w}], or {w} columns")
+    top = np.empty((b, k), np.int64)
+    counts = np.empty(b, np.int64)
+    lib.dm_filter_topk(b, w, k, _ptr(item_ids, ctypes.c_int64), _ptr(scores, ctypes.c_float),
+                       _ptr(cons, ctypes.c_int64), _ptr(cons_len, ctypes.c_int64),
+                       _ptr(top, ctypes.c_int64), _ptr(counts, ctypes.c_int64))
+    return top, counts
 
 
 def parse_csv_native(path: str):

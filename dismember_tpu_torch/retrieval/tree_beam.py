@@ -7,7 +7,8 @@ reference):
   their children (2c+1, 2c+2), score the <= 2*candidate_num children with one
   scorer call (K1 for DIN), drop non-existent codes;
 - the bottom level's frontier holds the leaves; consumed items are filtered
-  and the top-k by score is returned (:func:`filter_topk`).
+  and the top-k by score is returned (:func:`filter_topk`: one native host
+  pass, ``csrc/serve_ops.cc``, with the numpy form as its fallback).
 
 The levels are a Python loop over [B, 2*beam] frontiers; selection is
 ``torch.topk`` + ``torch.gather`` (the JAX package's one-hot select is a TPU
@@ -25,6 +26,7 @@ import torch
 
 from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.device import resolve_device
+from dismember_tpu_torch.data import native
 from dismember_tpu_torch.index.arraytree import ArrayTree
 
 NEG_INF = -3.4e38
@@ -149,22 +151,62 @@ def filter_topk(
 ) -> list[np.ndarray]:
     """Host-side consumed filtering + final top-k per row
     (Recommender.recommendItems: filterNot consumed, sort by score desc,
-    take topk), vectorized over the batch."""
+    take topk), in one native pass over the batch where the serving library
+    is there and the inputs are int64 ids, float32 scores and one consumed
+    list a row; else in the numpy form, which gives the same lists."""
     with profiling.span("tree_beam.filter_topk"):
-        b, w = item_ids.shape
-        ok = item_ids >= 0
-        if consumed is not None:
-            m = max((len(c) for c in consumed), default=0)
-            if m > 0:
-                cons = np.full((b, m), -1, dtype=item_ids.dtype)
-                for i, c in enumerate(consumed):
-                    if len(c):
-                        cons[i, : len(c)] = c
-                ok &= ~(item_ids[:, :, None] == cons[:, None, :]).any(-1)
-        # stable score-desc order with invalid rows pushed to the back
-        sc = np.where(ok, scores, -np.inf)
-        order = np.argsort(-sc, axis=1, kind="stable")[:, :topk]
-        rows = np.arange(b)[:, None]
-        top_ids = item_ids[rows, order]
-        top_ok = ok[rows, order]
-        return [top_ids[i][top_ok[i]] for i in range(b)]
+        lists = _filter_topk_native(item_ids, scores, topk, consumed)
+        if lists is None:
+            return _filter_topk_numpy(item_ids, scores, topk, consumed)
+        profiling.count("tree_beam.filter_native")
+        return lists
+
+
+def _filter_topk_native(item_ids, scores, topk, consumed) -> list[np.ndarray] | None:
+    """:func:`filter_topk` through ``native.filter_topk_native``: the lists
+    as row views of one [B, k] array, or None for inputs it does not take."""
+    if not (isinstance(item_ids, np.ndarray) and isinstance(scores, np.ndarray)
+            and item_ids.dtype == np.int64 and scores.dtype == np.float32
+            and item_ids.ndim == 2 and scores.shape == item_ids.shape
+            and isinstance(topk, (int, np.integer)) and topk >= 0
+            and (consumed is None or len(consumed) == len(item_ids))
+            and native.get_serve_lib() is not None):
+        return None
+    b, w = item_ids.shape
+    if consumed is None or b == 0:
+        lengths = np.zeros(b, np.int64)
+        flat = lengths[:0]
+    else:
+        lengths = np.fromiter(map(len, consumed), np.int64, count=b)
+        # the numpy form's cast of each list into its int64 consumed matrix
+        flat = np.concatenate(consumed, dtype=np.int64, casting="unsafe")
+        if flat.ndim != 1:
+            return None
+    top, counts = native.filter_topk_native(
+        np.ascontiguousarray(item_ids), np.ascontiguousarray(scores), flat, lengths,
+        min(int(topk), w))
+    lists = list(top)
+    for i in np.flatnonzero(counts < top.shape[1]):
+        lists[i] = top[i, : counts[i]]
+    return lists
+
+
+def _filter_topk_numpy(item_ids, scores, topk, consumed) -> list[np.ndarray]:
+    """:func:`filter_topk` vectorized in numpy, the JAX package's form."""
+    b, w = item_ids.shape
+    ok = item_ids >= 0
+    if consumed is not None:
+        m = max((len(c) for c in consumed), default=0)
+        if m > 0:
+            cons = np.full((b, m), -1, dtype=item_ids.dtype)
+            for i, c in enumerate(consumed):
+                if len(c):
+                    cons[i, : len(c)] = c
+            ok &= ~(item_ids[:, :, None] == cons[:, None, :]).any(-1)
+    # stable score-desc order with invalid rows pushed to the back
+    sc = np.where(ok, scores, -np.inf)
+    order = np.argsort(-sc, axis=1, kind="stable")[:, :topk]
+    rows = np.arange(b)[:, None]
+    top_ids = item_ids[rows, order]
+    top_ok = ok[rows, order]
+    return [top_ids[i][top_ok[i]] for i in range(b)]

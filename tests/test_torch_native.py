@@ -2,7 +2,10 @@
 over ``csrc/host_ops.cc``) against the JAX package's library and the port's
 Python forms: CSV ingest, per-user grouping, the KV scan, the tree codec,
 the co-occurrence pass and DR's greedy select, bit for bit; the fallbacks
-(more than 64 candidates, ``DISMEMBER_NO_NATIVE``, a failed build)."""
+(more than 64 candidates, ``DISMEMBER_NO_NATIVE``, a failed build).  The
+serving library (``csrc/serve_ops.cc``) builds beside it under its own name
+and falls back the same way; its pass is held to the numpy form in
+``tests/test_torch_filter_topk.py``."""
 
 import logging
 import struct
@@ -17,6 +20,7 @@ from dismember_tpu.index.proto import KVItem
 from dismember_tpu.train import dr_coordinate as jdc
 from dismember_tpu_torch.data import ingest, native
 from dismember_tpu_torch.index import tree_io
+from dismember_tpu_torch.retrieval import tree_beam
 from dismember_tpu_torch.train import dr_coordinate as dc
 
 K, D, J = 20, 3, 2
@@ -52,6 +56,18 @@ def test_library_builds_into_build_host(lib):
     assert path.name.startswith("libdismember_host_") and path.exists()
     assert native.SOURCE.parent.name == "csrc"
     assert "-ffp-contract=off" in native.CXX_FLAGS and "-march=native" in native.CXX_FLAGS
+
+
+def test_serving_library_builds_into_build_host_under_its_own_name(lib):
+    serve_lib = native.get_serve_lib()
+    assert serve_lib is not None, "the port's serving library did not build"
+    host = native.library_path()
+    serve = native.library_path(native.SERVE_SOURCE, "serve")
+    assert serve.parent == host.parent == native.BUILD_DIR
+    assert serve.name.startswith("libdismember_serve_") and serve.exists()
+    assert len(serve.stem.rsplit("_", 1)[1]) == 16 and serve.stem[-16:] != host.stem[-16:]
+    assert native.SERVE_SOURCE.parent == native.SOURCE.parent
+    assert serve_lib is native.get_serve_lib() and serve_lib is not lib
 
 
 def _code_lines(path) -> list[str]:
@@ -228,6 +244,7 @@ def test_more_than_64_candidates_take_the_python_loop(lib, caplog):
 
 def test_no_native_env_takes_the_python_forms(no_native, small_csv, tmp_path):
     assert native.get_lib() is None
+    assert native.get_serve_lib() is None
     assert not native.cooc_apply_native(*_cooc_inputs(n_items=10, n_edges=20),
                                         np.zeros((10, 16), np.float32))
     assert native.parse_csv_native(small_csv) is None
@@ -256,6 +273,25 @@ def test_failed_build_warns_once_and_falls_back(monkeypatch, caplog, small_csv):
     np.testing.assert_array_equal(raw.user, jingest._read_csv_python(small_csv).user)
 
 
+def test_failed_serving_build_warns_once_and_falls_back(monkeypatch, caplog):
+    monkeypatch.delenv("DISMEMBER_NO_NATIVE", raising=False)
+    monkeypatch.setattr(native, "_serve_lib", None)
+    monkeypatch.setattr(native, "_serve_tried", False)
+    monkeypatch.setenv("CXX", "false")  # a compiler that always fails
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 50, size=(6, 40))
+    scores = rng.standard_normal((6, 40)).astype(np.float32)
+    consumed = [row[:3] for row in ids]
+    with caplog.at_level(logging.WARNING, logger="dismember_tpu_torch.native"):
+        assert native.get_serve_lib() is None
+        assert native.get_serve_lib() is None
+        got = tree_beam.filter_topk(ids, scores, 10, consumed)
+    assert caplog.text.count("native serving library unavailable") == 1
+    assert "native host library unavailable" not in caplog.text
+    for a, b in zip(got, tree_beam._filter_topk_numpy(ids, scores, 10, consumed)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_pointer_arguments_are_checked(lib):
     starts, segs, src, wn, f = _cooc_inputs(n_items=10, n_edges=20)
     with pytest.raises(TypeError, match="wn must be C-contiguous float32"):
@@ -269,3 +305,17 @@ def test_pointer_arguments_are_checked(lib):
         native.dr_greedy_select_native(idx, np.zeros((4, 3), np.float32), np.ones(4, np.int64),
                                        np.zeros(1, np.int64), np.full((4, 2), -1, np.int64),
                                        1, 0.1, 4.0)
+
+
+def test_serving_pointer_arguments_are_checked(lib):
+    ids = np.zeros((3, 8), np.int64)
+    scores = np.zeros((3, 8), np.float32)
+    cons, lens = np.arange(4, dtype=np.int64), np.array([1, 1, 2], np.int64)
+    with pytest.raises(TypeError, match="scores must be C-contiguous float32"):
+        native.filter_topk_native(ids, scores.astype(np.float64), cons, lens, 2)
+    with pytest.raises(TypeError, match="non-contiguous"):
+        native.filter_topk_native(np.zeros((3, 16), np.int64)[:, ::2], scores, cons, lens, 2)
+    with pytest.raises(ValueError, match="does not split cons"):
+        native.filter_topk_native(ids, scores, cons, lens + 1, 2)
+    with pytest.raises(ValueError, match="outside"):
+        native.filter_topk_native(ids, scores, cons, lens, 9)

@@ -147,9 +147,9 @@ def test_tdm_serving_matches_jax(tree_path, tmp_path, route):
 
 def test_recommend_batch_records_its_spans_and_serves_the_same_lists(tree_path, tmp_path):
     """With recording on, each recommend_batch call opens its spans once
-    under one top-level span and counts one batch (the packed loop's search
-    span on the 300-item tree only), and serves the lists it serves with
-    recording off."""
+    under one top-level span, counts one batch and one native filter pass
+    (the packed loop's search span on the 300-item tree only), and serves
+    the lists it serves with recording off."""
     tree = ArrayTree.from_file(tree_path)
     ckpt = str(tmp_path / "din")
     save_pytree(ckpt, _params(tree, seed=4), meta={"model": "din", "embed_size": 16,
@@ -178,6 +178,7 @@ def test_recommend_batch_records_its_spans_and_serves_the_same_lists(tree_path, 
         names.add("packed_beam.search")
     assert {k: v["calls"] for k, v in snap["spans"].items()} == dict.fromkeys(names, calls)
     assert snap["counters"]["serving.batches"] == calls and len(tops) == calls
+    assert snap["counters"]["tree_beam.filter_native"] == calls  # the native pass each batch
     top = snap["spans"]["serving.recommend_batch"]
     assert 0 <= top["self_s"] < top["total_s"]
 

@@ -22,7 +22,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 # the port's spans and counters, each named in PERF.md section 3 with the
 # per-layer metric it feeds
 PORT_NAMES = {"serving.recommend_batch", "serving.batches", "serving.codes",
-              "serving.download", "packed_beam.search", "tree_beam.filter_topk", "tdm.step",
+              "serving.download", "packed_beam.search", "tree_beam.filter_topk",
+              "tree_beam.filter_native", "tdm.step",
               "tdm.steps", "sampler.sample", "row_step.step", "tdm.drain", "otm.batch",
               "otm.batches", "otm.frozen"}
 LAUNCH_KEYS = {"k1.launches", "k3.launches", "k3.launches_bf16_rows", "k2.write_rows",
