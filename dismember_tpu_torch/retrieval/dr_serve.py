@@ -40,6 +40,11 @@ the closure is built, and the closure reads the heads and the node
 embeddings live, as the JAX package's does; ``DRServing`` caches closures,
 so it serves the tables of the moment it first served.  No kernel runs
 here: the products are small matmuls and a 16-term multiply-add.
+
+Spans and counters (``core/profiling.py``, off by default): what follows
+the path beam in a closure (path keys, row gather, scores, dedup, filter,
+top-k) is the span ``dr_serve.rerank``; building a path map adds its
+truncated paths to the counter ``dr_serve.truncated_paths``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import math
 import numpy as np
 import torch
 
+from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.models.dr_models import rerank_user_vector
@@ -108,9 +114,11 @@ class DevicePathMap:
         path_items[r_s[keep], rank[keep]] = it_s[keep]
         table = np.full(size, -1, np.int32)
         table[uniq[order_u]] = np.arange(n_paths, dtype=np.int32)
+        truncated = int((counts > m).sum())
+        profiling.count("dr_serve.truncated_paths", truncated)
         return cls(path_table=torch.as_tensor(table, device=dev),
                    path_items=torch.as_tensor(path_items, device=dev),
-                   num_nodes=k, truncated_paths=int((counts > m).sum()))
+                   num_nodes=k, truncated_paths=truncated)
 
 
 def _train_frequency_priority(trainer) -> np.ndarray | None:
@@ -251,28 +259,29 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
     def fn(layer_params, rerank_params, seqs, consumed=None):
         b = seqs.shape[0]
         paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes, num_layers)
-        keys, _ = path_keys_and_dedup(paths, num_nodes)
-        rows = dmap.path_table[keys].long()  # [B, beam]
-        cand = torch.where((rows >= 0)[:, :, None], dmap.path_items[rows.clamp_min(0)],
-                           -1).reshape(b, beam * m).long()
-        # in-row dedup: value-sort (invalid -> a sentinel at the back), keep
-        # the first occurrence of each item
-        cs = torch.sort(torch.where(cand >= 0, cand, _SENTINEL), dim=1).values
-        first = torch.ones_like(cs, dtype=torch.bool)
-        first[:, 1:] = cs[:, 1:] != cs[:, :-1]
-        ok = (cs < _SENTINEL) & first
-        cs = torch.where(ok, cs, -1)
-        if consumed is not None:
-            ok &= ~_consumed_hit(cs, consumed.long())
-        user_vec = rerank_user_vector(rerank_params, seqs)
-        safe = cs.clamp_min(0)
-        if packed_wb is not None:
-            rows_wb = packed_wb[safe].float()  # [B, C, E+1]
-            w, bias = rows_wb[..., :e], rows_wb[..., e]
-        else:
-            w, bias = rerank_params["softmax_w"][safe], rerank_params["softmax_b"][safe]
-        scores = torch.einsum("be,bce->bc", user_vec, w) + bias
-        return _top_items(torch.where(ok, scores, _NEG_INF), cs, k)
+        with profiling.span("dr_serve.rerank"):
+            keys, _ = path_keys_and_dedup(paths, num_nodes)
+            rows = dmap.path_table[keys].long()  # [B, beam]
+            cand = torch.where((rows >= 0)[:, :, None], dmap.path_items[rows.clamp_min(0)],
+                               -1).reshape(b, beam * m).long()
+            # in-row dedup: value-sort (invalid -> a sentinel at the back),
+            # keep the first occurrence of each item
+            cs = torch.sort(torch.where(cand >= 0, cand, _SENTINEL), dim=1).values
+            first = torch.ones_like(cs, dtype=torch.bool)
+            first[:, 1:] = cs[:, 1:] != cs[:, :-1]
+            ok = (cs < _SENTINEL) & first
+            cs = torch.where(ok, cs, -1)
+            if consumed is not None:
+                ok &= ~_consumed_hit(cs, consumed.long())
+            user_vec = rerank_user_vector(rerank_params, seqs)
+            safe = cs.clamp_min(0)
+            if packed_wb is not None:
+                rows_wb = packed_wb[safe].float()  # [B, C, E+1]
+                w, bias = rows_wb[..., :e], rows_wb[..., e]
+            else:
+                w, bias = rerank_params["softmax_w"][safe], rerank_params["softmax_b"][safe]
+            scores = torch.einsum("be,bce->bc", user_vec, w) + bias
+            return _top_items(torch.where(ok, scores, _NEG_INF), cs, k)
 
     fn.route = rerank_table
     fn._dmap = dmap
@@ -337,11 +346,12 @@ def _make_block_serving_fn(trainer, dmap: DevicePathMap, beam: int, k: int, geom
         user_vec = srows[:, :, e:].reshape(b, l_seq * e) @ lin["weight"].T + lin["bias"]
         paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes,
                                     num_layers, seq_parts=seq_parts)
-        keys, first = path_keys_and_dedup(paths, num_nodes)
-        rows = dmap.path_table[keys].long()  # [B, beam]
-        blocks = block_tab[rows.clamp_min(0)]  # [B, beam, m_pad, planes]
-        return _score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
-                                  j_paths)
+        with profiling.span("dr_serve.rerank"):
+            keys, first = path_keys_and_dedup(paths, num_nodes)
+            rows = dmap.path_table[keys].long()  # [B, beam]
+            blocks = block_tab[rows.clamp_min(0)]  # [B, beam, m_pad, planes]
+            return _score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
+                                      j_paths)
 
     fn._dmap = dmap
     fn._block_tab = block_tab

@@ -250,12 +250,28 @@ class DRServing:
     built while reading the heads and the f32 tables live, as the JAX
     package's ``DRServing`` does: a facade serves a loaded model, which
     nothing changes afterwards.  A caller that changes the trainer's
-    embeddings or softmax rows drops ``_device_fns`` to serve them."""
+    embeddings or softmax rows drops ``_device_fns`` to serve them.
+    The host route's path->items dict (a Python loop over every (item,
+    path) pair) is built on that route's first call; the device route never
+    reads it.
+
+    Spans and counters (``core/profiling.py``, off by default): a device
+    batch is ``dr_serving.recommend_batch`` (counter ``dr_serving.batches``)
+    around ``dr_serving.upload`` (windows and consumed lists to the device),
+    the closure's spans and ``dr_serving.download`` (the wait for the device
+    and the copy); while recording, ``dr_serving.short_lists`` counts the
+    rows served fewer than ``topk`` items."""
 
     def __init__(self, trainer: DRTrainer):
         self._trainer = trainer
-        self._p2i = trainer.path_index.path_to_items()
+        self._p2i: dict[tuple, list[int]] | None = None
         self._device_fns: dict[tuple, object] = {}
+
+    def path_to_items(self) -> dict[tuple, list[int]]:
+        """The host route's inverted map, built on its first use."""
+        if self._p2i is None:
+            self._p2i = self._trainer.path_index.path_to_items()
+        return self._p2i
 
     def device_serving_fn(self, topk: int = 10, beam: int | None = None):
         """The device serving closure (``retrieval.dr_serve``); None when
@@ -265,14 +281,35 @@ class DRServing:
             self._device_fns[key] = make_dr_serving_fn(self._trainer, beam=beam, topk=topk)
         return self._device_fns[key]
 
-    def recommend_batch_device(self, seqs: np.ndarray, topk: int = 10) -> np.ndarray:
-        """[B, L] dense-id windows -> [B, topk] dense item ids (-1 pads)."""
-        fn = self.device_serving_fn(topk=topk)
-        if fn is None:
-            return [self.recommend(s, topk=topk) for s in seqs]
-        t = self._trainer
-        ids, _scores = fn(t.layer_params, t.rerank_params, t._ids(seqs))
-        return ids.cpu().numpy()
+    def recommend_batch_device(self, seqs: np.ndarray, topk: int = 10,
+                               consumed=None) -> np.ndarray:
+        """[B, L] dense-id windows -> [B, topk] dense item ids, -1 where a
+        row has fewer items.  ``consumed``: the dense ids each row leaves
+        out, a [B, C] array padded with -1 or a list of B arrays.  Where the
+        dense path table does not fit, the rows go through the host route."""
+        with profiling.span("dr_serving.recommend_batch"):
+            profiling.count("dr_serving.batches")
+            cons = _consumed_matrix(consumed)
+            fn = self.device_serving_fn(topk=topk)
+            if fn is None:
+                ids = np.full((len(seqs), topk), -1, np.int64)
+                for i, s in enumerate(seqs):
+                    got = self.recommend(s, topk=topk,
+                                         consumed=None if cons is None else cons[i][cons[i] >= 0])
+                    ids[i, : len(got)] = got
+            else:
+                t = self._trainer
+                with profiling.span("dr_serving.upload"):
+                    seqs_t = t._ids(seqs)
+                    cons_t = None if cons is None else t._ids(cons)
+                ids, _scores = fn(t.layer_params, t.rerank_params, seqs_t, cons_t)
+                with profiling.span("dr_serving.download"):  # waits for the device
+                    ids = ids.cpu().numpy()
+                if ids.shape[1] < topk:  # fewer candidate slots than topk
+                    ids = np.pad(ids, ((0, 0), (0, topk - ids.shape[1])), constant_values=-1)
+            if profiling.enabled():
+                profiling.count("dr_serving.short_lists", int((ids[:, -1] < 0).sum()))
+            return ids
 
     @classmethod
     def load(cls, model_path: str, mapping_path: str, data_path: str,
@@ -301,5 +338,17 @@ class DRServing:
         return self._trainer.recommend_batch(
             sequence[None, :], topk=topk,
             consumed=[consumed] if consumed is not None else None,
-            path_to_items=self._p2i,
+            path_to_items=self.path_to_items(),
         )[0]
+
+
+def _consumed_matrix(consumed) -> np.ndarray | None:
+    """Consumed dense ids as a [B, C] array padded with -1, from such an
+    array or a list of B arrays; None stays None."""
+    if consumed is None or (isinstance(consumed, np.ndarray) and consumed.ndim == 2):
+        return consumed
+    rows = [np.asarray(c, np.int64).reshape(-1) for c in consumed]
+    out = np.full((len(rows), max((len(r) for r in rows), default=0)), -1, np.int64)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out

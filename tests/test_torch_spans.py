@@ -25,7 +25,9 @@ PORT_NAMES = {"serving.recommend_batch", "serving.batches", "serving.codes",
               "serving.download", "packed_beam.search", "tree_beam.filter_topk",
               "tree_beam.filter_native", "tdm.step",
               "tdm.steps", "sampler.sample", "row_step.step", "tdm.drain", "otm.batch",
-              "otm.batches", "otm.frozen"}
+              "otm.batches", "otm.frozen", "dr_serving.recommend_batch", "dr_serving.batches",
+              "dr_serving.upload", "dr_serving.download", "dr_serving.short_lists",
+              "path_beam.search", "dr_serve.rerank", "dr_serve.truncated_paths"}
 LAUNCH_KEYS = {"k1.launches", "k3.launches", "k3.launches_bf16_rows", "k2.write_rows",
                "k2.add_rows", "k2.add_rows_bf16"}
 
