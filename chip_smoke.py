@@ -93,17 +93,27 @@ Phases, one JSON line each; any failed check raises and fails the run:
      dr-train-deep-model -> dr-coordinate-descent -> dr-train-deep-model
      under the learned mapping -> ``DRServing.load`` and 4096 windows on the
      exact (auto), packed and block routes, each top-10 equal to the host
-     route's but for score or beam near ties; ``evaluate``; then dense and
+     route's but for score or beam near ties (the block route's lists also
+     equal to those of its rerank kernel's plain chain); ``evaluate``; then dense and
      pmv trainers on one repeated batch (losses and params within the
      dense tolerances, the first pmv E-step's three K2 calls audited) and
      timed E-steps of each route; the CLI path (dense) launches no kernel;
      coordinate descent's greedy route, which must be the native select;
   dr_deep: bench.py's DR cells: 1M items served on the block route (auto),
-     ms a 4096-window call and the top-10 overlap with the exact route on
-     256 queries; the E-step at 10M items (auto route pmv, three K2
+     one rerank kernel launch a batch, ms a 4096-window call, the top-10
+     overlap with the exact route on 256 queries and the lists equal to the
+     rerank's plain chain's; the E-step at 10M items (auto route pmv, three K2
      launches a step, the first step's calls audited), 2 warm-up and 10
      timed steps, the mirror sync, then K2 on that step's three commits
      against its plain version and timed beside ``index_copy_``;
+  dr_rerank: the block rerank kernel (``ops/dr_rerank.py``) at the DR
+     serving cell's shape (DR_CELL: 4,162,024 items, 3 layers of 100
+     nodes, 2 paths an item, E 16, beam 20, top-10, 8192 rows, 10 consumed
+     ids a row): against its plain chain on the card (scores bit for bit,
+     ids but for ties at the k-th place), twice equal, timed warm and cold
+     beside the plain chain, with its byte bound (the kept paths' items) and
+     the bound of reading their whole rows; ptxas's registers of each width's
+     instance (no spill allowed);
   tdm_10m: bench.py's 10M-item TDM cell (24 levels): ``train_resident``
      over ``ResidentWindows`` of synthetic users (auto route pmv, one K2
      launch a step), 2 chunks of 16 timed steps, chunk 8 against chunk 16
@@ -213,6 +223,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import json
 import logging
 import os
@@ -269,7 +280,13 @@ from dismember_tpu_torch.models.din import DIN, params_from_numpy  # noqa: E402
 from dismember_tpu_torch.models import dr_models  # noqa: E402
 from dismember_tpu_torch.models.dr_models import rerank_user_vector  # noqa: E402
 from dismember_tpu_torch.models.embedding import embed_lookup  # noqa: E402
-from dismember_tpu_torch.ops import _cuda, din_kernel, packed_level_kernel, row_writer  # noqa: E402
+from dismember_tpu_torch.ops import (  # noqa: E402
+    _cuda,
+    din_kernel,
+    dr_rerank,
+    packed_level_kernel,
+    row_writer,
+)
 from dismember_tpu_torch.ops.din_kernel import (  # noqa: E402
     KERNEL_WIDTHS,
     din_score,
@@ -287,7 +304,13 @@ from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
     make_packed_beam_fn,
     make_packed_tree,
 )
-from dismember_tpu_torch.retrieval.dr_serve import make_dr_serving_fn  # noqa: E402
+from dismember_tpu_torch.retrieval.dr_serve import (  # noqa: E402
+    DevicePathMap,
+    _block_geometry,
+    _build_block_table,
+    make_dr_serving_fn,
+    path_keys_and_dedup,
+)
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search  # noqa: E402
 from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
     filter_topk,
@@ -390,6 +413,10 @@ DR_CONF = dict(num_layers=3, num_nodes=100, num_paths_per_item=2, embed_size=E,
                learning_rate=3e-3, train_batch_size=8192, eval_batch_size=8192, num_sampled=1,
                topk=TOPK, beam_size=BEAM, seq_len=SEQ_LEN)
 DR_EPOCHS = 1
+# the DR serving cell's shape (benchmark/configs/dr_ub4m.json and its
+# traffic): the block rerank kernel's case
+DR_CELL = dict(items=4_162_024, num_nodes=100, depth=3, j=2, e=16, beam=20, k=10, rows=8192,
+               consumed=10)
 # dr_example's pmv trainer: steps on one repeated batch (where lazy and dense
 # Adam agree), then timed batches of the pmv and dense routes
 DR_PMV_STEPS, DR_TIMED_BATCHES = 3, 10
@@ -1111,7 +1138,7 @@ K3_ROWS = {torch.float32: "packed_level", torch.bfloat16: "packed_level_bf16_row
 
 
 def zero_launches() -> None:
-    din_kernel.launches = packed_level_kernel.launches = 0
+    din_kernel.launches = packed_level_kernel.launches = dr_rerank.launches = 0
     packed_level_kernel.launches_bf16_rows = 0
     din_kernel.launches_by_width.update(dict.fromkeys(din_kernel.launches_by_width, 0))
     packed_level_kernel.launches_by_width.update(
@@ -1128,7 +1155,7 @@ def read_launches() -> dict:
            for e, n in din_kernel.launches_by_width.items()}
     out.update({f"{K3_ROWS[dt]}{'' if e == E else f'_e{e}'}": n
                 for (e, dt), n in packed_level_kernel.launches_by_width.items()})
-    return {**out, **row_writer.launches}
+    return {**out, **row_writer.launches, "dr_rerank": dr_rerank.launches}
 
 
 @contextlib.contextmanager
@@ -1136,14 +1163,14 @@ def uncounted():
     """Within the block, kernel launches leave the counts as they were: for
     the calls made only to compare a kernel with its plain version."""
     totals = (din_kernel.launches, packed_level_kernel.launches,
-              packed_level_kernel.launches_bf16_rows)
+              packed_level_kernel.launches_bf16_rows, dr_rerank.launches)
     widths = (dict(din_kernel.launches_by_width), dict(packed_level_kernel.launches_by_width))
     rows = dict(row_writer.launches)
     try:
         yield
     finally:
         (din_kernel.launches, packed_level_kernel.launches,
-         packed_level_kernel.launches_bf16_rows) = totals
+         packed_level_kernel.launches_bf16_rows, dr_rerank.launches) = totals
         din_kernel.launches_by_width.update(widths[0])
         packed_level_kernel.launches_by_width.update(widths[1])
         row_writer.launches.update(rows)
@@ -2179,6 +2206,32 @@ def dr_routes_one_batch(dev, data, path_index) -> dict:
             "ms_per_batch": ms}
 
 
+def canonical_ids(ids: torch.Tensor, scores: torch.Tensor) -> np.ndarray:
+    """[B, k] ids in (score descending, id ascending) order, row by row."""
+    i = ids.cpu().numpy()
+    return np.take_along_axis(i, np.lexsort((i, -scores.cpu().numpy()), axis=1), 1)
+
+
+def dr_block_vs_plain(fn, lp, rp, q: torch.Tensor, consumed=None) -> dict:
+    """A block closure's lists with the rerank kernel against the same
+    closure with the kernel's plain chain in its place: scores bit for bit,
+    ids in (score, id) order; uncounted."""
+    real = dr_rerank.block_rerank_topk
+    with uncounted():
+        ids, scores = fn(lp, rp, q, consumed)
+        dr_rerank.block_rerank_topk = dr_rerank.block_rerank_topk_plain
+        try:
+            plain_ids, plain_scores = fn(lp, rp, q, consumed)
+        finally:
+            dr_rerank.block_rerank_topk = real
+    check(torch.equal(bits(scores), bits(plain_scores)),
+          "DR block serving: the kernel's scores differ from the plain chain's")
+    differ = int((canonical_ids(ids, scores)
+                  != canonical_ids(plain_ids, plain_scores)).any(1).sum())
+    check(differ == 0, f"DR block serving: {differ} lists differ from the plain chain's")
+    return {"rows": int(q.shape[0]), "consumed": consumed is not None, "lists_differ": differ}
+
+
 def dr_example(dev) -> dict:
     """The port's DR CLI in process on the example catalog, from a copy of
     configs/deep-retrieval.conf: dr-train-deep-model (random mapping) ->
@@ -2254,6 +2307,9 @@ def dr_example(dev) -> dict:
         vs = dr_route_vs_host(got, host, tr, windows, NEAR_TIE[route], ties)
         routes[route] = {"build_s": build_s, "ms_per_batch": ms, "vs_host": vs}
         check(vs["other"] == 0, f"{route}: top-10 differs from the host route: {vs}")
+        if route == "block":
+            routes[route]["kernel_vs_plain"] = dr_block_vs_plain(
+                fn, tr.layer_params, tr.rerank_params, q, q)
     ev = tr.evaluate()
     check(all(0.0 <= getattr(ev, k) <= 1.0 for k in ("precision", "recall", "ndcg"))
           and np.isfinite(ev.rerank_loss), f"evaluate: {ev}")
@@ -2337,6 +2393,7 @@ def dr_deep(dev) -> dict:
     agree = float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max((b >= 0).sum(), 1)
                            for a, b in zip(ids[:DR_AGREE_QUERIES], ref)]))
     check(agree >= DR_MIN_AGREEMENT, f"1M DR serving: block agrees with exact on {agree}")
+    kernel_vs_plain = dr_block_vs_plain(fn, lp, rp, q, q)
     serving = {"items": DR_SERVE_ITEMS, "route": "block", "geometry": list(fn._geometry),
                "paths": int(fn._dmap.path_items.shape[0]),
                "items_per_path": int(fn._dmap.path_items.shape[1]),
@@ -2346,7 +2403,8 @@ def dr_deep(dev) -> dict:
                "ms_per_batch": serve_s / DR_SERVE_CALLS * 1e3,
                "qps": BATCH * DR_SERVE_CALLS / serve_s,
                "short_lists": int((ids < 0).any(1).sum()),
-               "block_vs_exact_top10_overlap": agree, "agreement_queries": DR_AGREE_QUERIES}
+               "block_vs_exact_top10_overlap": agree, "agreement_queries": DR_AGREE_QUERIES,
+               "kernel_vs_plain": kernel_vs_plain}
     del tr, fn, exact, q, lp, rp
 
     steps = DR_WARMUP_STEPS + DR_TIMED_STEPS
@@ -2409,6 +2467,79 @@ def dr_commits(estep) -> dict:
                for n, c in zip(names, calls)}
     torch.cuda.synchronize()
     return out
+
+
+# ---------------------------------------------------------------- dr_rerank
+def dr_rerank_case(dev, flush: torch.Tensor) -> dict:
+    """The block rerank kernel at the DR serving cell's shape (DR_CELL):
+    the cell's mapping drawn as ``PathIndex.random_init`` draws it, N(0, 1)
+    softmax rows and user vectors, biases N(0, 0.5), uniform beams, 10
+    consumed ids a row (3 of them ids the row would serve, 2 pads).  The
+    kernel against its plain chain on the card (scores bit for bit, ids in
+    (score, id) order wherever the k-th and (k+1)-th distinct scores
+    differ), twice equal; warm and cold (after a 256 MB flush) per-call
+    times beside the plain chain's; the bound of the bytes the kernel needs
+    (each kept path's table entry and its items' used planes, 2(E + 6)
+    bytes a slot, the beams, user vectors and consumed ids in, the lists
+    out) and of reading the kept paths' whole rows."""
+    c = DR_CELL
+    kn, e, k, b = c["num_nodes"], c["e"], c["k"], c["rows"]
+    t0 = time.perf_counter()
+    index = PathIndex.random_init(c["items"], c["depth"], kn, c["j"], seed=SEED + 24)
+    dmap = DevicePathMap.build(index, device=dev)
+    planes, m_pad = _block_geometry(e, dmap.path_items.shape[1])
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    w = torch.randn(c["items"], e, generator=g, device=dev)
+    bias = torch.randn(c["items"], generator=g, device=dev) * 0.5
+    block_tab = _build_block_table(w, bias, dmap.path_items.long(), planes, m_pad)
+    del w, bias
+    paths = torch.randint(0, kn, (b, c["beam"], c["depth"]), generator=g, device=dev)
+    user_vec = torch.randn(b, e, generator=g, device=dev)
+    args = [paths, dmap.path_table, block_tab, user_vec, None, kn, e, k, c["j"]]
+    with uncounted():
+        served, _ = dr_rerank.block_rerank_topk(*args)
+        cons = torch.randint(0, c["items"], (b, c["consumed"]), generator=g, device=dev)
+        cons[:, :3] = served[:, :3]
+        cons[:, -2:] = -1
+        args[4] = cons
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ids, scores = dr_rerank.block_rerank_topk(*args)
+        ids2, scores2 = dr_rerank.block_rerank_topk(*args)
+        plain_ids, plain_scores = dr_rerank.block_rerank_topk_plain(*args)
+        kth1 = dr_rerank.block_rerank_topk_plain(*args[:7], k + 1, c["j"])[1][:, -1]
+        check(torch.equal(ids, ids2) and torch.equal(bits(scores), bits(scores2)),
+              "dr_rerank: two calls differ")
+        check(torch.equal(bits(scores), bits(plain_scores)),
+              "dr_rerank: scores differ from the plain chain's")
+        both = (scores > NEG_INF / 2) & (plain_scores > NEG_INF / 2)
+        err = float((scores - plain_scores).abs()[both].max()) if bool(both.any()) else 0.0
+        clear = (scores[:, -1] != kth1) | (scores[:, -1] == NEG_INF)
+        clear_np = clear.cpu().numpy()
+        check(bool(np.array_equal(canonical_ids(ids, scores)[clear_np],
+                                  canonical_ids(plain_ids, plain_scores)[clear_np])),
+              "dr_rerank: ids differ from the plain chain's away from ties")
+        check(not bool(((ids[:, :, None] == cons[:, None, :]) & (ids[:, :, None] >= 0)).any()),
+              "dr_rerank: a consumed id was served")
+        kernel = functools.partial(dr_rerank.block_rerank_topk, *args)
+        times = {**time_ms(kernel), **time_ms(kernel, "cold_", flush=flush),
+                 **time_ms(functools.partial(dr_rerank.block_rerank_topk_plain, *args),
+                           "plain_", iters=20)}
+    keys, first = path_keys_and_dedup(paths, kn)
+    rows = dmap.path_table[keys].long()
+    kept = rows[(rows >= 0) & first]
+    items = int((dmap.path_items[kept] >= 0).sum())
+    io = (nbytes(paths, user_vec, cons, ids, scores) + 4 * paths.shape[0] * paths.shape[1])
+    need = bound(io + items * 2 * (e + 6), f32_flops=items * (2 * e + 1))
+    rows_ms = bound(io + kept.numel() * planes * m_pad * 2, f32_flops=items * (2 * e + 1))
+    return {"shape": {**c, "planes": planes, "m_pad": m_pad,
+                      "paths": int(dmap.path_items.shape[0]),
+                      "block_table_gb": block_tab.numel() * 2 / 1e9},
+            "setup_s": setup_s, "kept_paths": int(kept.numel()), "items_scored": items,
+            "rows_without_tie_at_k": float(clear.float().mean()),
+            "short_rows": int((ids[:, -1] < 0).sum()), "max_abs_err": err, **times,
+            "bound_ms": need[0], "bound_by": need[1], "rows_bound_ms": rows_ms[0],
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------- tdm_10m
@@ -4019,10 +4150,12 @@ def main() -> int:
     add_usage = {dt: ptxas_usage(log, f"write_kernelILb1E{m}E")
                  for dt, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"))}
     mma = mma_counts(lib_path)
+    rerank_usage = {e: ptxas_usage(log, f"dr_rerank_kernelILi{e}E")
+                    for e in dr_rerank.KERNEL_WIDTHS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.relative_to(ROOT)), "ptxas": ptxas,
           "instances": {n: {**u, "register_cap": reg_cap(n)} for n, u in sorted(usage.items())},
-          "add_ptxas": add_usage, "sass_mma": mma,
+          "add_ptxas": add_usage, "dr_rerank_ptxas": rerank_usage, "sass_mma": mma,
           "host_library": str(host.library_path().relative_to(ROOT)),
           "host_library_s": host_build_s})
     # every K1 and K3 instance within its register cap (K1 and the one-tile
@@ -4037,6 +4170,8 @@ def main() -> int:
     check(not over, f"instances past their register cap or spilling: {over}")
     check(all(0 < u["registers"] <= 64 and u["spill_bytes"] == 0 for u in add_usage.values()),
           f"the row add uses more than 64 registers or spills: {add_usage}")
+    check(all(u["registers"] > 0 and u["spill_bytes"] == 0 for u in rerank_usage.values()),
+          f"the DR rerank kernel is missing a width or spills: {rerank_usage}")
     # K3 and the wide K1 on the tensor cores, K3 on wgmma but K3_NARROW
     no_mma = tensor_core_gate(mma)
     check(not no_mma, f"instances without their tensor-core instructions (HMMA, HGMMA): {no_mma}")
@@ -4210,12 +4345,20 @@ def main() -> int:
     facts_drd["launches"] = read_launches()
     check(facts_drd["launches"]["write_rows"] == 3 * (DR_WARMUP_STEPS + DR_TIMED_STEPS),
           f"dr_deep: {facts_drd['launches']}, not 3 K2 launches an E-step")
+    check(facts_dre["launches"]["dr_rerank"] > 0,
+          f"dr_example: the block route launched no rerank kernel: {facts_dre['launches']}")
+    check(facts_drd["launches"]["dr_rerank"] == 1 + DR_SERVE_CALLS,
+          f"dr_deep: {facts_drd['launches']}, not one rerank launch a block batch")
     facts_drd["estep_10m"]["k2_commits"] = dr_commits(estep)
     del estep
     emit({"phase": "dr_deep", **facts_drd})
     for name in launches:
         launches[name] += facts_dre["launches"][name] + facts_drd["launches"][name]
     dr_k2 = facts_drd["estep_10m"]["k2_commits"]
+    flush = torch.empty(64 << 20, device=dev)
+    facts_drr = dr_rerank_case(dev, flush)
+    del flush
+    emit({"phase": "dr_rerank", **facts_drr})
 
     # ---- the 10M-item TDM path: resident training, bf16 pair-table
     # serving, resume and bf16 tables; launch counts zeroed just before,
@@ -4333,13 +4476,16 @@ def main() -> int:
            "packed_level_bf16_rows": "dismember_tpu_torch/csrc/din_kernels.cu",
            "write_rows": "dismember_tpu_torch/csrc/row_writer.cu",
            "add_rows": "dismember_tpu_torch/csrc/row_writer.cu",
-           "add_rows_bf16": "dismember_tpu_torch/csrc/row_writer.cu"}
+           "add_rows_bf16": "dismember_tpu_torch/csrc/row_writer.cu",
+           "dr_rerank": "dismember_tpu_torch/csrc/dr_rerank.cu"}
     replaces = {"din_score": "dismember_tpu/ops/din_kernel.py:34",
                 "packed_level": "dismember_tpu/ops/packed_level_kernel.py:102",
                 "packed_level_bf16_rows": "dismember_tpu/ops/packed_level_kernel.py:102",
                 "write_rows": "dismember_tpu/ops/row_writer.py:41",
                 "add_rows": "scripts/spike_pallas_scatter128.py:70",
-                "add_rows_bf16": "scripts/spike_pallas_scatter128.py:70"}
+                "add_rows_bf16": "scripts/spike_pallas_scatter128.py:70",
+                "dr_rerank": "no Pallas kernel: the XLA chain of "
+                             "dismember_tpu/retrieval/dr_serve.py:413"}
     also = {"write_rows": ["scripts/spike_pallas_scatter.py:44",
                            "scripts/spike_pallas_scatter.py:58",
                            "scripts/spike_pallas_scatter128.py:44"]}
@@ -4354,7 +4500,7 @@ def main() -> int:
                                         "wide": kern["packed_level_bf16_rows"]["wide"],
                                         "library_ms": None},
              "write_rows": rk["pmv_commit"], "add_rows": rk["mv_table_add"],
-             "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"]}
+             "add_rows_bf16": facts_10m["bf16_tables"]["mv_table_add"], "dr_rerank": facts_drr}
     errs = {"din_score": max(kern["din_score"]["max_abs_err"],
                              kern["din_score"]["wide"]["max_abs_err"],
                              kern["din_score"]["l24"]["max_abs_err"],
@@ -4378,7 +4524,7 @@ def main() -> int:
             "write_rows": max(row_errors(rk, "write"),
                               *(c["max_abs_err"] for c in dr_k2.values()),
                               fm_1m_bf16["mv_commit"]["max_abs_err"]),
-            "add_rows": row_errors(rk, "add"),
+            "add_rows": row_errors(rk, "add"), "dr_rerank": facts_drr["max_abs_err"],
             "add_rows_bf16": max(facts_10m["bf16_tables"]["mv_table_add"]["max_abs_err"],
                                  facts_10m["bf16_tables_deepfm"]["mv_table_add"]["max_abs_err"],
                                  fm_1m_bf16["table_add"]["max_abs_err"])}

@@ -62,6 +62,7 @@ class _Records:
 
 
 _rec = _Records()
+_launch_base: dict = {}  # _launch_totals() at the last reset()
 
 
 class _Span:
@@ -156,23 +157,34 @@ def count(name: str, n: int = 1) -> None:
 
 
 def reset() -> None:
-    """Drop every span record, aggregate and counter (the kernel modules'
-    launch counters are theirs and stay)."""
-    global _rec
+    """Drop every span record, aggregate and counter; the kernel modules'
+    launch counters are theirs and stay, and ``snapshot()`` counts their
+    launches from here on."""
+    global _rec, _launch_base
     with _lock:
         _rec = _Records()
+        _launch_base = _launch_totals()
 
 
-def _launch_counters() -> dict:
+def _launch_totals() -> dict:
     """The kernel modules' own launch counters on CUDA tensors, since the
     process started or the module's user zeroed them."""
-    from dismember_tpu_torch.ops import din_kernel, packed_level_kernel, row_writer
+    from dismember_tpu_torch.ops import din_kernel, dr_rerank, packed_level_kernel, row_writer
 
     out = {"k1.launches": din_kernel.launches,
            "k3.launches": packed_level_kernel.launches,
-           "k3.launches_bf16_rows": packed_level_kernel.launches_bf16_rows}
+           "k3.launches_bf16_rows": packed_level_kernel.launches_bf16_rows,
+           "dr_rerank.launches": dr_rerank.launches}
     out.update({f"k2.{k}": v for k, v in row_writer.launches.items()})
     return out
+
+
+def _launch_counters() -> dict:
+    """The kernel modules' launches since the last ``reset()``, comparable
+    with the span counters of the same stretch."""
+    with _lock:
+        base = _launch_base
+    return {k: v - base.get(k, 0) for k, v in _launch_totals().items()}
 
 
 def snapshot() -> dict:

@@ -82,6 +82,9 @@ def library() -> ctypes.CDLL:
     for fn in (lib.write_rows_f32, lib.add_rows_f32, lib.add_rows_bf16):
         fn.argtypes = [_PTR] * 3 + [_I64, _INT, _INT, _PTR]
         fn.restype = _INT
+    lib.dr_block_rerank_topk.argtypes = ([_PTR, _PTR, _I64, _PTR, _I64] + [_PTR] * 4 + [_INT] * 9
+                                         + [_PTR])
+    lib.dr_block_rerank_topk.restype = _INT
     lib.dismember_error_string.argtypes = [_INT]
     lib.dismember_error_string.restype = ctypes.c_char_p
     return lib

@@ -28,9 +28,13 @@ route's arithmetic (what is rounded to bf16, where):
   bf16-rounded user vector, plus the bias; dedup is top-(k*J) followed by
   masking every later copy of an id, exact because an item's copies carry
   identical scores (the same stored row, the same arithmetic), whatever
-  order ``torch.topk`` gives ties;
-- ``"auto"``: block at 2^18 items or more (packed when the block table
-  would pass 8 GB or the width has no slot), exact below.
+  order ``torch.topk`` gives ties.  What follows the path beam (keys,
+  lookup, row reads, scores, consumed filter, dedup, top-k) is one CUDA
+  kernel on the card (``ops/dr_rerank.py``), this plain chain on the CPU;
+  the route is served packed instead where the block table would pass
+  8 GB, the width has no slot, or on the card the kernel does not take the
+  width, the beam or k (``dr_rerank.takes``);
+- ``"auto"``: block at 2^18 items or more, exact below.
 
 The JAX package's TPU layout workarounds are not ported: the path table
 stays a flat int32 gather (not [S/128, 128] rows with a one-hot lane
@@ -38,8 +42,9 @@ select), and block slots are item-major (the same rows as its plane-major
 lanes).  The bf16 tables (packed, block, seq pack) are built once, when
 the closure is built, and the closure reads the heads and the node
 embeddings live, as the JAX package's does; ``DRServing`` caches closures,
-so it serves the tables of the moment it first served.  No kernel runs
-here: the products are small matmuls and a 16-term multiply-add.
+so it serves the tables of the moment it first served.  The exact and
+packed routes launch no kernel: their products are small matmuls and a
+16-term multiply-add.
 
 Spans and counters (``core/profiling.py``, off by default): what follows
 the path beam in a closure (path keys, row gather, scores, dedup, filter,
@@ -59,6 +64,7 @@ from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.models.dr_models import rerank_user_vector
+from dismember_tpu_torch.ops import dr_rerank
 from dismember_tpu_torch.retrieval.packed_beam import _encode_id_digits
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search
 
@@ -243,7 +249,9 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
     geom = None
     if rerank_table == "block":
         geom = _block_geometry(e, m)
-        if geom is None or dmap.path_items.shape[0] * geom[0] * geom[1] * 2 > _BLOCK_TABLE_MAX_BYTES:
+        if (geom is None
+                or dmap.path_items.shape[0] * geom[0] * geom[1] * 2 > _BLOCK_TABLE_MAX_BYTES
+                or not dr_rerank.takes(dmap.path_table.device, e, beam, k)):
             rerank_table = "packed"
     if rerank_table == "block":
         fn = _make_block_serving_fn(trainer, dmap, beam, k, geom)
@@ -347,11 +355,8 @@ def _make_block_serving_fn(trainer, dmap: DevicePathMap, beam: int, k: int, geom
         paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes,
                                     num_layers, seq_parts=seq_parts)
         with profiling.span("dr_serve.rerank"):
-            keys, first = path_keys_and_dedup(paths, num_nodes)
-            rows = dmap.path_table[keys].long()  # [B, beam]
-            blocks = block_tab[rows.clamp_min(0)]  # [B, beam, m_pad, planes]
-            return _score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
-                                      j_paths)
+            return dr_rerank.block_rerank_topk(paths, dmap.path_table, block_tab, user_vec,
+                                               consumed, num_nodes, e, k, j_paths)
 
     fn._dmap = dmap
     fn._block_tab = block_tab

@@ -40,3 +40,7 @@ def small_csv(tmp_path_factory) -> str:
                 break
             dst.write(line)
     return str(path)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device (skips without one)")

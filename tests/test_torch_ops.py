@@ -151,10 +151,13 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     """The kernels are built from csrc/ for sm_90a; with no nvcc the build
     raises instead of falling back."""
-    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu", "row_writer.cu"]
+    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu", "dr_rerank.cu", "row_writer.cu"]
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     src = _cuda.SOURCES[0].read_text()
     for sym in ("din_score_f32", "packed_level_bf16", "cudaGetLastError"):
+        assert sym in src
+    src = _cuda.SOURCES[1].read_text()
+    for sym in ("dr_block_rerank_topk", "cudaGetLastError"):
         assert sym in src
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_cuda.shutil, "which", lambda _: None)

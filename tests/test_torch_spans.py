@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from dismember_tpu_torch.core import profiling
-from dismember_tpu_torch.ops import din_kernel, packed_level_kernel, row_writer
+from dismember_tpu_torch.ops import din_kernel, dr_rerank, packed_level_kernel, row_writer
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # the port's spans and counters, each named in PERF.md section 3 with the
@@ -29,7 +29,7 @@ PORT_NAMES = {"serving.recommend_batch", "serving.batches", "serving.codes",
               "dr_serving.upload", "dr_serving.download", "dr_serving.short_lists",
               "path_beam.search", "dr_serve.rerank", "dr_serve.truncated_paths"}
 LAUNCH_KEYS = {"k1.launches", "k3.launches", "k3.launches_bf16_rows", "k2.write_rows",
-               "k2.add_rows", "k2.add_rows_bf16"}
+               "k2.add_rows", "k2.add_rows_bf16", "dr_rerank.launches"}
 
 
 @pytest.fixture(autouse=True)
@@ -114,7 +114,15 @@ def test_counters_add_and_reset_clears_spans_and_counters_but_not_launches(monke
     profiling.reset()
     snap = profiling.snapshot()
     assert snap["spans"] == {} and "serving.batches" not in snap["counters"]
-    assert snap["counters"]["k1.launches"] == 7
+    # the modules keep their counts; the snapshot counts launches from the
+    # reset on, as it counts the spans and counters of the same stretch
+    assert (din_kernel.launches, packed_level_kernel.launches) == (7, 18)
+    assert snap["counters"]["k1.launches"] == snap["counters"]["dr_rerank.launches"] == 0
+    monkeypatch.setattr(din_kernel, "launches", 9)
+    monkeypatch.setattr(dr_rerank, "launches", dr_rerank.launches + 4)
+    snap = profiling.snapshot()
+    assert (snap["counters"]["k1.launches"], snap["counters"]["k3.launches"],
+            snap["counters"]["dr_rerank.launches"]) == (2, 0, 4)
 
 
 def test_raw_records_stop_at_the_cap_and_aggregates_go_on(monkeypatch, tmp_path):

@@ -199,7 +199,7 @@ def test_row_kernels_refuse_on_cuda_instead_of_falling_back():
         meta = torch.empty(4, 8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             fn(meta, idx.to("meta"), torch.empty(2, 8, device="meta"))
-    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu", "row_writer.cu"]
-    src = _cuda.SOURCES[1].read_text()
+    assert [s.name for s in _cuda.SOURCES] == ["din_kernels.cu", "dr_rerank.cu", "row_writer.cu"]
+    src = _cuda.SOURCES[2].read_text()
     for sym in ("write_rows_f32", "add_rows_f32", "cudaGetLastError"):
         assert sym in src
