@@ -31,8 +31,7 @@ Phases, one JSON line each; any failed check raises and fails the run:
      E = 8 and 32 (``kernels_at_width``: K1 at [4096, 40], [8192, 4],
      [8192, 2], predict's row and L = 24, K3 at [4096, 20] on f32 and bf16 rows
      with the control at each width, also beam 110, beam 1,000 in one
-     launch and L = 24; on K3_NARROW's bf16 rows at E = 8 also a beam past
-     one launch's limit, split in two launches), timed as at E = 16;
+     launch and L = 24), timed as at E = 16;
   4. example-data serving (the main path): CSV -> windows -> category tree
      -> DIN checkpoint from seeded numpy params -> ``TDMServing.load`` on the
      card -> ``recommend_batch`` of 4096 windows on the packed route (K3) and
@@ -306,10 +305,7 @@ from dismember_tpu_torch.retrieval.packed_beam import (  # noqa: E402
 )
 from dismember_tpu_torch.retrieval.dr_serve import (  # noqa: E402
     DevicePathMap,
-    _block_geometry,
-    _build_block_table,
     make_dr_serving_fn,
-    path_keys_and_dedup,
 )
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search  # noqa: E402
 from dismember_tpu_torch.retrieval.tree_beam import (  # noqa: E402
@@ -437,9 +433,8 @@ DR_WARMUP_STEPS, DR_TIMED_STEPS, DR_SERVE_CALLS = 2, 10, 10
 DR_AGREE_QUERIES, DR_MIN_AGREEMENT = 256, 0.95
 # K3 past the serving shape at E = 16, checked beside k3_wide_cases (beam
 # 110, timed; 1,000; L = 24, timed): (batch, beam, L).  Beams 65, 128 and
-# 1,500 (one launch at any beam; ~1,340 parents passed a block of the
-# plan the warpgroup plan replaced at E <= 16, which split the beam); L =
-# 17 and 40 take two and three sequence tiles.
+# 1,500 (one launch at any beam); L = 17 and 40 take two and three
+# sequence tiles.
 K3_WIDE = ((1024, 65, SEQ_LEN), (1024, 128, SEQ_LEN), (256, 1500, SEQ_LEN),
            (1024, BEAM, 17), (1024, BEAM, 40))
 # the tdm_10m phase: bench.py's 10M-item catalog (_deep_tree, _deep_trainer);
@@ -455,12 +450,10 @@ BF16_ITERS = 30
 # the widths K1 and K3 are built for beside E (8: the JAX package's kernel
 # and beam tests; 32: scripts/quality_1m.py's; 64, 96 and 128:
 # scripts/quality_push.py's, the wide phase's), the widths with K1's wide
-# kernel (E = 32 where U <= L or L > 10, past it at every U), the widths
-# whose K3 runs on the warpgroup plan (wgmma: every width), the (width, row type) that
-# keeps the narrow plan there (E = 8 on bf16 rows, where the warpgroup plan
-# was slower at [4096, 20]: PERF.md section 6), and the registers a thread
-# of each instance may use (their launch bounds): K1 64 at E = 8 and 16,
-# 128 at E = 32 (its wide kernel 64: four blocks of 256 threads an SM);
+# kernel (E = 32 where U <= L or L > 10, past it at every U), and the
+# registers a thread of each instance may use (their launch bounds): K1 64
+# at E = 8 and 16, 128 at E = 32 (its wide kernel 64: four blocks of 256
+# threads an SM);
 # K1's direct kernel at E = 8 128 (it holds a candidate's L sequence rows
 # in registers); the wide K1 128 at E = 64 (two blocks of 256 threads an
 # SM) and 255 past it (one block an SM, by its shared memory: 135 and 211
@@ -472,8 +465,6 @@ BF16_ITERS = 30
 WIDTHS = (8, 32)
 WIDE = (64, 96, 128)
 K1_WIDE = (32, *WIDE)
-K3_WGMMA = tuple(KERNEL_WIDTHS)
-K3_NARROW = ((8, "bf16"),)
 REG_CAPS = {("K1", 8): 64, ("K1", 16): 64, ("K1", 32): 128, ("K1", 8, "direct"): 128,
             ("K1", 64): 128, ("K1", 96): 255, ("K1", 128): 255,
             **{("one-tile", e): 64 if e <= 16 else 168 if e in (32, 96) else 255
@@ -712,7 +703,7 @@ def instance_name(mangled: str) -> str | None:
                   r"din_(?:score_wide|prologue)_kernelILi(\d+)EE", mangled)
     if m:
         return f"K1 E={m[2] or m[3]}" + (" direct" if m[1] else "")
-    m = re.search(r"packed_level_(?:wgmma_)?kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
+    m = re.search(r"packed_level_wgmma_kernelILb([01])E(f|13__nv_bfloat16)Li(\d+)EE", mangled)
     if m:
         return (f"K3 E={m[3]} {'f32' if m[2] == 'f' else 'bf16'} "
                 f"{'one-tile' if m[1] == '1' else 'tiles'}")
@@ -767,18 +758,15 @@ def mma_counts(lib_path: Path) -> dict:
 
 def tensor_core_gate(counts: dict) -> list[str]:
     """The instances that fail the build's tensor-core gate (mma_counts):
-    every K3 instance and every K1 with the wide kernel (K1_WIDE, its h
-    product in 3xTF32) must hold HMMA or HGMMA, and every K3 instance of
-    the warpgroup plan (K3_WGMMA: every width, but K3_NARROW) HGMMA (its
-    weight products on wgmma)."""
+    every K1 with the wide kernel (K1_WIDE, its h product in 3xTF32) must
+    hold HMMA or HGMMA, and every K3 instance (the warpgroup plan, at every
+    width and row type) HGMMA (its weight products on wgmma)."""
     expected = {f"K3 E={e} {r} {t}" for e in KERNEL_WIDTHS for r in ("f32", "bf16")
                 for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in K1_WIDE}
     none = {"HMMA": 0, "HGMMA": 0}
-    wgmma = lambda n: (int(n.split()[1][2:]) in K3_WGMMA  # noqa: E731
-                       and (int(n.split()[1][2:]), n.split()[2]) not in K3_NARROW)
     return sorted(n for n in expected
                   if not sum(counts.get(n, none).values())
-                  or n.startswith("K3") and wgmma(n) and not counts.get(n, none)["HGMMA"])
+                  or n.startswith("K3") and not counts.get(n, none)["HGMMA"])
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -2487,11 +2475,11 @@ def dr_rerank_case(dev, flush: torch.Tensor) -> dict:
     t0 = time.perf_counter()
     index = PathIndex.random_init(c["items"], c["depth"], kn, c["j"], seed=SEED + 24)
     dmap = DevicePathMap.build(index, device=dev)
-    planes, m_pad = _block_geometry(e, dmap.path_items.shape[1])
+    planes, m_pad = dr_rerank.block_geometry(e, dmap.path_items.shape[1])
     g = torch.Generator(device=dev).manual_seed(SEED + 25)
     w = torch.randn(c["items"], e, generator=g, device=dev)
     bias = torch.randn(c["items"], generator=g, device=dev) * 0.5
-    block_tab = _build_block_table(w, bias, dmap.path_items.long(), planes, m_pad)
+    block_tab = dr_rerank.build_block_table(w, bias, dmap.path_items.long(), planes, m_pad)
     del w, bias
     paths = torch.randint(0, kn, (b, c["beam"], c["depth"]), generator=g, device=dev)
     user_vec = torch.randn(b, e, generator=g, device=dev)
@@ -2525,7 +2513,7 @@ def dr_rerank_case(dev, flush: torch.Tensor) -> dict:
         times = {**time_ms(kernel), **time_ms(kernel, "cold_", flush=flush),
                  **time_ms(functools.partial(dr_rerank.block_rerank_topk_plain, *args),
                            "plain_", iters=20)}
-    keys, first = path_keys_and_dedup(paths, kn)
+    keys, first = dr_rerank.path_keys_and_dedup(paths, kn)
     rows = dmap.path_table[keys].long()
     kept = rows[(rows >= 0) & first]
     items = int((dmap.path_items[kept] >= 0).sum())
@@ -2889,17 +2877,9 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
                   flush: torch.Tensor) -> dict:
     """K3 at width ``e`` on ``dt`` rows past the serving shape, against its
     plain version: beam 110 (the example catalog's widest recommend) and L =
-    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000] in as
-    many launches as the single-launch limit gives (one: the warpgroup
-    plan's shared memory does not grow with the beam, and the narrow plan
-    of K3_NARROW holds ~3,050 parents a launch at L <= 16), with the
-    limit.  For a (width, row type) of K3_NARROW, also beam limit + 64 at
-    [8, limit + 64], which the wrapper splits into two launches whose
-    outputs it puts back in block order."""
-    lib = _cuda.library()
-    limit = (lib.packed_level_max_beam_bf16rows if dt == torch.bfloat16
-             else lib.packed_level_max_beam)(SEQ_LEN, e)
-    check(limit >= BEAM, f"K3 at E={e}: one launch takes {limit} parents at L={SEQ_LEN}")
+    24 (two sequence tiles), both timed, and beam 1,000 at [256, 1000] in
+    one launch (the warpgroup plan's shared memory does not grow with the
+    beam)."""
     past = 1000
     wide = {}
     for bb, beam, ll, timed in ((BATCH, 110, SEQ_LEN, True), (256, past, SEQ_LEN, False),
@@ -2914,20 +2894,8 @@ def k3_wide_cases(dev, g: torch.Generator, e: int, dt: torch.dtype, weights,
             **(k3_times(rows, alive, s_e, s_pad, weights, flush, e) if timed else {}))
         del rows, alive, s_e, s_pad
     launches = wide[f"beam{past}_l{SEQ_LEN}"]["launches"]
-    check(launches == -(-past // limit) == 1,
-          f"beam {past} at E={e}: {launches} launches at the width's limit ({limit})")
-    if (e, "bf16" if dt == torch.bfloat16 else "f32") in K3_NARROW:
-        split = limit + 64
-        rows, alive = k3_rows(g, 8, split, dev, dt, e)
-        s_e, s_pad = seq_inputs(g, 8, SEQ_LEN, dev, e)
-        n0 = packed_level_kernel.launches_by_width[e, dt]
-        agree = k3_check(rows, alive, s_e, s_pad, weights, e)[3]
-        launches = packed_level_kernel.launches_by_width[e, dt] - n0
-        wide[f"beam{split}_l{SEQ_LEN}"] = dict(**agree, shape=[8, split, rows.shape[2], SEQ_LEN, e],
-                                              launches=launches)
-        del rows, alive, s_e, s_pad
-        check(launches == 2, f"beam {split} at E={e}: {launches} launches, not the split's 2")
-    return {"wide": wide, "max_beam_l10": limit}
+    check(launches == 1, f"beam {past} at E={e}: {launches} launches, not one")
+    return {"wide": wide}
 
 
 def example_width_8(dev, tree_path: str, samples, seqs: np.ndarray) -> dict:
@@ -4172,7 +4140,7 @@ def main() -> int:
           f"the row add uses more than 64 registers or spills: {add_usage}")
     check(all(u["registers"] > 0 and u["spill_bytes"] == 0 for u in rerank_usage.values()),
           f"the DR rerank kernel is missing a width or spills: {rerank_usage}")
-    # K3 and the wide K1 on the tensor cores, K3 on wgmma but K3_NARROW
+    # K3 and the wide K1 on the tensor cores, K3 on wgmma
     no_mma = tensor_core_gate(mma)
     check(not no_mma, f"instances without their tensor-core instructions (HMMA, HGMMA): {no_mma}")
 

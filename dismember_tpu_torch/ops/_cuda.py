@@ -76,9 +76,6 @@ def library() -> ctypes.CDLL:
     lib.packed_level_bf16.restype = _INT
     lib.packed_level_bf16_bf16rows.argtypes = [_PTR] * 11 + [_INT] * 5 + [_PTR]
     lib.packed_level_bf16_bf16rows.restype = _INT
-    for fn in (lib.packed_level_max_beam, lib.packed_level_max_beam_bf16rows):
-        fn.argtypes = [_INT, _INT]
-        fn.restype = _INT
     for fn in (lib.write_rows_f32, lib.add_rows_f32, lib.add_rows_bf16):
         fn.argtypes = [_PTR] * 3 + [_I64, _INT, _INT, _PTR]
         fn.restype = _INT

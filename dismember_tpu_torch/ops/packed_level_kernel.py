@@ -31,14 +31,7 @@ the weight products of 64 candidates (which may span query rows) with
 ``wgmma`` from bf16 weights held once a block in shared memory (0.8 KB at
 E = 8 to 96 KB at E = 128), so shared memory does not grow with the beam
 and one launch takes any beam up to 2^30 - 8 parents (``2 * beam + 15``
-stays a 32-bit int).  But at E = 8 on bf16 rows a warp stages one query
-row's pair rows in shared memory (the kernel's narrow plan), so the
-staging grows with the beam: a beam wider than one row of a block can
-hold (``packed_level_max_beam_bf16rows(L, 8)``, ~3,050 parents at L <= 16
-on an H100) is split here into chunks of parents, one launch each, and
-the chunks' outputs are put back into block order.  Each parent's two
-children are scored independently of the other parents, so the split
-changes no score.
+stays a 32-bit int), at every width and over either row type.
 The kernel runs its products on the tensor cores (bf16 operands are the
 contract), so on the H100 at the serving shapes (B=4096, beam=20, E=16) it
 is bound by bytes: of each 128-lane row it needs the 2E+6 = 38 used lanes
@@ -48,8 +41,7 @@ row gather stays outside it.
 
 from __future__ import annotations
 
-import functools
-
+import numpy as np
 import torch
 
 from dismember_tpu_torch.ops import _cuda
@@ -57,8 +49,12 @@ from dismember_tpu_torch.ops.din_kernel import KERNEL_WIDTHS, score_chain
 
 NEG_INF = -3.4e38  # score of a missing child or dead parent
 
-# id digits a child, by the pair rows' dtype
+# The id codec, by lane dtype: digits an id and their base.  Every digit is
+# an exact integer in the lane dtype: f32 takes 2 base-4096 digits (the top
+# digit <= 2^19 for int32 ids), bf16 (integers up to 256 exact) 4 base-256
+# digits (the top digit <= 127).
 ID_DIGITS = {torch.float32: 2, torch.bfloat16: 4}
+ID_BASE = {torch.float32: 4096, torch.bfloat16: 256}
 
 # K3 launches on CUDA tensors, over f32 rows and over bf16 rows, and by
 # (width, row dtype); chip_smoke.py zeroes and reads them
@@ -73,6 +69,32 @@ def pair_row_width(embed_size: int, dtype=torch.float32) -> int:
     out (128 lanes up to E = 32, 256 at E = 64 and 96, 384 at E = 128)."""
     used = 2 * embed_size + 2 + 2 * ID_DIGITS[dtype]
     return (used + 127) // 128 * 128
+
+
+def encode_id_digits(ids: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """[N] int -> [N, ID_DIGITS[dtype]] float32 radix digits in base
+    ``ID_BASE[dtype]``; the top digit keeps the full remaining quotient (and
+    the sign: -1 -> (-1, base-1, ...), which decodes back to -1 under the
+    floor-division radix identity)."""
+    k, base = ID_DIGITS[dtype], ID_BASE[dtype]
+    rem = ids.astype(np.int64)
+    digits = []
+    for _ in range(k - 1):
+        q = np.floor_divide(rem, base)
+        digits.append(rem - base * q)
+        rem = q
+    digits.append(rem)
+    return np.stack(digits[::-1], axis=-1).astype(np.float32)
+
+
+def decode_id_digits(digits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[..., k] digit lanes of a ``dtype`` table (in any float dtype that
+    holds them exactly) -> [...] exact int64 ids."""
+    base = ID_BASE[dtype]
+    acc = digits[..., 0].long()
+    for i in range(1, digits.shape[-1]):
+        acc = acc * base + digits[..., i].long()
+    return acc
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -104,58 +126,6 @@ def packed_level_plain(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
         rows, alive, embed_size)
 
 
-@functools.cache
-def _kernel_max_beam(l: int, e: int, device_index: int, bf16_rows: bool = False) -> int:
-    """The widest beam one launch takes at sequence length ``l`` and width
-    ``e`` on a card."""
-    lib = _cuda.library()
-    with torch.cuda.device(device_index):
-        beam = (lib.packed_level_max_beam_bf16rows if bf16_rows
-                else lib.packed_level_max_beam)(l, e)
-    if beam < 1:
-        raise RuntimeError(f"packed_level: no beam fits a block at L={l}, E={e}")
-    return beam
-
-
-def _split_beam(level_fn, max_beam: int, rows, alive, *rest):
-    """``level_fn`` over chunks of at most ``max_beam`` parents, its
-    block-ordered outputs put back together: every chunk's left children,
-    then every chunk's right children."""
-    beam = rows.shape[1]
-    parts = [level_fn(rows[:, k : k + max_beam].contiguous(),
-                      alive[:, k : k + max_beam].contiguous(), *rest)
-             for k in range(0, beam, max_beam)]
-    halves = [(s.shape[1] // 2, s, h) for s, h in parts]
-    scores = torch.cat([s[:, :c] for c, s, _ in halves] + [s[:, c:] for c, s, _ in halves], 1)
-    hilo = torch.cat([h[:, :c] for c, _, h in halves] + [h[:, c:] for c, _, h in halves], 1)
-    return scores, hilo
-
-
-def _launch(rows, alive, seq_e, pad, att_w, w1, b1, w2, b2,
-            embed_size: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One K3 launch over the whole beam, on checked CUDA tensors."""
-    global launches, launches_bf16_rows
-    dev = rows.device
-    b, beam, row = rows.shape
-    bf16_rows = rows.dtype == torch.bfloat16
-    scores = torch.empty((b, 2 * beam), dtype=torch.float32, device=dev)
-    hilo = torch.empty((b, 2 * beam, ID_DIGITS[rows.dtype]), dtype=rows.dtype, device=dev)
-    lib = _cuda.library()
-    code = (lib.packed_level_bf16_bf16rows if bf16_rows else lib.packed_level_bf16)(
-        rows.data_ptr(), alive.data_ptr(), seq_e.data_ptr(), pad.data_ptr(),
-        att_w.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), scores.data_ptr(), hilo.data_ptr(),
-        b, beam, row, seq_e.shape[1], embed_size, _cuda.stream_handle(dev),
-    )
-    _cuda.check_launch("packed_level", code)
-    if bf16_rows:
-        launches_bf16_rows += 1
-    else:
-        launches += 1
-    launches_by_width[embed_size, rows.dtype] += 1
-    return scores, hilo
-
-
 def packed_level(
     rows: torch.Tensor,  # [B, beam, ROW] gathered pair rows, float32 or bfloat16
     alive: torch.Tensor,  # [B, beam] bool/float parent-alive mask
@@ -169,9 +139,9 @@ def packed_level(
     embed_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-ordered (scores [B, 2*beam], id digits [B, 2*beam, 2 or 4] in
-    the rows' dtype): the CUDA kernel for CUDA tensors, in chunks of parents
-    through the beam split when the beam is wider than one launch takes;
-    the plain version for CPU tensors."""
+    the rows' dtype): one launch of the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    global launches, launches_bf16_rows
     dev = rows.device
     weights = (att_w, w1, b1, w2, b2)
     if dev.type == "cpu":
@@ -195,8 +165,20 @@ def packed_level(
                           ("w1", w1, (e, 2 * e)), ("b1", b1, (e,)),
                           ("w2", w2, (1, e)), ("b2", b2, (1,))):
         _cuda.check_shape(name, arg, t, shape)
-    max_beam = _kernel_max_beam(l, e, dev.index if dev.index is not None
-                                else torch.cuda.current_device(), rows.dtype == torch.bfloat16)
-    if beam > max_beam:
-        return _split_beam(_launch, max_beam, rows, alive, seq_e, pad, *weights, embed_size)
-    return _launch(rows, alive, seq_e, pad, *weights, embed_size)
+    bf16_rows = rows.dtype == torch.bfloat16
+    scores = torch.empty((b, 2 * beam), dtype=torch.float32, device=dev)
+    hilo = torch.empty((b, 2 * beam, ID_DIGITS[rows.dtype]), dtype=rows.dtype, device=dev)
+    lib = _cuda.library()
+    code = (lib.packed_level_bf16_bf16rows if bf16_rows else lib.packed_level_bf16)(
+        rows.data_ptr(), alive.data_ptr(), seq_e.data_ptr(), pad.data_ptr(),
+        att_w.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), scores.data_ptr(), hilo.data_ptr(),
+        b, beam, rows.shape[2], l, e, _cuda.stream_handle(dev),
+    )
+    _cuda.check_launch(name, code)
+    if bf16_rows:
+        launches_bf16_rows += 1
+    else:
+        launches += 1
+    launches_by_width[e, rows.dtype] += 1
+    return scores, hilo

@@ -21,8 +21,8 @@ route's arithmetic (what is rounded to bf16, where):
 - ``"packed"``: the weights and the bias rounded to bf16, one [N, E+1] row
   an item, products and sums in f32;
 - ``"block"``: one path-major bf16 row a path holding its items' slots
-  (weights | bias | 4 base-256 id digits | valid, ``_block_geometry``'s
-  padding), gathered once a beam path; the sequence side reads a bf16
+  (weights | bias | 4 base-256 id digits | valid, ``ops/dr_rerank.py``'s
+  block format), gathered once a beam path; the sequence side reads a bf16
   [V, 2E] pack of both item embeddings.  The score of a slot is an f32
   multiply-add over the E weight planes in order l = 0..E-1 against the
   bf16-rounded user vector, plus the bias; dedup is top-(k*J) followed by
@@ -30,7 +30,7 @@ route's arithmetic (what is rounded to bf16, where):
   identical scores (the same stored row, the same arithmetic), whatever
   order ``torch.topk`` gives ties.  What follows the path beam (keys,
   lookup, row reads, scores, consumed filter, dedup, top-k) is one CUDA
-  kernel on the card (``ops/dr_rerank.py``), this plain chain on the CPU;
+  kernel on the card, its plain chain on the CPU (both ``ops/dr_rerank.py``);
   the route is served packed instead where the block table would pass
   8 GB, the width has no slot, or on the card the kernel does not take the
   width, the beam or k (``dr_rerank.takes``);
@@ -55,7 +55,6 @@ truncated paths to the counter ``dr_serve.truncated_paths``.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -65,16 +64,12 @@ from dismember_tpu_torch.core.device import resolve_device
 from dismember_tpu_torch.index.paths import PathIndex
 from dismember_tpu_torch.models.dr_models import rerank_user_vector
 from dismember_tpu_torch.ops import dr_rerank
-from dismember_tpu_torch.retrieval.packed_beam import _encode_id_digits
+from dismember_tpu_torch.ops.dr_rerank import consumed_hit, path_keys_and_dedup, top_items
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search
 
-_NEG_INF = -3.4e38
 _PACKED_RERANK_MIN_ITEMS = 1 << 18
 _BLOCK_TABLE_MAX_BYTES = 8 << 30
-_ID_DIGITS, _ID_BASE = 4, 256  # exact bf16 integer lanes (ids < 2^31)
 _SENTINEL = 2**30
-# elements of one [rows, C, consumed] comparison of the consumed filter
-_CONSUMED_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass
@@ -127,7 +122,7 @@ class DevicePathMap:
                    num_nodes=k, truncated_paths=truncated)
 
 
-def _train_frequency_priority(trainer) -> np.ndarray | None:
+def train_frequency_priority(trainer) -> np.ndarray | None:
     """Per-item training-target counts as the truncation priority for
     ``DevicePathMap.build`` (None when the trainer carries no data)."""
     data = getattr(trainer, "data", None)
@@ -137,90 +132,28 @@ def _train_frequency_priority(trainer) -> np.ndarray | None:
     return np.bincount(np.asarray(targets, np.int64), minlength=data.num_items)
 
 
-def _block_geometry(e: int, m: int) -> tuple[int, int] | None:
-    """(planes, m_pad) of the narrowest block row holding ``m`` item slots
-    of ``used = e + 1 + _ID_DIGITS + 1`` planes (weights | bias | id digits
-    | valid) whose width planes * m_pad is a multiple of 128 (the JAX
-    package's choice, kept so both packages pad a path alike)."""
-    used = e + 1 + _ID_DIGITS + 1
-    if used > 128:
-        return None
-    best = None
-    for p in range(used, 129):
-        q = 128 // math.gcd(p, 128)  # m_pad granularity for width % 128 == 0
-        m_pad = -(-m // q) * q
-        width = p * m_pad
-        if best is None or width < best[0]:
-            best = (width, p, m_pad)
-    return (best[1], best[2]) if best else None
-
-
 def _pack_rerank_table(softmax_w: torch.Tensor, softmax_b: torch.Tensor) -> torch.Tensor:
     """[N, E] weights + [N] bias -> [N, E+1] bf16 rows (lane E = bias)."""
     return torch.cat([softmax_w, softmax_b[:, None]], 1).to(torch.bfloat16)
 
 
-def _build_block_table(softmax_w: torch.Tensor, softmax_b: torch.Tensor,
-                       path_items: torch.Tensor, planes_n: int, m_pad: int) -> torch.Tensor:
-    """Path-major bf16 table [n_paths, m_pad, planes_n]: slot s of row p
-    holds item ``path_items[p, s]``'s weights, bias, id digits and a valid
-    flag (zeros past the path's items and in the pad planes)."""
-    n_paths, m = path_items.shape
-    e = softmax_w.shape[1]
-    items = torch.full((n_paths, m_pad), -1, dtype=torch.long, device=softmax_w.device)
-    items[:, :m] = path_items
-    flat = items.reshape(-1)
-    safe = flat.clamp_min(0)
-    digits = torch.as_tensor(_encode_id_digits(flat.cpu().numpy(), _ID_DIGITS, _ID_BASE),
-                             device=flat.device)
-    lanes = torch.zeros(flat.shape[0], planes_n, dtype=torch.bfloat16, device=flat.device)
-    lanes[:, :e] = softmax_w[safe].to(torch.bfloat16)
-    lanes[:, e] = softmax_b[safe].to(torch.bfloat16)
-    lanes[:, e + 1 : e + 1 + _ID_DIGITS] = digits.to(torch.bfloat16)
-    lanes[:, e + 1 + _ID_DIGITS] = (flat >= 0).to(torch.bfloat16)
-    return lanes.view(n_paths, m_pad, planes_n)
-
-
-def _build_seq_pack(layer_emb: torch.Tensor, rerank_emb: torch.Tensor) -> torch.Tensor:
+def build_seq_pack(layer_emb: torch.Tensor, rerank_emb: torch.Tensor) -> torch.Tensor:
     """[V(+nodes), E] layer + [V, E] rerank item embeddings -> one [V, 2E]
     bf16 table (lanes 0:E layer, E:2E rerank)."""
     v = rerank_emb.shape[0]
     return torch.cat([layer_emb[:v], rerank_emb], 1).to(torch.bfloat16)
 
 
-def path_keys_and_dedup(paths: torch.Tensor, num_nodes: int):
-    """[B, beam, D] paths -> (base-K keys [B, beam], first-occurrence mask).
-
-    A padded beam (num_nodes < beam) repeats a path; only the first copy may
-    count, or an item could exceed the J-occurrence bound the block dedup
-    relies on."""
-    beam = paths.shape[1]
-    keys = torch.zeros(paths.shape[:2], dtype=torch.long, device=paths.device)
-    for d in range(paths.shape[2]):
-        keys = keys * num_nodes + paths[:, :, d]
-    lower = torch.ones(beam, beam, dtype=torch.bool, device=paths.device).tril(-1)
-    dup_path = ((keys[:, :, None] == keys[:, None, :]) & lower).any(-1)
-    return keys, ~dup_path
-
-
-def _consumed_hit(cand: torch.Tensor, consumed: torch.Tensor) -> torch.Tensor:
-    """[B, C] bool: the candidate is among the row's consumed ids [B, Cc]
-    (-1 pads; a -1 candidate is invalid anyway).  Rows in chunks, so the
-    [rows, C, Cc] comparison stays bounded."""
-    b, c = cand.shape
-    rows = max(1, _CONSUMED_CHUNK // max(1, c * consumed.shape[1]))
-    hit = torch.zeros_like(cand, dtype=torch.bool)
-    for s in range(0, b, rows):
-        hit[s : s + rows] = (cand[s : s + rows, :, None] == consumed[s : s + rows, None, :]).any(-1)
-    return hit
-
-
-def _top_items(scores: torch.Tensor, ids: torch.Tensor, k: int):
-    """Top-k of [B, C] scores with their ids; -1 where the score is the
-    invalid sentinel."""
-    top_s, top_i = torch.topk(scores, k, dim=1)
-    top_ids = torch.gather(ids, 1, top_i)
-    return torch.where(top_s > _NEG_INF / 2, top_ids, -1), top_s
+def window_parts(srows: torch.Tensor, layer_params, rerank_params, e: int):
+    """The window's side of a block route from its seq-pack rows [B, L, 2E]
+    f32 (zeros at padding): each head's sequence part (the path beam's
+    ``seq_parts``) and the rerank user vector [B, E]."""
+    b, l_seq = srows.shape[:2]
+    layer_flat = srows[:, :, :e].reshape(b, l_seq * e)
+    seq_parts = [layer_flat @ h["weight"][:, : l_seq * e].T for h in layer_params["heads"]]
+    lin = rerank_params["linear"]
+    user_vec = srows[:, :, e:].reshape(b, l_seq * e) @ lin["weight"].T + lin["bias"]
+    return seq_parts, user_vec
 
 
 def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None,
@@ -231,7 +164,7 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
     ``consumed`` [B, C] (-1 pads) are tensors on that device."""
     dev = trainer.device
     dmap = DevicePathMap.build(trainer.path_index, max_items_per_path,
-                               item_priority=_train_frequency_priority(trainer), device=dev)
+                               item_priority=train_frequency_priority(trainer), device=dev)
     if dmap is None:
         return None
     beam = beam or trainer.beam
@@ -248,7 +181,7 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
         rerank_table = "block" if num_items >= _PACKED_RERANK_MIN_ITEMS else "exact"
     geom = None
     if rerank_table == "block":
-        geom = _block_geometry(e, m)
+        geom = dr_rerank.block_geometry(e, m)
         if (geom is None
                 or dmap.path_items.shape[0] * geom[0] * geom[1] * 2 > _BLOCK_TABLE_MAX_BYTES
                 or not dr_rerank.takes(dmap.path_table.device, e, beam, k)):
@@ -280,7 +213,7 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
             ok = (cs < _SENTINEL) & first
             cs = torch.where(ok, cs, -1)
             if consumed is not None:
-                ok &= ~_consumed_hit(cs, consumed.long())
+                ok &= ~consumed_hit(cs, consumed.long())
             user_vec = rerank_user_vector(rerank_params, seqs)
             safe = cs.clamp_min(0)
             if packed_wb is not None:
@@ -289,42 +222,11 @@ def make_dr_serving_fn(trainer, beam: int | None = None, topk: int | None = None
             else:
                 w, bias = rerank_params["softmax_w"][safe], rerank_params["softmax_b"][safe]
             scores = torch.einsum("be,bce->bc", user_vec, w) + bias
-            return _top_items(torch.where(ok, scores, _NEG_INF), cs, k)
+            return top_items(torch.where(ok, scores, dr_rerank.NEG_INF), cs, k)
 
     fn.route = rerank_table
     fn._dmap = dmap
     return fn
-
-
-def _score_blocks_topk(blocks: torch.Tensor, path_ok: torch.Tensor, user_vec: torch.Tensor,
-                       consumed, e: int, k: int, j_paths: int):
-    """Score + dedup + top-k over gathered block rows [B, beam, m_pad,
-    planes] bf16; ``path_ok`` [B, beam] marks live, first-copy paths."""
-    b, beam, m_pad, _ = blocks.shape
-    ub = user_vec.to(torch.bfloat16).float()  # the bf16-rounded user operand
-    scores = blocks[..., 0].float() * ub[:, None, None, 0]
-    for l in range(1, e):
-        scores += blocks[..., l].float() * ub[:, None, None, l]  # [B, beam, m_pad]
-    bias = blocks[..., e].float()
-    # id digits are exact bf16 integers <= 255; combined in integers
-    ids = blocks[..., e + 1].long()
-    for d in range(1, _ID_DIGITS):
-        ids = ids * _ID_BASE + blocks[..., e + 1 + d].long()
-    valid = (blocks[..., e + 1 + _ID_DIGITS] > 0) & path_ok[:, :, None]
-    c = beam * m_pad
-    cand = torch.where(valid, ids, -1).reshape(b, c)
-    ok = valid.reshape(b, c)
-    if consumed is not None:
-        ok &= ~_consumed_hit(cand, consumed.long())
-    scores = torch.where(ok, (scores + bias).reshape(b, c), _NEG_INF)
-    # an item sits on at most J retrieved paths, so top-(k*J) holds >= k
-    # distinct items; every later copy of an id is masked, then top-k again
-    kj = min(c, max(k, k * j_paths))
-    top_ids, top_s = _top_items(scores, cand, kj)
-    lower = torch.ones(kj, kj, dtype=torch.bool, device=cand.device).tril(-1)
-    eq = (top_ids[:, :, None] == top_ids[:, None, :]) & (top_ids[:, None, :] >= 0)
-    is_dup = (eq & lower).any(-1)
-    return _top_items(torch.where(is_dup, _NEG_INF, top_s), top_ids, k)
 
 
 def _make_block_serving_fn(trainer, dmap: DevicePathMap, beam: int, k: int, geom):
@@ -334,24 +236,20 @@ def _make_block_serving_fn(trainer, dmap: DevicePathMap, beam: int, k: int, geom
     e = int(trainer.rerank_params["softmax_w"].shape[1])
     j_paths = max(1, int(getattr(trainer, "num_paths", 1)))
     planes_n, m_pad = geom
-    block_tab = _build_block_table(trainer.rerank_params["softmax_w"],
-                                   trainer.rerank_params["softmax_b"], dmap.path_items.long(),
-                                   planes_n, m_pad)
-    seq_pack = _build_seq_pack(trainer.layer_params["embedding"],
-                               trainer.rerank_params["embedding"])
+    block_tab = dr_rerank.build_block_table(trainer.rerank_params["softmax_w"],
+                                            trainer.rerank_params["softmax_b"],
+                                            dmap.path_items.long(), planes_n, m_pad)
+    seq_pack = build_seq_pack(trainer.layer_params["embedding"],
+                              trainer.rerank_params["embedding"])
 
     @torch.no_grad()
     def fn(layer_params, rerank_params, seqs, consumed=None):
-        b, l_seq = seqs.shape
         # one bf16 [V, 2E] gather feeds the heads' sequence parts and the
         # rerank user vector
         svalid = seqs != -1
         srows = (seq_pack[torch.where(svalid, seqs, 0)].float()
                  * svalid[:, :, None])  # [B, L, 2E]
-        layer_flat = srows[:, :, :e].reshape(b, l_seq * e)
-        seq_parts = [layer_flat @ h["weight"][:, : l_seq * e].T for h in layer_params["heads"]]
-        lin = rerank_params["linear"]
-        user_vec = srows[:, :, e:].reshape(b, l_seq * e) @ lin["weight"].T + lin["bias"]
+        seq_parts, user_vec = window_parts(srows, layer_params, rerank_params, e)
         paths, _ = path_beam_search(layer_params, seqs, beam, num_items, num_nodes,
                                     num_layers, seq_parts=seq_parts)
         with profiling.span("dr_serve.rerank"):

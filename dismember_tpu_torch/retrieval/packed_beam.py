@@ -18,11 +18,12 @@ internal code c into one row:
 
 Ids are stored as exact float digits, never bit-cast: in an f32 table 2
 base-4096 digits a child (id = hi*4096 + lo), in a bf16 table 4 base-256
-digits (every digit an exact bf16 integer; ``_ID_LAYOUT``).  A bf16 table
-(``dtype=torch.bfloat16``) halves the memory, 8.6 GB -> 4.3 GB at 10M
-items; its embedding lanes are rounded to bf16, which the DIN scorer does
-to every operand anyway (``train.tdm.MATMUL_FIRST_SCORERS``), so its
-scores are those of the f32 table.  Tables above ``_ONE_SHOT_BUILD_BYTES``
+digits (every digit an exact bf16 integer; the id codec of
+``ops/packed_level_kernel.py``).  A bf16 table (``dtype=torch.bfloat16``)
+halves the memory, 8.6 GB -> 4.3 GB at 10M items; its embedding lanes are
+rounded to bf16, which the DIN scorer does to every operand anyway
+(``train.tdm.MATMUL_FIRST_SCORERS``), so its scores are those of the f32
+table.  Tables above ``_ONE_SHOT_BUILD_BYTES``
 are filled in row chunks, bit for bit the one-shot build, with the host's
 digit staging bounded by a chunk.  The JAX package's hybrid contraction
 levels and stride-2 subtree rows are TPU layout workarounds that give the
@@ -41,6 +42,8 @@ from dismember_tpu_torch.core import profiling
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.ops.packed_level_kernel import (
     ID_DIGITS,
+    decode_id_digits,
+    encode_id_digits,
     packed_level,
     pair_row_width,
     score_pair_rows,
@@ -53,41 +56,8 @@ from dismember_tpu_torch.retrieval.tree_beam import (
     start_frontier,
 )
 
-# id lanes per table dtype: (digits per id, base).  Every digit must be an
-# exact integer in the lane dtype: f32 takes 2 base-4096 digits (the top
-# digit <= 2^19 for int32 ids), bf16 (integers up to 256 exact) 4 base-256
-# digits (the top digit <= 127).
-_ID_LAYOUT = {torch.float32: (ID_DIGITS[torch.float32], 4096),
-              torch.bfloat16: (ID_DIGITS[torch.bfloat16], 256)}
 # builds above this many bytes go in row chunks of about this size
 _ONE_SHOT_BUILD_BYTES = 1 << 30
-
-
-def _id_layout(dtype: torch.dtype) -> tuple[int, int]:
-    """(digits per id, base) for a pair-table lane dtype."""
-    return _ID_LAYOUT[dtype]
-
-
-def _encode_id_digits(ids: np.ndarray, k: int, base: int) -> np.ndarray:
-    """[N] int -> [N, k] float32 radix digits; the TOP digit keeps the full
-    remaining quotient (and the sign: -1 -> (-1, base-1, ...) which decodes
-    back to -1 under the floor-division radix identity)."""
-    rem = ids.astype(np.int64)
-    digits = []
-    for _ in range(k - 1):
-        q = np.floor_divide(rem, base)
-        digits.append(rem - base * q)
-        rem = q
-    digits.append(rem)
-    return np.stack(digits[::-1], axis=-1).astype(np.float32)
-
-
-def _decode_id_digits(digits: torch.Tensor, base: int) -> torch.Tensor:
-    """[..., k] float digit lanes -> [...] exact int64 ids."""
-    acc = digits[..., 0].long()
-    for i in range(1, digits.shape[-1]):
-        acc = acc * base + digits[..., i].long()
-    return acc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +84,7 @@ def build_pair_table(
     equal chunks (the same bits)."""
     n_pairs = (total_codes - 1) // 2
     e = embedding.shape[1]
-    k, base = _id_layout(dtype)
+    k = ID_DIGITS[dtype]
     row_width = pair_row_width(e, dtype)
     table = torch.zeros((n_pairs, row_width), dtype=dtype, device=embedding.device)
     out_bytes = n_pairs * row_width * table.element_size()
@@ -125,7 +95,7 @@ def build_pair_table(
         lo, hi = 1 + 2 * start, 1 + 2 * stop  # the chunk's children
         table[start:stop, : 2 * e] = embedding[lo:hi].reshape(stop - start, 2 * e).to(dtype)
         exists = np.asarray(node_exists[lo:hi], np.float32).reshape(stop - start, 2)
-        digits = _encode_id_digits(np.asarray(node_id[lo:hi], np.int64), k, base)
+        digits = encode_id_digits(np.asarray(node_id[lo:hi], np.int64), dtype)
         lanes = np.concatenate([exists, digits[0::2], digits[1::2]], axis=1)
         table[start:stop, 2 * e : 2 * e + 2 + 2 * k] = torch.from_numpy(lanes).to(
             table.device).to(dtype)
@@ -178,10 +148,9 @@ def beam_search_packed(
                 lambda item_e: params.apply_from_emb(item_e, ctx), rows, alive, packed.embed_size)
 
         frontier, scores = start_frontier(cfg, b, seq_codes.device)
-        k, base = _id_layout(table.dtype)
-        dead = _encode_id_digits(np.asarray([-1]), k, base)[0]
+        dead = encode_id_digits(np.asarray([-1]), table.dtype)[0]
         ids_hilo = torch.tensor(dead, device=seq_codes.device).to(table.dtype).expand(
-            b, 2 * cfg.beam, k
+            b, 2 * cfg.beam, ID_DIGITS[table.dtype]
         )  # (-1, base-1, ...): a dead slot decodes to -1
         for _ in range(cfg.max_level - cfg.start_level):
             top_codes, top_alive = select_top(frontier, scores, cfg.beam)
@@ -190,7 +159,7 @@ def beam_search_packed(
             # K3's outputs are block-ordered (left children | right children)
             frontier = torch.cat([2 * top_codes + 1, 2 * top_codes + 2], dim=1)
 
-        ids = _decode_id_digits(ids_hilo, base)
+        ids = decode_id_digits(ids_hilo, table.dtype)
         leaf_ok = scores > NEG_INF / 2
         return torch.where(leaf_ok, ids, -1), scores
 

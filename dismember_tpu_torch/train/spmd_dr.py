@@ -33,6 +33,14 @@ from dismember_tpu_torch.core import mesh as meshlib
 from dismember_tpu_torch.core.checkpoint import flatten
 from dismember_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, round_up
 from dismember_tpu_torch.models import dr_models
+from dismember_tpu_torch.ops import dr_rerank
+from dismember_tpu_torch.retrieval.dr_serve import (
+    DevicePathMap,
+    build_seq_pack,
+    train_frequency_priority,
+    window_parts,
+)
+from dismember_tpu_torch.retrieval.path_beam import path_beam_search
 from dismember_tpu_torch.train import sparse_adam
 from dismember_tpu_torch.train.spmd_sparse import (
     allgather_rows,
@@ -213,20 +221,9 @@ def make_sharded_dr_serving_fn(trainer, mesh, beam: int | None = None,
     layer_params, rerank_params, seqs, consumed=None) -> (ids, scores)`` on
     this rank's "data" rows, the unsharded block route's results, or None
     when the dense path table or the block geometry does not fit."""
-    from dismember_tpu_torch.retrieval.dr_serve import (
-        DevicePathMap,
-        _block_geometry,
-        _build_block_table,
-        _build_seq_pack,
-        _score_blocks_topk,
-        _train_frequency_priority,
-        path_keys_and_dedup,
-    )
-    from dismember_tpu_torch.retrieval.path_beam import path_beam_search
-
     dev = meshlib.mesh_device(mesh)
     dmap = DevicePathMap.build(trainer.path_index, max_items_per_path,
-                               item_priority=_train_frequency_priority(trainer), device=dev)
+                               item_priority=train_frequency_priority(trainer), device=dev)
     if dmap is None:
         return None
     beam = beam or trainer.beam
@@ -236,7 +233,7 @@ def make_sharded_dr_serving_fn(trainer, mesh, beam: int | None = None,
         trainer.num_layers
     e = trainer.embed_size
     j_paths = max(1, int(trainer.num_paths))
-    geom = _block_geometry(e, m)
+    geom = dr_rerank.block_geometry(e, m)
     if geom is None:
         return None
     planes_n, m_pad = geom
@@ -247,14 +244,19 @@ def make_sharded_dr_serving_fn(trainer, mesh, beam: int | None = None,
         table = torch.cat([table, table.new_zeros(pad, *table.shape[1:])])
         return meshlib.local_rows(table, mesh).clone()
 
-    seq_shard = shard(_build_seq_pack(trainer.layer_params["embedding"],
-                                      trainer.rerank_params["embedding"]))
-    block_tab = _build_block_table(trainer.rerank_params["softmax_w"],
-                                   trainer.rerank_params["softmax_b"], dmap.path_items.long(),
-                                   planes_n, m_pad)
+    seq_shard = shard(build_seq_pack(trainer.layer_params["embedding"],
+                                     trainer.rerank_params["embedding"]))
+    block_tab = dr_rerank.build_block_table(trainer.rerank_params["softmax_w"],
+                                            trainer.rerank_params["softmax_b"],
+                                            dmap.path_items.long(), planes_n, m_pad)
     # zero rows pad the block table: their valid planes are 0
     block_shard = shard(block_tab.reshape(block_tab.shape[0], m_pad * planes_n))
     del block_tab
+
+    def blocks_of(rows):
+        blocks = gather_rows_sharded(block_shard, rows.reshape(-1).clamp_min(0),
+                                     (rows >= 0).reshape(-1), mesh, upcast=False)
+        return blocks.view(*rows.shape, m_pad, planes_n)
 
     @torch.no_grad()
     def fn(layer_params, rerank_params, seqs, consumed=None):
@@ -262,22 +264,14 @@ def make_sharded_dr_serving_fn(trainer, mesh, beam: int | None = None,
         svalid = (seqs != -1).reshape(-1)
         srows = gather_rows_sharded(seq_shard, torch.where(svalid, seqs.reshape(-1), 0),
                                     svalid, mesh).view(b, l_seq, 2 * e)
-        layer_flat = srows[:, :, :e].reshape(b, l_seq * e)
-        seq_parts = [layer_flat @ h["weight"][:, : l_seq * e].T for h in layer_params["heads"]]
-        lin = rerank_params["linear"]
-        user_vec = srows[:, :, e:].reshape(b, l_seq * e) @ lin["weight"].T + lin["bias"]
+        seq_parts, user_vec = window_parts(srows, layer_params, rerank_params, e)
         beam_params = {"embedding": layer_params["embedding"][num_items:],
                        "heads": layer_params["heads"]}
         paths, _ = path_beam_search(beam_params, seqs, beam, 0, num_nodes, num_layers,
                                     seq_parts=seq_parts)
-        keys, first = path_keys_and_dedup(paths, num_nodes)
-        rows = dmap.path_table[keys].long()  # [B, beam]
-        live = (rows >= 0).reshape(-1)
-        blocks = gather_rows_sharded(block_shard, rows.reshape(-1).clamp_min(0), live, mesh,
-                                     upcast=False)
-        blocks = blocks.view(b, beam, m_pad, planes_n)
-        return _score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
-                                  j_paths)
+        return dr_rerank.block_rerank_topk_plain(paths, dmap.path_table, None, user_vec,
+                                                 consumed, num_nodes, e, k, j_paths,
+                                                 blocks_of=blocks_of)
 
     fn.route = "block"
     fn._dmap = dmap

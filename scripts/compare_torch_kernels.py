@@ -22,9 +22,9 @@ Before any timed call, K1 and K3 of each version (and the ``div`` probe's
 K3) must lie within twice their tolerance of the first version's scores,
 and the add must agree with the first version's bit for bit.  Each
 library's ptxas registers and spills of K1 and K3 are printed.  With
-``--base`` it also says whether the SASS of K2 ``write_kernel`` and of K3
-at the serving shape's instance (E = 16, f32 rows, one sequence tile) is
-equal between the two libraries.
+``--base`` it also asserts that the SASS of every kernel instance both
+libraries have (K1, K3, K2's ``write_kernel``, the write and the add, and
+the DR rerank) is equal; an instance of one library only is not compared.
 
 ``--probe`` adds variants of this tree's K1 and K3, built with edits of
 their source, to split their time.  K1: ``k1_empty`` (returns at once: the
@@ -61,9 +61,8 @@ shapes at E <= 16 (``k3n_g<G>b<M>``: G warpgroups a block, the register
 cap set for M blocks an SM on one sequence tile; ``k3n_tiles_b<M>``: M
 blocks an SM past one tile), checked as the versions are, and
 ``--wide``'s probes that split the time.  With ``--base`` it first
-asserts that the SASS of K1, of K3 from E = 32 on, of the K3 instances
-that keep the narrow plan (chip_smoke.K3_NARROW: E = 8 on bf16 rows) and
-of K2 equals the base's.
+asserts that the SASS of K1, of K3 from E = 32 on, of K2 and of the DR
+rerank equals the base's.
 
 ``--wide-k1`` instead times K1 at E = 64, 96 and 128 (WIDE_K1_CASES: the
 serving shape [4096, 40], the JTM sweep's [8192, 4] and L = 24;
@@ -188,6 +187,9 @@ PROBES = {
 K3W_GROUPS = ("    kOneTile && (E == 32 || E == 96 || E == 128 && sizeof(Row) == 2) || "
               "E == 64 && !kOneTile\n        ? 3\n        : 2;")
 K3W_MIN_BLOCKS = "constexpr int kWgMinBlocks = E <= 16 && kOneTile ? 2 : 1;"
+# the warpgroup kernel's bias load (K1's direct kernel loads b2 alike)
+K3W_BIAS2 = ("  const float* bw = reinterpret_cast<const float*>(w + 3 * wg_matrix_bytes<E>());\n"
+             "  const float bias2 = __ldg(b2);\n")
 K3W_ATTENTION = ("    tile_attention<kOneTile, E>(acc, a_item, seq_e + (size_t)b * L * E, "
                  "pad + (size_t)b * L, L,\n                                g, t);")
 K3W_PRODUCTS = "    wg_products<E>(h, ae, a_item, w);"
@@ -209,8 +211,7 @@ WIDE_PROBES = {
          "      const int n = 8 * j + g;\n"
          "      f.at[j] = make_uint2(bf16x2(at1(l0, n), at1(l0 + 1, n)), "
          "bf16x2(at1(l0 + 8, n), at1(l0 + 9, n)));\n    }")],
-    "k3w_empty": [("  const float bias2 = __ldg(b2);\n",
-                   "  const float bias2 = __ldg(b2);\n  if (B > 0) return;\n")],
+    "k3w_empty": [(K3W_BIAS2, K3W_BIAS2 + "  if (B > 0) return;\n")],
     "k3w_loads_only": [(K3W_ATTENTION, "    zero(acc);"), (K3W_PRODUCTS, K3W_NO_PRODUCTS)],
     "k3w_no_attention": [(K3W_ATTENTION, "    zero(acc);")],
     "k3w_no_wgmma": [(K3W_PRODUCTS, K3W_NO_PRODUCTS)],
@@ -397,7 +398,7 @@ def sass(label: str) -> dict[str, list[str]]:
         labels: dict[str, str] = {}
         m = re.search(r"(din_score_kernel|din_score_direct_kernel|"
                       r"din_score_wide_kernel|din_prologue_kernel|"
-                      r"packed_level_kernel|packed_level_wgmma_kernel|write_kernel)\w*", name)
+                      r"packed_level_wgmma_kernel|write_kernel|dr_rerank_kernel)\w*", name)
         out[m[0] if m else name.strip()] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
             m[0], f".L_{len(labels)}"), i) for i in ins]
     return out
@@ -507,22 +508,21 @@ def wide(libs: dict, cases: list, probes: dict, checked: tuple) -> None:
         del rows, alive, seq_e, pad, ps, ph, outs, launches
 
 
-def sass_equal_outside(old: dict, new: dict, redesigned: str, widths: tuple,
-                       kept: tuple = ()) -> bool:
-    """Whether every kernel of the base library (K1, K3 and K2's
-    write_kernel, the write and the add) but the redesigned instances
-    (``redesigned``, "K1" or "K3", at ``widths``, save the (width, row
-    type) pairs in ``kept``, which stayed on their plan) has the same SASS
-    in the new one; the first differing instruction of each that differs is
-    printed."""
+def sass_equal_outside(old: dict, new: dict, redesigned: str = "", widths: tuple = ()) -> bool:
+    """Whether every kernel of the base library (K1, K3, K2's write_kernel,
+    the write and the add, and the DR rerank) but the redesigned instances
+    (``redesigned``, "K1" or "K3", at ``widths``) has the same SASS in the
+    new one; the first differing instruction of each that differs is
+    printed.  A base kernel that instance_name does not name (a K3 plan
+    this tree no longer has) is not compared."""
     groups, diffs = {}, {}
     for name, ins in old.items():
         inst = cs.instance_name(name)
         parts = inst.split() if inst else []
-        if (inst and inst.startswith(redesigned) and int(parts[1][2:]) in widths
-                and (int(parts[1][2:]), *parts[2:3]) not in kept):
+        if redesigned and inst and inst.startswith(redesigned) and int(parts[1][2:]) in widths:
             continue
-        group = inst.split()[0] if inst else "K2" if "write_kernel" in name else None
+        group = (inst.split()[0] if inst else "K2" if "write_kernel" in name
+                 else "DR" if "dr_rerank_kernel" in name else None)
         if group is None:
             continue
         other = new.get(name)
@@ -532,9 +532,9 @@ def sass_equal_outside(old: dict, new: dict, redesigned: str, widths: tuple,
                      min(len(ins), len(other)))
             diffs[name] = {"at": i, "lengths": [len(ins), len(other)],
                            "base": ins[i:i + 2], "new": other[i:i + 2]}
-    same = set(groups) == {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
+    same = set(groups) >= {"K1", "K3", "K2"} and all(all(v) for v in groups.values())
     cs.emit({"sass_identical": {g: all(v) for g, v in groups.items()}, "all": same,
-             "outside": f"{redesigned} at E = {widths}, save {kept}",
+             "outside": f"{redesigned} at E = {widths}" if redesigned else "nothing",
              "functions": {g: len(v) for g, v in groups.items()},
              "first_diffs": dict(list(diffs.items())[:4])})
     return same
@@ -718,9 +718,6 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         cs.emit({"ptxas": label, **{k: cs.ptxas_usage(log, f"din_score_kernel{k}")
                                     for k in ("", "ILi16ELi10E", "ILi16ELi0E")},
-                 # a base's K3 of the plan E <= 16 took before the warpgroup plan
-                 "packed_level_kernel E=16 f32 one-tile": cs.ptxas_usage(
-                     log, "packed_level_kernelILb1EfLi16E"),
                  **cs.instance_usage(log)})
     libs = {label: load(label) for label in sources}
     if args.wide or args.narrow:
@@ -728,14 +725,12 @@ def main() -> int:
         tc = {k: v for k, v in cs.mma_counts(OUT / "new" / "lib.so").items()
               if k.startswith("K3") and int(k.split()[1][2:]) in widths}
         cs.emit({"sass_mma": "new", **tc})
-        kept = cs.K3_NARROW if args.narrow else ()
-        same = (sass_equal_outside(sass("base"), sass("new"), "K3", widths, kept) if args.base
-                else True)
+        same = sass_equal_outside(sass("base"), sass("new"), "K3", widths) if args.base else True
         if args.narrow:
             wide(libs, NARROW_CASES, NARROW_PROBES, NARROW_CHECKED)
         else:
             wide(libs, WIDE_CASES, WIDE_PROBES, WIDE_CHECKED)
-        cs.check(same, f"SASS outside K3 at E = {widths} (save {kept}) differs from the base's")
+        cs.check(same, f"SASS outside K3 at E = {widths} differs from the base's")
         return 0
     if args.narrow_k1:
         # nothing redesigned in place: the base's K1 instances at E = 8 and
@@ -759,19 +754,7 @@ def main() -> int:
         cs.check(same, "SASS outside the wide K1 differs from the base's")
         return 0
 
-    if args.base:
-        old, new = sass("base"), sass("new")
-        pick = lambda fs, *keys: next((v for n, v in fs.items()  # noqa: E731
-                                       if any(k in n for k in keys)), [])
-        # the write: the plain kernel of a parent, write_kernel<false> (f32)
-        # here; K3 at E = 16 over f32 rows on one sequence tile (a base
-        # without that instance reads as no instructions)
-        for name, keys in (("write_kernel", ("write_kernelE", "write_kernelILb0EEv",
-                                             "write_kernelILb0EfE")),
-                           ("packed_level_wgmma_kernel",
-                            ("packed_level_wgmma_kernelILb1EfLi16EE",))):
-            a, b = pick(old, *keys), pick(new, *keys)
-            cs.emit({"sass_identical": name, "equal": a == b, "instructions": [len(a), len(b)]})
+    same = sass_equal_outside(sass("base"), sass("new")) if args.base else True
 
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -860,6 +843,7 @@ def main() -> int:
         for case, (t, i, r) in adds.items():
             cs.emit({"kernel": "add_rows", "version": label, "case": case,
                      **cs.time_ms(rows_fn(lib, "add_rows", t, i, r, i.numel()), flush=flush)})
+    cs.check(same, "SASS of a kernel both libraries have differs from the base's")
     return 0
 
 

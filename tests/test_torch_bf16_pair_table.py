@@ -24,6 +24,12 @@ from dismember_tpu.retrieval import packed_beam as jpb
 from dismember_tpu.serving import TDMServing as JTDMServing
 from dismember_tpu_torch.index.arraytree import ArrayTree
 from dismember_tpu_torch.models.din import DIN, params_from_numpy
+from dismember_tpu_torch.ops.packed_level_kernel import (
+    ID_BASE,
+    ID_DIGITS,
+    decode_id_digits,
+    encode_id_digits,
+)
 from dismember_tpu_torch.retrieval import packed_beam as pb
 from dismember_tpu_torch.serving import TDMServing
 from dismember_tpu_torch.train.tdm import packed_fns, serving_fns
@@ -119,13 +125,15 @@ def test_id_digit_roundtrip():
     ids = np.array([-1, 0, 1, 255, 256, 4095, 4096, 2**23 - 1, 2**23, 2**31 - 1, 2**31 - 2],
                    np.int64)
     for dtype in (torch.float32, torch.bfloat16):
-        k, base = pb._id_layout(dtype)
-        digits = pb._encode_id_digits(ids, k, base)
+        k, base = ID_DIGITS[dtype], ID_BASE[dtype]
+        digits = encode_id_digits(ids, dtype)
         np.testing.assert_array_equal(digits, jpb._encode_id_digits(ids, k, base))
         lanes = torch.from_numpy(digits).to(dtype)
         assert torch.equal(lanes.float(), torch.from_numpy(digits))  # exact in the lane dtype
-        np.testing.assert_array_equal(pb._decode_id_digits(lanes, base).numpy(), ids)
-    assert pb._id_layout(torch.bfloat16) == jpb._id_layout(jnp.bfloat16) == (4, 256)
+        np.testing.assert_array_equal(decode_id_digits(lanes, dtype).numpy(), ids)
+    assert (ID_DIGITS[torch.float32], ID_BASE[torch.float32]) == jpb._id_layout(jnp.float32)
+    assert (ID_DIGITS[torch.bfloat16], ID_BASE[torch.bfloat16]) == jpb._id_layout(jnp.bfloat16)
+    assert jpb._id_layout(jnp.bfloat16) == (4, 256)
 
 
 @pytest.mark.parametrize("beam", [4, 8])

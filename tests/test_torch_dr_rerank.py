@@ -1,11 +1,13 @@
 """DR serving's block rerank kernel (``ops/dr_rerank.py``,
 ``csrc/dr_rerank.cu``).
 
-On the CPU: the wrapper's plain branch is the former chain of the block
-closure (path keys and first copies, the path-table lookup, the block
-gather, ``_score_blocks_topk``) bit for bit; the kernel's contract (the top
-k distinct items by score descending, id ascending, written here in numpy)
-is that chain's result up to the order of equal scores; the CUDA branch,
+On the CPU: the wrapper's plain branch is the plain chain
+(``block_rerank_topk_plain``: path keys and first copies, the path-table
+lookup, the block read, score, filter, dedup and top-k), and the chain
+reading its rows through ``blocks_of`` as the mesh's masked gather does
+(zeros where a path has no row) gives the same bits; the kernel's contract
+(the top k distinct items by score descending, id ascending, written here
+in numpy) is that chain's result up to the order of equal scores; the CUDA branch,
 reached with a fake library, launches once a call with the geometry it was
 given and raises on what the kernel does not take; ``profiling.snapshot()``
 reports the launches.  On the card (``card`` tests, which import no JAX;
@@ -77,13 +79,13 @@ def make_case(spec: tuple, seed: int = 0) -> dict:
     dmap = dr_serve.DevicePathMap.build(PathIndex(item_paths=item_paths, num_nodes=kn),
                                         device="cpu")
     m = dmap.path_items.shape[1]
-    planes, m_pad = dr_serve._block_geometry(e, m)
+    planes, m_pad = dr_rerank.block_geometry(e, m)
     if "geometry" in opts:
         assert (planes, m_pad) == opts["geometry"], (m, planes, m_pad)
     g = torch.Generator().manual_seed(seed)
     w = torch.randn(items, e, generator=g)
     bias = torch.randn(items, generator=g) * 0.5
-    block_tab = dr_serve._build_block_table(w, bias, dmap.path_items.long(), planes, m_pad)
+    block_tab = dr_rerank.build_block_table(w, bias, dmap.path_items.long(), planes, m_pad)
     paths = rng.integers(0, kn, (b, beam, depth))
     if opts.get("padded_beam"):
         h = beam // 2
@@ -103,13 +105,11 @@ def make_case(spec: tuple, seed: int = 0) -> dict:
     return case
 
 
-def former_chain(paths, path_table, block_tab, user_vec, consumed, num_nodes, e, k, j_paths):
-    """The block closure's rerank before the kernel, as it was written."""
-    keys, first = dr_serve.path_keys_and_dedup(paths, num_nodes)
-    rows = path_table[keys].long()  # [B, beam]
-    blocks = block_tab[rows.clamp_min(0)]  # [B, beam, m_pad, planes]
-    return dr_serve._score_blocks_topk(blocks, (rows >= 0) & first, user_vec, consumed, e, k,
-                                       j_paths)
+def masked_gather(block_tab):
+    """``blocks_of`` as the mesh's masked gather reads rows: zeros where a
+    path has no row."""
+    return lambda rows: torch.where((rows >= 0)[..., None, None], block_tab[rows.clamp_min(0)],
+                                    0)
 
 
 def contract(paths, path_table, block_tab, user_vec, consumed, num_nodes, e, k, j_paths):
@@ -187,7 +187,8 @@ def agree_up_to_ties(ids, scores, ref_ids, ref_scores, kth1) -> None:
 def test_plain_branch_is_the_former_chain_and_the_kernels_contract(name):
     case = make_case(CPU_CASES[name])
     ids, scores = dr_rerank.block_rerank_topk(**case)
-    ref_ids, ref_scores = former_chain(**case)
+    ref_ids, ref_scores = dr_rerank.block_rerank_topk_plain(
+        **{**case, "block_tab": None}, blocks_of=masked_gather(case["block_tab"]))
     assert torch.equal(ids, ref_ids)
     assert torch.equal(scores.view(torch.int32), ref_scores.view(torch.int32))
     got_ids, got_scores = contract(**case)
@@ -195,10 +196,10 @@ def test_plain_branch_is_the_former_chain_and_the_kernels_contract(name):
     if name == "short_rows":
         assert (ids[:, -1] == -1).any() and (scores[ids == -1] == NEG_INF).all()
     if name == "padded_beam":
-        _, first = dr_serve.path_keys_and_dedup(case["paths"], case["num_nodes"])
+        _, first = dr_rerank.path_keys_and_dedup(case["paths"], case["num_nodes"])
         assert not first.all()
     if name == "empty_paths":
-        keys, _ = dr_serve.path_keys_and_dedup(case["paths"], case["num_nodes"])
+        keys, _ = dr_rerank.path_keys_and_dedup(case["paths"], case["num_nodes"])
         assert (case["path_table"][keys] < 0).any()
 
 
@@ -322,7 +323,7 @@ def test_cuda_branch_raises_on_a_failed_launch(fake_lib):
 
 def test_the_kernel_takes_every_block_geometry_and_mirrors_its_limits():
     """The wrapper's limits are the source's, and it takes every geometry
-    ``_block_geometry`` gives at the built widths (slots of 4-byte-aligned
+    ``block_geometry`` gives at the built widths (slots of 4-byte-aligned
     planes, rows of 16-byte vectors)."""
     src = CSRC.read_text()
     assert int(re.search(r"constexpr int kMaxBeam = (\d+);", src)[1]) == dr_rerank.MAX_BEAM
@@ -331,13 +332,13 @@ def test_the_kernel_takes_every_block_geometry_and_mirrors_its_limits():
     assert built == dr_rerank.KERNEL_WIDTHS
     for e in dr_rerank.KERNEL_WIDTHS:
         for m in range(1, 129):
-            planes, m_pad = dr_serve._block_geometry(e, m)
+            planes, m_pad = dr_rerank.block_geometry(e, m)
             assert planes % 2 == 0 and planes >= e + 6 and planes * m_pad % 8 == 0
             dr_rerank._check(torch.zeros(2, 20, 3, dtype=torch.long),
                              torch.zeros(4**3, dtype=torch.int32),
                              torch.zeros(1, m_pad, planes, dtype=torch.bfloat16),
                              torch.zeros(2, e), None, 4, e, min(10, 20 * m_pad))
-    assert dr_serve._block_geometry(128, 1) is None  # no block route past the widths
+    assert dr_rerank.block_geometry(128, 1) is None  # no block route past the widths
 
 
 @pytest.mark.parametrize("e,beam,k,taken", [(16, 20, 10, True), (96, 256, 256, True),

@@ -21,6 +21,7 @@ from dismember_tpu.serving import DRServing as JDRServing
 from dismember_tpu.train.dr import DRTrainer as JDRTrainer
 from dismember_tpu_torch.data.dr_dataset import build_dr_data
 from dismember_tpu_torch.index.paths import PathIndex
+from dismember_tpu_torch.ops import dr_rerank
 from dismember_tpu_torch.retrieval import dr_serve
 from dismember_tpu_torch.retrieval.path_beam import path_beam_search
 from dismember_tpu_torch.serving import DRServing
@@ -96,7 +97,7 @@ def test_path_beam_search_matches_by_path_sets(datas, name):
 @pytest.mark.parametrize("name", list(MAPS))
 def test_device_path_map_matches(datas, name):
     tr, jtr = _pair(datas, name)
-    prio = dr_serve._train_frequency_priority(tr)
+    prio = dr_serve.train_frequency_priority(tr)
     np.testing.assert_array_equal(prio, jserve._train_frequency_priority(jtr))
     for cap, p in ((128, prio), (128, None), (3, prio)):
         got = dr_serve.DevicePathMap.build(tr.path_index, cap, item_priority=p, device="cpu")
@@ -112,8 +113,8 @@ def test_device_path_map_matches(datas, name):
 def test_block_geometry_matches():
     for e in (8, 16, 32):
         for m in range(1, 131):
-            assert dr_serve._block_geometry(e, m) == jserve._block_geometry(e, m), (e, m)
-    assert dr_serve._block_geometry(126, 4) is None
+            assert dr_rerank.block_geometry(e, m) == jserve._block_geometry(e, m), (e, m)
+    assert dr_rerank.block_geometry(126, 4) is None
 
 
 @pytest.mark.parametrize("route", ["exact", "packed", "block"])

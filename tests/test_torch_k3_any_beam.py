@@ -1,13 +1,19 @@
 """K3 at any beam and any sequence length, held on the CPU.
 
-Where the kernel stages a query row's beam (E = 8 on bf16 rows) the
-staging grows with the beam, so the wrapper splits a beam wider than one
-launch takes into chunks of parents and puts the chunks' block-ordered
-outputs back together; sequences past one 16-position
-tile go through the kernel in tiles.  The split is plain Python: with the
-chunk forced small it must equal the unsplit plain level.  The plain level
-takes any L and must agree with the JAX package's Pallas kernel (interpret
-mode) past one tile."""
+One launch takes any beam (the kernel's shared memory does not grow with
+it), and sequences past one 16-position tile go through the kernel in
+tiles.  The plain level takes any beam and any L and must agree with the
+JAX package's Pallas kernel (interpret mode) at wide beams and past one
+tile.
+
+Tolerances: ids and dead masks bit for bit; scores within RTOL/ATOL, as
+tests/test_pallas_din.py holds them.  Both sides round six operands to
+bf16 after f32 sums taken in different orders, so now and then one side
+rounds an operand to the neighbouring bf16 value (a flip, ~0.4% of the
+logit): at beams past 12, whose rows hold 74 candidates and more, a
+share FLIP_SHARE of the scores may pass RTOL/ATOL (beam 65 at L = 17 has
+one flip in 780), each within K3's tolerance K3_ATOL/K3_RTOL
+(chip_smoke.TOL)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,12 +24,12 @@ from dismember_tpu.ops.packed_level_kernel import packed_level_pallas
 from dismember_tpu_torch.models.din import params_from_numpy
 from dismember_tpu_torch.ops.packed_level_kernel import (
     NEG_INF,
-    _split_beam,
     packed_level,
-    packed_level_plain,
 )
 
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_pallas_din.py's tolerance
+K3_ATOL, K3_RTOL = 1e-1, 1e-2
+FLIP_SHARE = 1e-2
 E = 16
 
 
@@ -58,24 +64,12 @@ def _inputs(rng, b, beam, l):
     return [torch.as_tensor(a) for a in (rows, alive, seq_e, pad)]
 
 
-@pytest.mark.parametrize("beam,chunk", [(65, 16), (110, 32), (37, 5), (9, 9), (9, 1)])
-def test_beam_split_equals_the_unsplit_level(beam, chunk):
-    rng = np.random.default_rng(beam * 7 + chunk)
-    w = params_from_numpy(_params(rng), device="cpu").scorer_weights()
-    rows, alive, seq_e, pad = _inputs(rng, 5, beam, 10)
-    with torch.inference_mode():
-        want_s, want_h = packed_level_plain(rows, alive, seq_e, pad, *w, E)
-        got_s, got_h = _split_beam(packed_level_plain, chunk, rows, alive, seq_e, pad, *w, E)
-    assert got_s.shape == (5, 2 * beam) and got_h.shape == (5, 2 * beam, 2)
-    np.testing.assert_array_equal(got_h.numpy().view(np.int32), want_h.numpy().view(np.int32))
-    np.testing.assert_array_equal(got_s.numpy(), want_s.numpy())
-
-
-@pytest.mark.parametrize("l", [17, 24, 40])
-def test_plain_level_past_one_tile_matches_pallas(l):
-    rng = np.random.default_rng(l)
+@pytest.mark.parametrize("beam,l", [(12, 17), (12, 24), (12, 40), (65, 17), (110, 24),
+                                    (37, 40), (9, 17), (9, 24)])
+def test_plain_level_past_one_tile_matches_pallas(beam, l):
+    rng = np.random.default_rng(1000 * beam + l)
     p = _params(rng)
-    rows, alive, seq_e, pad = _inputs(rng, 6, 12, l)
+    rows, alive, seq_e, pad = _inputs(rng, 6, beam, l)
     js, jh = packed_level_pallas(
         {k: jnp.asarray(v) if not isinstance(v, dict) else
          {kk: jnp.asarray(vv) for kk, vv in v.items()} for k, v in p.items()},
@@ -84,16 +78,21 @@ def test_plain_level_past_one_tile_matches_pallas(l):
     with torch.inference_mode():
         ts, th = packed_level(rows, alive, seq_e, pad,
                               *params_from_numpy(p, device="cpu").scorer_weights(), E)
+    got, want = ts.numpy(), np.asarray(js)
     np.testing.assert_array_equal(th.numpy().view(np.int32), np.asarray(jh).view(np.int32))
-    np.testing.assert_array_equal(ts.numpy() > NEG_INF / 2, np.asarray(js) > NEG_INF / 2)
-    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got > NEG_INF / 2, want > NEG_INF / 2)
+    if beam <= 12:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL)
+        flips = np.abs(got - want) > ATOL + RTOL * np.abs(want)
+        assert flips.mean() <= FLIP_SHARE, f"{flips.sum()} of {flips.size} scores past RTOL"
 
 
 @pytest.mark.parametrize("beam,l", [(3, 17), (1500, 40)])
 def test_wrapper_takes_long_sequences_and_wide_beams_on_cuda(beam, l):
-    """Sequences past one tile and beams past one launch's fit pass the
-    wrapper's own checks and reach its device checks (the launch itself
-    needs the card)."""
+    """Sequences past one tile and wide beams pass the wrapper's own checks
+    and reach its device checks (the launch itself needs the card)."""
     w = params_from_numpy(_params(np.random.default_rng(0)), device="cpu").scorer_weights()
     rows = torch.zeros(2, beam, 128).as_subclass(_FakeCuda)
     with pytest.raises(ValueError, match="expected cuda"):

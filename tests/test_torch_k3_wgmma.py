@@ -1,5 +1,5 @@
-"""K3's warpgroup plan at every built width (E = 8 to 128; at E = 8 on f32
-rows only), held on the CPU.
+"""K3's warpgroup plan at every built width (E = 8 to 128) and row type,
+held on the CPU.
 
 The CUDA kernel (``packed_level_wgmma_kernel`` in ``csrc/din_kernels.cu``)
 runs only on the card.  Here a plain-PyTorch emulation of its schedule
@@ -13,8 +13,8 @@ bf16 roundings, each operand's k-steps in the kernel's k order and E =
 8's one k-step padded to 16 with zeros, masks and digits put back in
 block order.  At E = 8 and 16 the kernel walks query rows instead: a
 64-row tile is tile m of four consecutive query rows.  Also the build gate
-that holds every warpgroup-plan K3 instance to wgmma, and the wrapper's
-single launch at any beam on that plan."""
+that holds every K3 instance to wgmma, and the wrapper's single launch at
+any beam."""
 
 import re
 from pathlib import Path
@@ -206,10 +206,10 @@ def _hold(got, want, rows):
 @pytest.mark.parametrize("e,beam,l,dtype", [
     *((32, beam, l, dt) for dt in (torch.float32, torch.bfloat16)  # two k-steps, four n-tiles
       for beam, l in ((1, 10), (20, 10), (110, 10), (20, 24))),
-    # E = 16: one k-step, two n-tiles; E = 8 (f32 rows: bf16 rows keep the
-    # narrow plan there): one k-step padded to 16, one n-tile
-    *((e, beam, l, dt) for e, dt in ((8, torch.float32), (16, torch.float32),
-                                      (16, torch.bfloat16))
+    # E = 16: one k-step, two n-tiles; E = 8: one k-step padded to 16, one
+    # n-tile
+    *((e, beam, l, dt) for e, dt in ((8, torch.float32), (8, torch.bfloat16),
+                                      (16, torch.float32), (16, torch.bfloat16))
       for beam, l in ((1, 10), (20, 10), (110, 10), (20, 24))),
     (64, 1, 10, torch.float32),     # four query rows in one 64-row tile
     (64, 7, 24, torch.float32),     # one 16-row tile a row, two sequence tiles
@@ -275,14 +275,13 @@ def test_k_orders_are_the_fragment_layouts():
 
 @pytest.mark.parametrize("bad", ["K3 E=64 f32 one-tile", "K3 E=128 bf16 tiles",
                                  "K3 E=32 f32 one-tile", "K3 E=32 bf16 tiles",
-                                 "K3 E=16 f32 one-tile", "K3 E=8 f32 tiles"])
+                                 "K3 E=16 f32 one-tile", "K3 E=8 f32 tiles",
+                                 "K3 E=8 bf16 one-tile"])
 def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
-    """chip_smoke's build gate: a K3 instance of the warpgroup plan (every
-    width but E = 8 on bf16 rows, E = 8 and 16 included since they moved
-    onto it) on mma.sync alone (HMMA, no HGMMA) fails it, as does any K3 or
-    wide K1 instance (E = 32, whose sweep batches take the wide kernel, and
-    up) without either; the narrow K3 (E = 8, bf16 rows) and the wide K1
-    pass on HMMA alone."""
+    """chip_smoke's build gate: a K3 instance (the warpgroup plan, at every
+    width and row type) on mma.sync alone (HMMA, no HGMMA) fails it, as does
+    any K3 or wide K1 instance (E = 32, whose sweep batches take the wide
+    kernel, and up) without either; the wide K1 passes on HMMA alone."""
     import chip_smoke
 
     mangled = {"K3 E=64 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi64EEvPKT0_",
@@ -292,53 +291,41 @@ def test_tensor_core_gate_wants_hgmma_in_every_wide_k3(bad):
                "K3 E=32 bf16 tiles":
                    "packed_level_wgmma_kernelILb0E13__nv_bfloat16Li32EEvPKT0_",
                "K3 E=16 f32 one-tile": "packed_level_wgmma_kernelILb1EfLi16EEvPKT0_",
-               "K3 E=8 f32 tiles": "packed_level_wgmma_kernelILb0EfLi8EEvPKT0_"}[bad]
+               "K3 E=8 f32 tiles": "packed_level_wgmma_kernelILb0EfLi8EEvPKT0_",
+               "K3 E=8 bf16 one-tile":
+                   "packed_level_wgmma_kernelILb1E13__nv_bfloat16Li8EEvPKT0_"}[bad]
     assert chip_smoke.instance_name(f"_ZN12_GLOBAL__N_1{len('packed_level_wgmma_kernel')}"
                                     f"{mangled}") == bad
     counts = {n: {"HMMA": 4, "HGMMA": 0} for n in (
         {f"K3 E={e} {r} {t}" for e in (8, 16, 32, 64, 96, 128) for r in ("f32", "bf16")
          for t in ("one-tile", "tiles")} | {f"K1 E={e}" for e in (32, 64, 96, 128)})}
     for n in counts:
-        if n.startswith("K3") and not n.startswith("K3 E=8 bf16"):
+        if n.startswith("K3"):
             counts[n]["HGMMA"] = 24
     assert chip_smoke.tensor_core_gate(counts) == []
     counts[bad] = {"HMMA": 40, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == [bad]
     counts["K1 E=96"] = {"HMMA": 0, "HGMMA": 0}
     assert chip_smoke.tensor_core_gate(counts) == sorted([bad, "K1 E=96"])
-    assert chip_smoke.reg_cap(bad) == {"K3 E=32 f32 one-tile": 168,
-                                       "K3 E=16 f32 one-tile": 64}.get(bad, 255)
+    assert chip_smoke.reg_cap(bad) == {"K3 E=32 f32 one-tile": 168, "K3 E=16 f32 one-tile": 64,
+                                       "K3 E=8 bf16 one-tile": 64}.get(bad, 255)
 
 
 @pytest.mark.parametrize("rows", ["f32", "bf16"])
 @pytest.mark.parametrize("e", [8, 16, 32, 64, 96, 128])
 def test_wrapper_launches_a_wide_beam_once(monkeypatch, e, rows):
-    """At every built width and row type that the source puts on the
-    warpgroup plan (all but kNarrowLevel's) the wrapper takes beam 1,500
-    (wider than the ~1,340 parents a block of the narrow plan held at E =
-    16, which was split in chunks) in one launch, on a library whose
-    single-launch limit is that plan's (kWgMaxBeam).  The (width, row type)
-    that kNarrowLevel keeps on the narrow plan is chip_smoke.K3_NARROW, and
-    there a limit under the beam splits it in two launches."""
-    import chip_smoke
-
+    """At every built width and row type the wrapper takes beam 1,500
+    (wider than the ~1,340 parents a block of the plan the warpgroup plan
+    replaced held at E = 16, and the ~3,050 the narrow plan held at E = 8 on
+    bf16 rows, each of which split a wider beam) in one launch, and the
+    source's single-launch limit (kWgMaxBeam) lies past it."""
     src = CSRC.read_text()
     m = re.search(r"constexpr int kWgMaxBeam = \(1 << (\d+)\) - (\d+);", src)
-    limit = (1 << int(m[1])) - int(m[2])
-    m = re.search(r"constexpr bool kNarrowLevel = E == (\d+) && sizeof\(Row\) == (\d+);", src)
-    narrow = {(int(m[1]), {2: "bf16", 4: "f32"}[int(m[2])])}
-    assert narrow == set(chip_smoke.K3_NARROW)
-    narrow_limit = 1000
+    assert (1 << int(m[1])) - int(m[2]) > 1500
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[rows]
     calls = []
 
     class _Lib:
-        def packed_level_max_beam(self, l, e):
-            return narrow_limit if (e, "f32") in narrow else limit
-
-        def packed_level_max_beam_bf16rows(self, l, e):
-            return narrow_limit if (e, "bf16") in narrow else limit
-
         def packed_level_bf16(self, *args):
             calls.append(args[11:16])  # B, beam, row width, L, E
             return 0
@@ -347,8 +334,6 @@ def test_wrapper_launches_a_wide_beam_once(monkeypatch, e, rows):
 
     monkeypatch.setattr(_cuda, "library", lambda: _Lib())
     monkeypatch.setattr(_cuda, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device", lambda i: __import__("contextlib").nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
     fake = lambda *s, dtype=torch.float32: (  # noqa: E731
@@ -358,13 +343,8 @@ def test_wrapper_launches_a_wide_beam_once(monkeypatch, e, rows):
         _params(np.random.default_rng(0), e), device="cpu").scorer_weights()]
     width = pair_row_width(e, dt)
     n0 = packed_level_kernel.launches_by_width[e, dt]
-    packed_level_kernel._kernel_max_beam.cache_clear()
-    try:
-        scores, hilo = packed_level(fake(b, beam, width, dtype=dt), fake(b, beam),
-                                    fake(b, l, e), fake(b, l), *w, e)
-    finally:
-        packed_level_kernel._kernel_max_beam.cache_clear()
-    chunks = ([narrow_limit, beam - narrow_limit] if (e, rows) in narrow else [beam])
-    assert calls == [(b, c, width, l, e) for c in chunks]
+    scores, hilo = packed_level(fake(b, beam, width, dtype=dt), fake(b, beam),
+                                fake(b, l, e), fake(b, l), *w, e)
+    assert calls == [(b, beam, width, l, e)]
     assert scores.shape == (b, 2 * beam) and hilo.shape[:2] == (b, 2 * beam)
-    assert packed_level_kernel.launches_by_width[e, dt] == n0 + len(chunks)
+    assert packed_level_kernel.launches_by_width[e, dt] == n0 + 1

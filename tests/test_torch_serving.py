@@ -246,3 +246,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in banned, f"{f.relative_to(REPO)} imports {name}"
+
+
+def test_ops_and_core_import_nothing_above_them():
+    """The kernels (``ops/``) and the shared core (``core/``) sit below the
+    retrieval loops, the trainers, the serving facades and the CLI: no
+    module of theirs imports one of those, inside a function either."""
+    pkg = REPO / "dismember_tpu_torch"
+    files = sorted((pkg / "ops").rglob("*.py")) + sorted((pkg / "core").rglob("*.py"))
+    assert len(files) > 5
+    above = ("retrieval", "train", "serving", "cli")
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{f.relative_to(REPO)}: a relative import"
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                parts = name.split(".")
+                assert not (parts[0] == "dismember_tpu_torch" and len(parts) > 1
+                            and parts[1] in above), f"{f.relative_to(REPO)} imports {name}"

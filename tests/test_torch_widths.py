@@ -5,8 +5,8 @@ The CUDA instances at those widths run only on the card
 which the wrappers take for CPU tensors, go against the JAX package's
 Pallas kernels (interpret mode) at each width, the packed serving route at
 E = 8 and 32 against the JAX facade on the Pallas level body, and the
-wrapper's own width logic: the widths it launches, the pair-row width it
-takes, and the beam split at a width's own single-launch limit."""
+wrapper's own width logic: the widths it launches and the pair-row width it
+takes."""
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +28,6 @@ from dismember_tpu_torch.ops.din_kernel import KERNEL_WIDTHS
 from dismember_tpu_torch.ops.packed_level_kernel import (
     NEG_INF,
     packed_level,
-    packed_level_plain,
     pair_row_width,
 )
 from dismember_tpu_torch.serving import TDMServing
@@ -90,7 +89,7 @@ def test_k1_plain_matches_pallas_at_width(e, u, l):
 
 
 @pytest.mark.parametrize("e", WIDTHS)
-@pytest.mark.parametrize("beam,l", [(20, 10), (5, 24)])
+@pytest.mark.parametrize("beam,l", [(20, 10), (5, 24), (110, 10)])
 def test_k3_plain_matches_pallas_at_width(e, beam, l):
     rng = np.random.default_rng(e + beam + l)
     p = _params(rng, 31, e)
@@ -157,33 +156,6 @@ def test_wrapper_checks_the_pair_row_width(e):
         packed_level(rows, torch.ones(2, 3), torch.zeros(2, 4, e), torch.ones(2, 4), *w, e)
 
 
-@pytest.mark.parametrize("e,limit", [(8, 9), (32, 7)])
-def test_beam_splits_at_the_widths_own_limit(monkeypatch, e, limit):
-    """The single-launch beam limit is asked at the level's E, and a wider
-    beam goes in chunks of that many parents whose outputs equal the
-    unsplit plain level."""
-    rng = np.random.default_rng(e)
-    w = params_from_numpy(_params(rng, 31, e), device="cpu").scorer_weights()
-    rows, alive, seq_e, pad = (torch.as_tensor(a) for a in _level_inputs(rng, 3, 20, e, 10))
-    asked, chunks = [], []
-    monkeypatch.setattr(packed_level_kernel, "_kernel_max_beam",
-                        lambda l, e_, dev, bf16: asked.append((l, e_, bf16)) or limit)
-
-    def launch(r, a, *rest):
-        chunks.append(r.shape[1])
-        return packed_level_plain(r.as_subclass(torch.Tensor), a, *rest)
-
-    monkeypatch.setattr(packed_level_kernel, "_launch", launch)
-    monkeypatch.setattr(packed_level_kernel._cuda, "check_inputs", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    with torch.inference_mode():
-        got = packed_level(rows.as_subclass(_FakeCuda), alive, seq_e, pad, *w, e)
-        want = packed_level_plain(rows, alive, seq_e, pad, *w, e)
-    assert asked == [(10, e, False)]
-    assert chunks == [limit] * (20 // limit) + ([20 % limit] if 20 % limit else [])
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
 @pytest.mark.parametrize("e", WIDTHS)
 def test_packed_serving_matches_jax_at_width(tmp_path, small_csv, e):
     """TDMServing.load of a DIN checkpoint at E = 8 and 32 on the packed
@@ -231,7 +203,7 @@ ptxas info    : Used 105 registers, used 1 barriers, 17424 bytes smem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116din_score_kernelILi32ELi0EEEvPKfS2_' for 'sm_90a'
     0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 103 registers, used 1 barriers, 17424 bytes smem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119packed_level_kernelILb1E13__nv_bfloat16Li8EEEvPKT0_' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125packed_level_wgmma_kernelILb1E13__nv_bfloat16Li8EEEvPKT0_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 56 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112write_kernelILb1EfEEvPT0_' for 'sm_90a'
